@@ -1,0 +1,546 @@
+// Forward path-tracing render kernel for Hopper (sm_90a), written by hand.
+//
+// Replaces the Pallas kernel of rust_tracing_tpu/ops/megakernel.py
+// (`_make_kernel.kernel`, render mode, brute-force primitive loop): the whole
+// render of a pixel range in one launch. Camera ray, closest hit over spheres
+// and quads, constant media, five-material scatter, emission, solid/checker
+// textures, spp accumulation.
+//
+// Design for this card, not carried over from the TPU tile by tile:
+//  - One thread per pixel, 8x8 blocks of neighbouring pixels so a warp's rays
+//    are coherent; pixels outside the frame or the requested range are masked.
+//  - Each thread runs its own `for sample { for bounce }` loop. The TPU kernel
+//    regenerates dead lanes to keep a 1024-lane vector full; per pixel it adds
+//    finished samples in sample order, so this nested loop gives the same sums.
+//  - Scene tables are read from global memory through the read-only path
+//    (`__ldg`, vector loads of whole rows). All threads of a warp read the same
+//    primitive row at the same time, a broadcast served by L1. Nothing is
+//    staged in shared memory, so no table size can overflow it: the tables are
+//    bounded by device memory only (the primitive loop is brute force, and the
+//    host refuses scenes past its BVH threshold).
+//  - Camera, spp, depth, primitive counts, seed, pixel range and sample offset
+//    are runtime arguments: one compiled library serves every scene and camera.
+//  - Bound: operations. The kernel reads a few KB of tables and writes 16 bytes
+//    a pixel; its work is rays x primitives x ~25 flop plus shading.
+//
+// Arithmetic contract with the plain PyTorch version (ops/megakernel.py,
+// `render_fast_plain`): the same f32 operations in the same order. Build with
+// `--fmad=false` and without `--use_fast_math`: a contracted multiply-add in
+// `disc > 0`, `alpha <= 1` or `t < t_best` flips a hit decision and the path
+// after it is a different path, not a slightly different number. Division and
+// square root are IEEE; `sinf cosf logf expf rsqrtf` are the device library's,
+// which PyTorch's CUDA ops call too. Integer powers are written as repeated
+// multiplication in this order: x^2 = x*x, x^5 = x * ((x*x) * (x*x)).
+// `fmaxf`/`fminf` drop a NaN operand where the plain version would propagate
+// it; no operand here can be NaN for finite scenes and rays.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hashrng.cuh"
+
+namespace rt {
+
+// Mirrors ops/megakernel.py::RenderParams field for field.
+struct RenderParams {
+    float center[3];
+    float pixel00[3];
+    float delta_u[3];
+    float delta_v[3];
+    float disk_u[3];
+    float disk_v[3];
+    float background[3];
+    int has_defocus;
+    int width, height, spp, max_depth;
+    int n_spheres, n_quads, n_media;
+    int seed;
+    int pixel_base, pixel_count, sample_offset;
+};
+
+struct SceneTables {
+    const float4* sph_f;  // (S,8)  cx cy cz r2 | inv_r mvx mvy mvz
+    const int* sph_m;     // (S,)
+    const float4* quad_f; // (Q,16) q(3) u(3) v(3) n(3) w(3) d
+    const int* quad_m;    // (Q,)
+    const float* med_f;   // (M,24) R(9) trans(3) lo(3) hi(3) c(3) r2 nid pad
+    const int* med_i;     // (M,2)  type mat
+    const float* mat_f;   // (N,5)  alb_r alb_g alb_b fuzz ir
+    const int* mat_i;     // (N,2)  type tex
+    const float* tex_f;   // (T,4)  rgb_r rgb_g rgb_b scale
+    const int* tex_i;     // (T,3)  type even odd
+};
+
+// What a trace computes. RENDER shades and accumulates radiance; RECORD and
+// HIT (later kernels: winner ids per bounce, one-bounce search) reuse the same
+// device functions and additionally track which primitive won.
+enum Mode { MODE_RENDER = 0, MODE_RECORD = 1, MODE_HIT = 2 };
+
+constexpr float T_MIN = 1e-3f;
+constexpr float QUAD_DENOM_EPS = 1e-8f;
+constexpr float ORIGIN_EPS_ABS = 1e-4f;
+constexpr float ORIGIN_EPS_REL = 2e-4f;
+
+// material type codes (models/scene.py); 2 is DIELECTRIC, the last branch
+constexpr int LAMBERTIAN = 0, METAL = 1, DIFFUSE_LIGHT = 3, ISOTROPIC = 4;
+constexpr int TEX_CHECKER = 1;
+constexpr int MED_BOX = 1;
+
+struct Ray {
+    float ox, oy, oz, dx, dy, dz, time;
+};
+
+struct Hit {
+    float t_best;
+    float nx, ny, nz;
+    int mat;
+    bool is_med;
+    int kind, idx;  // winner record (1 sphere, 2 quad, 3+m medium); not RENDER
+};
+
+// sphere.rs:59-89 + moving-centre lerp: strict bounds, near root preferred.
+template <int MODE>
+__device__ __forceinline__ void sphere_test(const SceneTables& sc, int i,
+                                            const Ray& r, float a_len,
+                                            float inv_a, Hit& h) {
+    const float4 s0 = __ldg(sc.sph_f + 2 * i);
+    const float4 s1 = __ldg(sc.sph_f + 2 * i + 1);
+    const float ccx = s0.x + s1.y * r.time;
+    const float ccy = s0.y + s1.z * r.time;
+    const float ccz = s0.z + s1.w * r.time;
+    const float r2 = s0.w, inv_r = s1.x;
+    const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
+    const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - r2;
+    const float disc = half_b * half_b - a_len * c;
+    if (!(disc > 0.0f)) return;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float r1 = (-half_b - sq) * inv_a;
+    const float rr2 = (-half_b + sq) * inv_a;
+    const bool ok1 = (r1 > T_MIN) && (r1 < h.t_best);
+    const bool ok2 = (rr2 > T_MIN) && (rr2 < h.t_best);
+    if (!(ok1 || ok2)) return;
+    const float root = ok1 ? r1 : rr2;
+    h.t_best = root;
+    h.mat = __ldg(sc.sph_m + i);
+    h.nx = (r.ox + root * r.dx - ccx) * inv_r;
+    h.ny = (r.oy + root * r.dy - ccy) * inv_r;
+    h.nz = (r.oz + root * r.dz - ccz) * inv_r;
+    h.is_med = false;
+    if (MODE != MODE_RENDER) {
+        h.kind = 1;
+        h.idx = i;
+    }
+}
+
+// quad.rs:96-133: inclusive bounds, no back-face culling.
+template <int MODE>
+__device__ __forceinline__ void quad_test(const SceneTables& sc, int i,
+                                          const Ray& r, Hit& h) {
+    const float4 a = __ldg(sc.quad_f + 4 * i);      // qx qy qz ux
+    const float4 b = __ldg(sc.quad_f + 4 * i + 1);  // uy uz vx vy
+    const float4 c = __ldg(sc.quad_f + 4 * i + 2);  // vz nx ny nz
+    const float4 e = __ldg(sc.quad_f + 4 * i + 3);  // wx wy wz d
+    const float nx = c.y, ny = c.z, nz = c.w;
+    const float denom = nx * r.dx + ny * r.dy + nz * r.dz;
+    const float safe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
+    const float t = (e.w - (nx * r.ox + ny * r.oy + nz * r.oz)) / safe;
+    if (!((fabsf(denom) >= QUAD_DENOM_EPS) && (t >= T_MIN) && (t < h.t_best)))
+        return;
+    const float hx = r.ox + t * r.dx - a.x;
+    const float hy = r.oy + t * r.dy - a.y;
+    const float hz = r.oz + t * r.dz - a.z;
+    const float ux = a.w, uy = b.x, uz = b.y;
+    const float vx = b.z, vy = b.w, vz = c.x;
+    const float wx = e.x, wy = e.y, wz = e.z;
+    const float alpha = wx * (hy * vz - hz * vy) + wy * (hz * vx - hx * vz)
+                        + wz * (hx * vy - hy * vx);
+    const float beta = wx * (uy * hz - uz * hy) + wy * (uz * hx - ux * hz)
+                       + wz * (ux * hy - uy * hx);
+    if (!((alpha >= 0.0f) && (alpha <= 1.0f) && (beta >= 0.0f)
+          && (beta <= 1.0f)))
+        return;
+    h.t_best = t;
+    h.mat = __ldg(sc.quad_m + i);
+    h.nx = nx;
+    h.ny = ny;
+    h.nz = nz;
+    h.is_med = false;
+    if (MODE != MODE_RENDER) {
+        h.kind = 2;
+        h.idx = i;
+    }
+}
+
+// Closest surface over all spheres, then all quads. A later equal t never
+// replaces an earlier winner (`t < t_best`).
+template <int MODE>
+__device__ __forceinline__ void closest_surface(const SceneTables& sc,
+                                                const RenderParams& p,
+                                                const Ray& r, float a_len,
+                                                float inv_a, Hit& h) {
+    h.t_best = INFINITY;
+    h.nx = 0.0f;
+    h.ny = 0.0f;
+    h.nz = 1.0f;
+    h.mat = 0;
+    h.is_med = false;
+    h.kind = 0;
+    h.idx = 0;
+    for (int i = 0; i < p.n_spheres; ++i)
+        sphere_test<MODE>(sc, i, r, a_len, inv_a, h);
+    for (int i = 0; i < p.n_quads; ++i) quad_test<MODE>(sc, i, r, h);
+}
+
+// Constant media (constant_medium.rs:34-71): boundary entry/exit in closed
+// form, exponential free flight. The boundary kind is a runtime switch per
+// medium. A medium wins only if its scatter point is nearer than the surface.
+template <int MODE>
+__device__ __forceinline__ void media_test(const SceneTables& sc,
+                                           const RenderParams& p, const Ray& r,
+                                           float a_len, float inv_a,
+                                           const CounterRng& rngb, Hit& h) {
+    for (int i = 0; i < p.n_media; ++i) {
+        const float* m = sc.med_f + 24 * i;
+        float entry, exit_;
+        bool okb;
+        if (__ldg(sc.med_i + 2 * i) == MED_BOX) {
+            const float rx = r.ox - __ldg(m + 9);
+            const float ry = r.oy - __ldg(m + 10);
+            const float rz = r.oz - __ldg(m + 11);
+            float lo[3], ld[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const float m0 = __ldg(m + 3 * k), m1 = __ldg(m + 3 * k + 1),
+                            m2 = __ldg(m + 3 * k + 2);
+                lo[k] = m0 * rx + m1 * ry + m2 * rz;
+                ld[k] = m0 * r.dx + m1 * r.dy + m2 * r.dz;
+            }
+            entry = -INFINITY;
+            exit_ = INFINITY;
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const float invd =
+                    1.0f / (fabsf(ld[k]) < 1e-30f ? 1e-30f : ld[k]);
+                const float t0 = (__ldg(m + 12 + k) - lo[k]) * invd;
+                const float t1 = (__ldg(m + 15 + k) - lo[k]) * invd;
+                entry = fmaxf(entry, fminf(t0, t1));
+                exit_ = fminf(exit_, fmaxf(t0, t1));
+            }
+            okb = entry < exit_;
+        } else {
+            const float ocx = r.ox - __ldg(m + 18);
+            const float ocy = r.oy - __ldg(m + 19);
+            const float ocz = r.oz - __ldg(m + 20);
+            const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+            const float c = ocx * ocx + ocy * ocy + ocz * ocz - __ldg(m + 21);
+            const float disc = half_b * half_b - a_len * c;
+            const float sq = sqrtf(fmaxf(disc, 0.0f));
+            entry = (-half_b - sq) * inv_a;
+            exit_ = (-half_b + sq) * inv_a;
+            okb = disc > 0.0f;
+        }
+        entry = fmaxf(entry, T_MIN);
+        exit_ = fminf(exit_, h.t_best);
+        okb = okb && (entry < exit_);
+        const float ray_len = sqrtf(a_len);
+        const float dist_in = (exit_ - entry) * ray_len;
+        const float u = fmaxf(rngb.uniform(SITE_MEDIUM + (uint32_t)i), 1e-12f);
+        const float hd = __ldg(m + 22) * logf(u);
+        okb = okb && (hd <= dist_in);
+        const float t_m = entry + hd / ray_len;
+        if (okb && (t_m < h.t_best)) {
+            h.t_best = t_m;
+            h.mat = __ldg(sc.med_i + 2 * i + 1);
+            h.is_med = true;
+            if (MODE != MODE_RENDER) {
+                h.kind = 3 + i;
+                h.idx = 0;
+            }
+        }
+    }
+}
+
+// Solid or checker texture value at world point (hx, hy, hz). The checker's
+// parity is a FLOORED modulus (fsum - 2*floor(fsum/2)): fmodf would be wrong
+// for negative sums. Children of a checker are leaves (SceneBuilder nests one level).
+__device__ __forceinline__ void tex_value(const SceneTables& sc, int tid,
+                                          float hx, float hy, float hz,
+                                          float& tr, float& tg, float& tb) {
+    int leaf = tid;
+    if (__ldg(sc.tex_i + 3 * tid) == TEX_CHECKER) {
+        const float inv = __ldg(sc.tex_f + 4 * tid + 3);
+        const float fsum = floorf(inv * hx) + floorf(inv * hy) + floorf(inv * hz);
+        const bool even = (fsum - 2.0f * floorf(fsum * 0.5f)) == 0.0f;
+        leaf = even ? __ldg(sc.tex_i + 3 * tid + 1) : __ldg(sc.tex_i + 3 * tid + 2);
+    }
+    tr = __ldg(sc.tex_f + 4 * leaf);
+    tg = __ldg(sc.tex_f + 4 * leaf + 1);
+    tb = __ldg(sc.tex_f + 4 * leaf + 2);
+}
+
+struct Path {
+    Ray ray;
+    float tp_r, tp_g, tp_b;     // throughput
+    float rad_r, rad_g, rad_b;  // radiance gathered by this sample so far
+};
+
+// One bounce of a live path: closest hit, media, emission, scatter, advance.
+// Returns true if the path scattered and goes on. `rec` receives the packed
+// winner record `kind<<24 | idx` (0 on a miss) outside RENDER mode.
+template <int MODE>
+__device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
+                                             const RenderParams& p, Path& s,
+                                             bool depth_left_ok,
+                                             const CounterRng& rngb, int& rec) {
+    const Ray& r = s.ray;
+    const float a_len = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    const float inv_a = 1.0f / fmaxf(a_len, 1e-30f);
+    Hit h;
+    closest_surface<MODE>(sc, p, r, a_len, inv_a, h);
+    media_test<MODE>(sc, p, r, a_len, inv_a, rngb, h);
+
+    rec = 0;
+    if (!isfinite(h.t_best)) {
+        // miss: background (renderer.rs:152-154)
+        if (MODE == MODE_RENDER) {
+            s.rad_r = s.rad_r + s.tp_r * p.background[0];
+            s.rad_g = s.rad_g + s.tp_g * p.background[1];
+            s.rad_b = s.rad_b + s.tp_b * p.background[2];
+        }
+        return false;
+    }
+    if (MODE != MODE_RENDER) rec = (h.kind << 24) | h.idx;
+
+    const float hpx = r.ox + h.t_best * r.dx;
+    const float hpy = r.oy + h.t_best * r.dy;
+    const float hpz = r.oz + h.t_best * r.dz;
+
+    // flip the normal toward the ray (hittable.rs:22-37); a medium's "normal"
+    // is the ray direction, so front_face is false there
+    const float mx = h.is_med ? r.dx : h.nx;
+    const float my = h.is_med ? r.dy : h.ny;
+    const float mz = h.is_med ? r.dz : h.nz;
+    const float ndotd =
+        h.is_med ? a_len : (h.nx * r.dx + h.ny * r.dy + h.nz * r.dz);
+    const bool front = ndotd < 0.0f;
+    const float sign = front ? 1.0f : -1.0f;
+    const float nx = sign * mx, ny = sign * my, nz = sign * mz;
+
+    const int m_type = __ldg(sc.mat_i + 2 * h.mat);
+    float tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f;
+    if (MODE == MODE_RENDER) {
+        tex_value(sc, __ldg(sc.mat_i + 2 * h.mat + 1), hpx, hpy, hpz, tex_r,
+                  tex_g, tex_b);
+        if (m_type == DIFFUSE_LIGHT) {
+            // emission (material.rs:114-122), pre-scatter throughput
+            s.rad_r = s.rad_r + s.tp_r * tex_r;
+            s.rad_g = s.rad_g + s.tp_g * tex_g;
+            s.rad_b = s.rad_b + s.tp_b * tex_b;
+        }
+    }
+    if (m_type == DIFFUSE_LIGHT || !depth_left_ok) return false;
+
+    const float inv_len = rsqrtf(fmaxf(a_len, 1e-30f));
+    const float udx = r.dx * inv_len, udy = r.dy * inv_len, udz = r.dz * inv_len;
+    float new_dx, new_dy, new_dz;
+    float at_r = tex_r, at_g = tex_g, at_b = tex_b;
+
+    if (m_type == LAMBERTIAN || m_type == ISOTROPIC) {
+        float uvx, uvy, uvz;
+        rngb.unit_vector(SITE_SCATTER_Z, SITE_SCATTER_PHI, uvx, uvy, uvz);
+        if (m_type == ISOTROPIC) {
+            new_dx = uvx;
+            new_dy = uvy;
+            new_dz = uvz;
+        } else {
+            // n + unit, near-zero fallback (material.rs:26-42)
+            new_dx = nx + uvx;
+            new_dy = ny + uvy;
+            new_dz = nz + uvz;
+            if (fabsf(new_dx) < 1e-8f && fabsf(new_dy) < 1e-8f
+                && fabsf(new_dz) < 1e-8f) {
+                new_dx = nx;
+                new_dy = ny;
+                new_dz = nz;
+            }
+        }
+    } else if (m_type == METAL) {
+        // mirror + fuzz ball (material.rs:53-64)
+        float fx, fy, fz;
+        rngb.in_unit_sphere(SITE_FUZZ_Z, SITE_FUZZ_PHI, SITE_FUZZ_R, fx, fy, fz);
+        const float fuzz = __ldg(sc.mat_f + 5 * h.mat + 3);
+        const float rdot = udx * nx + udy * ny + udz * nz;
+        new_dx = udx - 2.0f * rdot * nx + fuzz * fx;
+        new_dy = udy - 2.0f * rdot * ny + fuzz * fy;
+        new_dz = udz - 2.0f * rdot * nz + fuzz * fz;
+        if (!((new_dx * nx + new_dy * ny + new_dz * nz) > 0.0f)) return false;
+        at_r = __ldg(sc.mat_f + 5 * h.mat);
+        at_g = __ldg(sc.mat_f + 5 * h.mat + 1);
+        at_b = __ldg(sc.mat_f + 5 * h.mat + 2);
+    } else {
+        // dielectric (material.rs:80-104); ir pads with 1.0
+        const float ir = __ldg(sc.mat_f + 5 * h.mat + 4);
+        const float ratio = front ? 1.0f / ir : ir;
+        const float rdot = udx * nx + udy * ny + udz * nz;
+        const float cos_t = fminf(-rdot, 1.0f);
+        const float sin_sq = fmaxf(1.0f - cos_t * cos_t, 0.0f);
+        const bool cannot = ratio * ratio * sin_sq > 1.0f;
+        const float r0s = (1.0f - ratio) / (1.0f + ratio);
+        const float r0 = r0s * r0s;
+        const float omc = 1.0f - cos_t;
+        const float omc2 = omc * omc;
+        const float refl = r0 + (1.0f - r0) * (omc * (omc2 * omc2));
+        const float coin = rngb.uniform(SITE_SCHLICK);
+        if (cannot || (refl > coin)) {
+            new_dx = udx - 2.0f * rdot * nx;
+            new_dy = udy - 2.0f * rdot * ny;
+            new_dz = udz - 2.0f * rdot * nz;
+        } else {
+            const float rpx = ratio * (udx + cos_t * nx);
+            const float rpy = ratio * (udy + cos_t * ny);
+            const float rpz = ratio * (udz + cos_t * nz);
+            const float plen =
+                fmaxf(1.0f - (rpx * rpx + rpy * rpy + rpz * rpz), 0.0f);
+            const float par = -sqrtf(plen);
+            new_dx = rpx + par * nx;
+            new_dy = rpy + par * ny;
+            new_dz = rpz + par * nz;
+        }
+        at_r = 1.0f;
+        at_g = 1.0f;
+        at_b = 1.0f;
+    }
+
+    if (MODE == MODE_RENDER) {
+        s.tp_r = s.tp_r * at_r;
+        s.tp_g = s.tp_g * at_g;
+        s.tp_b = s.tp_b * at_b;
+    }
+
+    // f32 origin offset along the normal, media excluded; sign(0) is 0
+    const float sdot = new_dx * nx + new_dy * ny + new_dz * nz;
+    const float side = sdot > 0.0f ? 1.0f : (sdot < 0.0f ? -1.0f : 0.0f);
+    const float mag = fmaxf(fabsf(hpx), fmaxf(fabsf(hpy), fabsf(hpz)));
+    const float eps = ORIGIN_EPS_ABS + ORIGIN_EPS_REL * mag;
+    const float off = h.is_med ? 0.0f : side * eps;
+    s.ray.ox = hpx + off * nx;
+    s.ray.oy = hpy + off * ny;
+    s.ray.oz = hpz + off * nz;
+    s.ray.dx = new_dx;
+    s.ray.dy = new_dy;
+    s.ray.dz = new_dz;
+    return true;
+}
+
+// camera.rs:112-137: pixel jitter, defocus disk, shutter time.
+__device__ __forceinline__ void camera_ray(const RenderParams& p, uint32_t pid,
+                                           float pi, float pj, uint32_t s_glob,
+                                           Ray& r) {
+    const CounterRng rng((uint32_t)p.seed, pid, s_glob);
+    const float jx = rng.uniform(SITE_PIXEL_JX) - 0.5f;
+    const float jy = rng.uniform(SITE_PIXEL_JY) - 0.5f;
+    const float sx = p.pixel00[0] + (pi + jx) * p.delta_u[0] + (pj + jy) * p.delta_v[0];
+    const float sy = p.pixel00[1] + (pi + jx) * p.delta_u[1] + (pj + jy) * p.delta_v[1];
+    const float sz = p.pixel00[2] + (pi + jx) * p.delta_u[2] + (pj + jy) * p.delta_v[2];
+    if (p.has_defocus) {
+        float ca, sa;
+        rng.in_unit_disk(SITE_DEFOCUS_R, SITE_DEFOCUS_TH, ca, sa);
+        r.ox = p.center[0] + ca * p.disk_u[0] + sa * p.disk_v[0];
+        r.oy = p.center[1] + ca * p.disk_u[1] + sa * p.disk_v[1];
+        r.oz = p.center[2] + ca * p.disk_u[2] + sa * p.disk_v[2];
+    } else {
+        r.ox = p.center[0];
+        r.oy = p.center[1];
+        r.oz = p.center[2];
+    }
+    r.dx = sx - r.ox;
+    r.dy = sy - r.oy;
+    r.dz = sz - r.oz;
+    r.time = rng.uniform(SITE_TIME);
+}
+
+constexpr int BLOCK_X = 8, BLOCK_Y = 8;
+
+// out_rgb (pixel_count,3): mean radiance over spp samples, f32 sum in sample
+// order times f32(1/spp). out_n (pixel_count,): scene queries traced.
+__global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
+    render_kernel(SceneTables sc, RenderParams p, int row0,
+                  float* __restrict__ out_rgb, int* __restrict__ out_n) {
+    const int i = blockIdx.x * BLOCK_X + threadIdx.x;
+    const int j = row0 + blockIdx.y * BLOCK_Y + threadIdx.y;
+    if (i >= p.width || j >= p.height) return;
+    const int pid = j * p.width + i;
+    const int local = pid - p.pixel_base;
+    if (local < 0 || local >= p.pixel_count) return;
+    const float pi = (float)i, pj = (float)j;
+
+    float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+    int n = 0;
+    for (int si = 0; si < p.spp; ++si) {
+        const uint32_t s_glob = (uint32_t)(si + p.sample_offset);
+        Path s;
+        camera_ray(p, (uint32_t)pid, pi, pj, s_glob, s.ray);
+        s.tp_r = s.tp_g = s.tp_b = 1.0f;
+        s.rad_r = s.rad_g = s.rad_b = 0.0f;
+        for (int d = 0;; ++d) {
+            ++n;
+            const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
+                                  (uint32_t)d);
+            int rec;
+            if (!trace_bounce<MODE_RENDER>(sc, p, s, d + 1 < p.max_depth, rngb,
+                                           rec))
+                break;
+        }
+        acc_r = acc_r + s.rad_r;
+        acc_g = acc_g + s.rad_g;
+        acc_b = acc_b + s.rad_b;
+    }
+    const float inv = (float)(1.0 / (double)p.spp);
+    out_rgb[3 * local] = acc_r * inv;
+    out_rgb[3 * local + 1] = acc_g * inv;
+    out_rgb[3 * local + 2] = acc_b * inv;
+    out_n[local] = n;
+}
+
+}  // namespace rt
+
+// Launch the render kernel on `stream` over pixels
+// [params->pixel_base, params->pixel_base + params->pixel_count). `params`
+// is a host pointer. Does not synchronise. Returns cudaGetLastError().
+extern "C" int rt_render_launch(const void* sph_f, const void* sph_m,
+                                const void* quad_f, const void* quad_m,
+                                const void* med_f, const void* med_i,
+                                const void* mat_f, const void* mat_i,
+                                const void* tex_f, const void* tex_i,
+                                const void* params, void* out_rgb, void* out_n,
+                                void* stream) {
+    const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
+    rt::SceneTables sc;
+    sc.sph_f = static_cast<const float4*>(sph_f);
+    sc.sph_m = static_cast<const int*>(sph_m);
+    sc.quad_f = static_cast<const float4*>(quad_f);
+    sc.quad_m = static_cast<const int*>(quad_m);
+    sc.med_f = static_cast<const float*>(med_f);
+    sc.med_i = static_cast<const int*>(med_i);
+    sc.mat_f = static_cast<const float*>(mat_f);
+    sc.mat_i = static_cast<const int*>(mat_i);
+    sc.tex_f = static_cast<const float*>(tex_f);
+    sc.tex_i = static_cast<const int*>(tex_i);
+    if (p.width < 1 || p.height < 1 || p.pixel_count < 1 || p.pixel_base < 0
+        || p.spp < 1)
+        return (int)cudaErrorInvalidValue;
+    const int row0 = p.pixel_base / p.width;
+    const int row1 = (p.pixel_base + p.pixel_count - 1) / p.width;
+    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
+    const dim3 grid((p.width + rt::BLOCK_X - 1) / rt::BLOCK_X,
+                    (row1 - row0 + rt::BLOCK_Y) / rt::BLOCK_Y);
+    (void)cudaGetLastError();  // clear a stale error of an earlier call
+    rt::render_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        sc, p, row0, static_cast<float*>(out_rgb), static_cast<int*>(out_n));
+    return (int)cudaGetLastError();
+}
+
+extern "C" const char* rt_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

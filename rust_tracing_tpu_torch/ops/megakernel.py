@@ -1,0 +1,754 @@
+"""Fused forward render: host side, CUDA kernel wrapper and plain version.
+
+Replaces rust_tracing_tpu/ops/megakernel.py (the Pallas kernel built by
+``_make_kernel`` and called through ``_get_call``, render mode with the
+brute-force primitive loop). The whole render of a pixel range — camera
+rays, closest hit over spheres and quads, constant media, five-material
+scatter, emission, solid/checker textures, spp accumulation — is ONE launch
+of the hand-written CUDA kernel in ``csrc/render_kernel.cu``.
+
+Three layers live here:
+
+- ``pack_scene``: a CompiledScene's valid primitives as plain row-major
+  ``(N, F)`` tables (f64 host arithmetic rounded once to f32, the same
+  arithmetic as the reference pack), cached per scene on the device;
+- ``render_kernel``: the wrapper that launches the CUDA kernel on CUDA
+  tensors (or raises) and counts its launches in ``LAUNCHES``;
+- ``render_fast_plain``: the same function as tensor code over all pixels at
+  once, with the kernel's arithmetic in the kernel's order. It is what runs
+  for tensors on the CPU and what the kernel is held against on the card.
+
+Camera, spp, depth, primitive counts, seed, pixel range and sample offset
+are runtime arguments of the kernel, so one compiled library serves every
+scene and camera, and pixels are written in image order.
+
+Every random draw is addressed by (seed, pixel, sample, bounce, site) through
+ops/hashrng.py (csrc/hashrng.cuh in the kernel), never by launch geometry:
+rendering a frame in pixel ranges or sample ranges gives the same numbers.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import weakref
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import QUAD_DENOM_EPS, T_MIN
+from ..models.scene import (DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, LAMBERTIAN,
+                            MED_BOX, METAL, TEX_CHECKER, TEX_IMAGE, TEX_NOISE)
+from . import hashrng
+from .hashrng import CounterRng
+
+# Primitive count past which the reference switches its fused kernel from the
+# brute-force loop to an in-kernel BVH walk. Copied as a policy constant: it
+# was measured on a TPU and awaits its own measurement on the GPU. The BVH
+# branch of the kernel is not ported yet, so scenes at or past it raise.
+BVH_KERNEL_THRESHOLD = 1024
+
+# f32 origin offset along the normal after a surface scatter.
+ORIGIN_EPS_ABS = 1e-4
+ORIGIN_EPS_REL = 2e-4
+
+# Launch counts of the hand-written kernels, by kernel name. A wrapper adds
+# one where it launches its kernel and nowhere else.
+LAUNCHES = {"render_kernel": 0}
+
+SPH_F, QUAD_F, MED_F = 8, 16, 24
+
+
+# ------------------------------------------------------------- scene packing
+@dataclasses.dataclass
+class PackedScene:
+    """Host-side numpy pack of a CompiledScene. Only VALID primitives are
+    packed (no masks in the hot loop); empty families keep one zero row so
+    every table has a valid pointer."""
+
+    sph_f: np.ndarray   # (S,8) f32: cx cy cz r2 inv_r mvx mvy mvz
+    sph_m: np.ndarray   # (S,) i32 material id
+    quad_f: np.ndarray  # (Q,16) f32: q(3) u(3) v(3) n(3) w(3) d
+    quad_m: np.ndarray  # (Q,) i32
+    med_f: np.ndarray   # (M,24) f32: R(9) trans(3) lo(3) hi(3) c(3) r2 nid pad
+    med_i: np.ndarray   # (M,2) i32: type mat
+    mat_f: np.ndarray   # (N,5) f32: alb_r alb_g alb_b fuzz ir
+    mat_i: np.ndarray   # (N,2) i32: type tex
+    tex_f: np.ndarray   # (T,4) f32: rgb_r rgb_g rgb_b scale (inv or noise)
+    tex_i: np.ndarray   # (T,3) i32: type even odd
+    n_spheres: int = 0
+    n_quads: int = 0
+    n_media: int = 0
+    has_checker: bool = False
+    has_noise: bool = False
+    has_image: bool = False
+
+    # the kernel's pointer arguments, in order
+    TABLES = ("sph_f", "sph_m", "quad_f", "quad_m", "med_f", "med_i",
+              "mat_f", "mat_i", "tex_f", "tex_i")
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def pack_scene(scene) -> PackedScene:
+    """Pack a CompiledScene into the kernel's tables. Derived quantities
+    (r^2, 1/r, quad normal, w, d) are computed in float64 from the scene's
+    f32 leaves and rounded once, exactly as the reference pack does."""
+    f64 = lambda a: _np(a).astype(np.float64)
+    sv = _np(scene.sph_valid)
+    qv = _np(scene.quad_valid)
+    mv = _np(scene.med_valid)
+
+    c = f64(scene.sph_center)[sv]
+    r = f64(scene.sph_radius)[sv]
+    cv = f64(scene.sph_cvec)[sv]
+    S = len(r)
+    sph_f = np.zeros((max(S, 1), SPH_F), np.float32)
+    if S:
+        sph_f[:S, 0:3] = c
+        sph_f[:S, 3] = r * r
+        sph_f[:S, 4] = 1.0 / np.where(np.abs(r) < 1e-12, 1e-12, r)
+        sph_f[:S, 5:8] = cv
+    sph_m = np.zeros(max(S, 1), np.int32)
+    sph_m[:S] = _np(scene.sph_mat)[sv]
+
+    q = f64(scene.quad_q)[qv]
+    u = f64(scene.quad_u)[qv]
+    v = f64(scene.quad_v)[qv]
+    Q = len(q)
+    quad_f = np.zeros((max(Q, 1), QUAD_F), np.float32)
+    if Q:
+        n = np.cross(u, v)
+        nlen2 = np.maximum((n * n).sum(-1, keepdims=True), 1e-30)
+        normal = n / np.sqrt(nlen2)
+        w = n / nlen2
+        d = (normal * q).sum(-1)
+        quad_f[:Q, 0:3] = q
+        quad_f[:Q, 3:6] = u
+        quad_f[:Q, 6:9] = v
+        quad_f[:Q, 9:12] = normal
+        quad_f[:Q, 12:15] = w
+        quad_f[:Q, 15] = d
+    quad_m = np.zeros(max(Q, 1), np.int32)
+    quad_m[:Q] = _np(scene.quad_mat)[qv]
+
+    M = int(mv.sum())
+    med_f = np.zeros((max(M, 1), MED_F), np.float32)
+    med_i = np.zeros((max(M, 1), 2), np.int32)
+    if M:
+        med_f[:M, 0:9] = f64(scene.med_rot)[mv].reshape(M, 9)
+        med_f[:M, 9:12] = f64(scene.med_trans)[mv]
+        med_f[:M, 12:15] = f64(scene.med_lo)[mv]
+        med_f[:M, 15:18] = f64(scene.med_hi)[mv]
+        med_f[:M, 18:21] = f64(scene.med_sph_center)[mv]
+        med_f[:M, 21] = f64(scene.med_sph_radius)[mv] ** 2
+        med_f[:M, 22] = f64(scene.med_neg_inv_density)[mv]
+        med_i[:M, 0] = _np(scene.med_type)[mv]
+        med_i[:M, 1] = _np(scene.med_mat)[mv]
+
+    mat_f = np.concatenate(
+        [f64(scene.mat_albedo), f64(scene.mat_fuzz)[:, None],
+         f64(scene.mat_ir)[:, None]], axis=1).astype(np.float32)
+    mat_i = np.stack([_np(scene.mat_type), _np(scene.mat_tex)],
+                     axis=1).astype(np.int32)
+
+    tex_types = _np(scene.tex_type)
+    # inv_scale (checker) and noise_scale (noise) are never both non-zero
+    tex_scale = f64(scene.tex_inv_scale) + f64(scene.tex_noise_scale)
+    tex_f = np.concatenate([f64(scene.tex_rgb), tex_scale[:, None]],
+                           axis=1).astype(np.float32)
+    tex_i = np.stack([tex_types, _np(scene.tex_even), _np(scene.tex_odd)],
+                     axis=1).astype(np.int32)
+
+    return PackedScene(
+        sph_f=sph_f, sph_m=sph_m, quad_f=quad_f, quad_m=quad_m,
+        med_f=med_f, med_i=med_i, mat_f=mat_f, mat_i=mat_i,
+        tex_f=tex_f, tex_i=tex_i,
+        n_spheres=S, n_quads=Q, n_media=M,
+        has_checker=bool((tex_types == TEX_CHECKER).any()),
+        has_noise=bool((tex_types == TEX_NOISE).any()),
+        has_image=bool(scene.has_image),
+    )
+
+
+def _tex_reaches_image(scene, tex_ids) -> bool:
+    """True if any texture id in ``tex_ids`` samples the image texture,
+    directly or through one checker nesting level (all that SceneBuilder allows)."""
+    tex_type = _np(scene.tex_type)
+    tex_even = _np(scene.tex_even)
+    tex_odd = _np(scene.tex_odd)
+    for t in np.unique(np.asarray(tex_ids)):
+        if tex_type[t] == TEX_IMAGE:
+            return True
+        if tex_type[t] == TEX_CHECKER and (
+                tex_type[tex_even[t]] == TEX_IMAGE
+                or tex_type[tex_odd[t]] == TEX_IMAGE):
+            return True
+    return False
+
+
+def supports(scene) -> bool:
+    """Fused-kernel coverage policy, as in the reference: every scene family
+    except an image texture routed to a quad or medium material (only sphere
+    UVs are tracked in the kernel). Whether the texture families a supported
+    scene uses are already ported is a separate question: ``render_fast``
+    raises NotImplementedError for noise and image scenes."""
+    if not scene.has_image:
+        return True
+    nonsphere_mats = []
+    if scene.has_quads:
+        qv = _np(scene.quad_valid)
+        nonsphere_mats.append(_np(scene.quad_mat)[qv])
+    if scene.has_media:
+        mv = _np(scene.med_valid)
+        nonsphere_mats.append(_np(scene.med_mat)[mv])
+    if not nonsphere_mats:
+        return True
+    mats = np.unique(np.concatenate(nonsphere_mats))
+    return not _tex_reaches_image(scene, _np(scene.mat_tex)[mats])
+
+
+# ------------------------------------------------------- device-table cache
+# Packing and uploading are pure functions of the scene, so they are cached by
+# object identity. The cache is bounded: dead weakrefs are swept and the
+# oldest entry evicted, so a loop that compiles a scene per step cannot leak
+# device memory.
+_pack_cache: "collections.OrderedDict" = collections.OrderedDict()
+_PACK_CACHE_MAX = 8  # id(scene) -> (weakref, packed, device tables)
+
+
+def _packed_dev(scene) -> Tuple[PackedScene, dict]:
+    """(packed, tables) for a scene: the host pack and its tables as
+    contiguous tensors on the scene's device."""
+    key = id(scene)
+    ent = _pack_cache.get(key)
+    if ent is not None and ent[0]() is scene:
+        _pack_cache.move_to_end(key)
+        return ent[1], ent[2]
+    for k in [k for k, e in _pack_cache.items() if e[0]() is None]:
+        del _pack_cache[k]
+    while len(_pack_cache) >= _PACK_CACHE_MAX:
+        _pack_cache.popitem(last=False)
+    packed = pack_scene(scene)
+    dev = scene.device
+    tables = {name: torch.from_numpy(getattr(packed, name)).to(dev).contiguous()
+              for name in PackedScene.TABLES}
+    _pack_cache[key] = (weakref.ref(scene), packed, tables)
+    return packed, tables
+
+
+# ------------------------------------------------------------ kernel params
+class RenderParams(ctypes.Structure):
+    """Runtime arguments of the render kernel; mirrors ``RenderParams`` in
+    csrc/render_kernel.cu field for field (all 4-byte fields, no padding)."""
+
+    _fields_ = [
+        ("center", ctypes.c_float * 3),
+        ("pixel00", ctypes.c_float * 3),
+        ("delta_u", ctypes.c_float * 3),
+        ("delta_v", ctypes.c_float * 3),
+        ("disk_u", ctypes.c_float * 3),
+        ("disk_v", ctypes.c_float * 3),
+        ("background", ctypes.c_float * 3),
+        ("has_defocus", ctypes.c_int),
+        ("width", ctypes.c_int),
+        ("height", ctypes.c_int),
+        ("spp", ctypes.c_int),
+        ("max_depth", ctypes.c_int),
+        ("n_spheres", ctypes.c_int),
+        ("n_quads", ctypes.c_int),
+        ("n_media", ctypes.c_int),
+        ("seed", ctypes.c_int),
+        ("pixel_base", ctypes.c_int),
+        ("pixel_count", ctypes.c_int),
+        ("sample_offset", ctypes.c_int),
+    ]
+
+
+def make_params(camera, packed: PackedScene, seed: int, spp: int,
+                max_depth: int, sample_offset: int = 0, pixel_base: int = 0,
+                pixel_count: Optional[int] = None) -> RenderParams:
+    """Camera constants rounded from f64 to f32, counts and the runtime
+    scalars. ``seed`` is reduced to its low 32 bits and carried as int32."""
+    w, h = camera.image_width, camera.image_height
+    if pixel_count is None:
+        pixel_count = w * h - pixel_base
+    if not (0 <= pixel_base and pixel_count >= 1
+            and pixel_base + pixel_count <= w * h):
+        raise ValueError(f"pixel range [{pixel_base}, {pixel_base}+"
+                         f"{pixel_count}) outside the {w}x{h} frame")
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
+    f3 = lambda a: (ctypes.c_float * 3)(*[float(x) for x in np.asarray(a)])
+    return RenderParams(
+        center=f3(camera.center), pixel00=f3(camera.pixel00_loc),
+        delta_u=f3(camera.pixel_delta_u), delta_v=f3(camera.pixel_delta_v),
+        disk_u=f3(camera.defocus_disk_u), disk_v=f3(camera.defocus_disk_v),
+        background=f3(camera.background),
+        has_defocus=int(camera.defocus_angle > 0.0),
+        width=w, height=h, spp=int(spp), max_depth=int(max_depth),
+        n_spheres=packed.n_spheres, n_quads=packed.n_quads,
+        n_media=packed.n_media, seed=hashrng._i32(int(seed)),
+        pixel_base=int(pixel_base), pixel_count=int(pixel_count),
+        sample_offset=int(sample_offset))
+
+
+# table -> (dtype, trailing shape, the count in RenderParams it must cover)
+_TABLE_SPEC = {
+    "sph_f": (torch.float32, (SPH_F,), "n_spheres"),
+    "sph_m": (torch.int32, (), "n_spheres"),
+    "quad_f": (torch.float32, (QUAD_F,), "n_quads"),
+    "quad_m": (torch.int32, (), "n_quads"),
+    "med_f": (torch.float32, (MED_F,), "n_media"),
+    "med_i": (torch.int32, (2,), "n_media"),
+    "mat_f": (torch.float32, (5,), None),
+    "mat_i": (torch.int32, (2,), None),
+    "tex_f": (torch.float32, (4,), None),
+    "tex_i": (torch.int32, (3,), None),
+}
+
+
+def _check_tables(tables: dict, p: RenderParams) -> torch.device:
+    """Device, dtype, shape and contiguity of the tables a kernel is about to
+    read through raw pointers; returns their common device."""
+    dev = tables["sph_f"].device
+    for name in PackedScene.TABLES:
+        dtype, tail, count = _TABLE_SPEC[name]
+        t = tables[name]
+        if t.device != dev:
+            raise ValueError(f"table {name} on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"table {name} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"table {name} is not contiguous")
+        rows = max(1, getattr(p, count)) if count else 1
+        if tuple(t.shape[1:]) != tail or t.shape[0] < rows:
+            raise ValueError(f"table {name} has shape {tuple(t.shape)}, "
+                             f"expected (>={rows}, *{tail})")
+    return dev
+
+
+def render_kernel(tables: dict, p: RenderParams):
+    """One launch of the CUDA render kernel over pixels
+    ``[p.pixel_base, p.pixel_base + p.pixel_count)``.
+
+    ``tables`` are the packed scene tables as contiguous CUDA tensors.
+    Returns ``(rgb (count,3) f32, n (count,) i32)``: the per-pixel mean
+    radiance over ``p.spp`` samples and the number of scene queries traced.
+    Launches on the current stream and does not synchronise. Tensors that
+    are not on a CUDA device are refused: the caller picks the plain version
+    for those."""
+    dev = _check_tables(tables, p)
+    if dev.type != "cuda":
+        raise ValueError(f"render_kernel needs CUDA tensors, got {dev}")
+    from ..runtime import kernels
+
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        rgb = torch.empty((p.pixel_count, 3), dtype=torch.float32, device=dev)
+        n = torch.empty((p.pixel_count,), dtype=torch.int32, device=dev)
+        err = lib.rt_render_launch(
+            *[tables[name].data_ptr() for name in PackedScene.TABLES],
+            ctypes.byref(p), rgb.data_ptr(), n.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["render_kernel"] += 1
+    if err != 0:
+        raise RuntimeError(
+            f"render kernel launch failed: CUDA error {err} "
+            f"({kernels.error_string(err)})")
+    return rgb, n
+
+
+# ----------------------------------------------------------- plain version
+def _sel3(cond, a, b):
+    return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
+def render_fast_plain(tables: dict, p: RenderParams):
+    """Plain PyTorch version of ``render_kernel``: same inputs, same two
+    outputs, as tensor code over all pixels of the range at once. A Python
+    loop over samples and bounces; a Python loop over the packed primitive
+    rows applying the sphere and quad tests as masked updates in the kernel's
+    order; the same media, scatter and texture arithmetic, written with the
+    same operations in the same order (explicit multiply-adds, no matmul, no
+    pow, no fused multiply-add)."""
+    dev = _check_tables(tables, p)
+    host = {k: tables[k].detach().cpu().numpy() for k in
+            ("sph_f", "sph_m", "quad_f", "quad_m", "med_f", "med_i")}
+    sph_rows = [[float(x) for x in host["sph_f"][i]]
+                for i in range(p.n_spheres)]
+    sph_mats = [int(host["sph_m"][i]) for i in range(p.n_spheres)]
+    quad_rows = [[float(x) for x in host["quad_f"][i]]
+                 for i in range(p.n_quads)]
+    quad_mats = [int(host["quad_m"][i]) for i in range(p.n_quads)]
+    med_rows = [[float(x) for x in host["med_f"][i]]
+                for i in range(p.n_media)]
+    med_kinds = [(int(host["med_i"][i, 0]), int(host["med_i"][i, 1]))
+                 for i in range(p.n_media)]
+    mat_f, tex_f = tables["mat_f"], tables["tex_f"]
+    mat_i, tex_i = tables["mat_i"].long(), tables["tex_i"].long()
+    has_checker = bool((tex_i[:, 0] == TEX_CHECKER).any())
+
+    f32 = lambda v: float(np.float32(v))
+    cx, cy, cz = (f32(v) for v in p.center)
+    p00x, p00y, p00z = (f32(v) for v in p.pixel00)
+    dux, duy, duz = (f32(v) for v in p.delta_u)
+    dvx, dvy, dvz = (f32(v) for v in p.delta_v)
+    ddux, dduy, dduz = (f32(v) for v in p.disk_u)
+    ddvx, ddvy, ddvz = (f32(v) for v in p.disk_v)
+    bg_r, bg_g, bg_b = (f32(v) for v in p.background)
+    seed, max_depth = p.seed, p.max_depth
+
+    P = p.pixel_count
+    pid = torch.arange(p.pixel_base, p.pixel_base + P, dtype=torch.int32,
+                       device=dev)
+    pi = (pid % p.width).to(torch.float32)
+    pj = torch.div(pid, p.width, rounding_mode="floor").to(torch.float32)
+    fzero = torch.zeros(P, dtype=torch.float32, device=dev)
+    izero = torch.zeros(P, dtype=torch.int64, device=dev)
+
+    def tex_value(tid, hpx, hpy, hpz):
+        r, g, b = tex_f[tid, 0], tex_f[tid, 1], tex_f[tid, 2]
+        if has_checker:
+            inv = tex_f[tid, 3]
+            fsum = (torch.floor(inv * hpx) + torch.floor(inv * hpy)
+                    + torch.floor(inv * hpz))
+            even_sel = torch.remainder(fsum, 2.0) == 0.0  # floored modulus
+            child = torch.where(even_sel, tex_i[tid, 1], tex_i[tid, 2])
+            is_chk = tex_i[tid, 0] == TEX_CHECKER
+            r = torch.where(is_chk, tex_f[child, 0], r)
+            g = torch.where(is_chk, tex_f[child, 1], g)
+            b = torch.where(is_chk, tex_f[child, 2], b)
+        return r, g, b
+
+    def closest_surface(ox, oy, oz, dx, dy, dz, rtime, alive):
+        a_len = dx * dx + dy * dy + dz * dz
+        inv_a = 1.0 / torch.clamp(a_len, min=1e-30)
+        t_best = torch.where(alive, float("inf"), T_MIN).to(torch.float32)
+        w_mat, w_nx, w_ny, w_nz = izero, fzero, fzero, fzero + 1.0
+        for s, m in zip(sph_rows, sph_mats):
+            # sphere.rs:59-89 + moving-centre lerp; strict bounds, near root
+            ccx = s[0] + s[5] * rtime
+            ccy = s[1] + s[6] * rtime
+            ccz = s[2] + s[7] * rtime
+            ocx, ocy, ocz = ox - ccx, oy - ccy, oz - ccz
+            half_b = ocx * dx + ocy * dy + ocz * dz
+            c = ocx * ocx + ocy * ocy + ocz * ocz - s[3]
+            disc = half_b * half_b - a_len * c
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            r1 = (-half_b - sq) * inv_a
+            rr2 = (-half_b + sq) * inv_a
+            ok1 = (r1 > T_MIN) & (r1 < t_best)
+            ok2 = (rr2 > T_MIN) & (rr2 < t_best)
+            root = torch.where(ok1, r1, rr2)
+            hit = (disc > 0.0) & (ok1 | ok2)
+            t_best = torch.where(hit, root, t_best)
+            w_mat = torch.where(hit, m, w_mat)
+            w_nx = torch.where(hit, (ox + root * dx - ccx) * s[4], w_nx)
+            w_ny = torch.where(hit, (oy + root * dy - ccy) * s[4], w_ny)
+            w_nz = torch.where(hit, (oz + root * dz - ccz) * s[4], w_nz)
+        for q, m in zip(quad_rows, quad_mats):
+            # quad.rs:96-133: inclusive bounds, no back-face culling
+            nx, ny, nz = q[9], q[10], q[11]
+            denom = nx * dx + ny * dy + nz * dz
+            safe = torch.where(denom.abs() < 1e-30, 1e-30, denom)
+            t = (q[15] - (nx * ox + ny * oy + nz * oz)) / safe
+            hx = ox + t * dx - q[0]
+            hy = oy + t * dy - q[1]
+            hz = oz + t * dz - q[2]
+            ux, uy, uz = q[3], q[4], q[5]
+            vx, vy, vz = q[6], q[7], q[8]
+            wx, wy, wz = q[12], q[13], q[14]
+            alpha = (wx * (hy * vz - hz * vy) + wy * (hz * vx - hx * vz)
+                     + wz * (hx * vy - hy * vx))
+            beta = (wx * (uy * hz - uz * hy) + wy * (uz * hx - ux * hz)
+                    + wz * (ux * hy - uy * hx))
+            hit = ((denom.abs() >= QUAD_DENOM_EPS)
+                   & (t >= T_MIN) & (t < t_best)
+                   & (alpha >= 0.0) & (alpha <= 1.0)
+                   & (beta >= 0.0) & (beta <= 1.0))
+            t_best = torch.where(hit, t, t_best)
+            w_mat = torch.where(hit, m, w_mat)
+            w_nx = torch.where(hit, nx, w_nx)
+            w_ny = torch.where(hit, ny, w_ny)
+            w_nz = torch.where(hit, nz, w_nz)
+        return t_best, w_mat, w_nx, w_ny, w_nz, a_len, inv_a
+
+    def camera_ray(s_glob):
+        rng = CounterRng(seed, pid, s_glob)
+        jx = rng.uniform(hashrng.SITE_PIXEL_JX) - 0.5
+        jy = rng.uniform(hashrng.SITE_PIXEL_JY) - 0.5
+        sx = p00x + (pi + jx) * dux + (pj + jy) * dvx
+        sy = p00y + (pi + jx) * duy + (pj + jy) * dvy
+        sz = p00z + (pi + jx) * duz + (pj + jy) * dvz
+        if p.has_defocus:
+            ca, sa = rng.in_unit_disk(hashrng.SITE_DEFOCUS_R,
+                                      hashrng.SITE_DEFOCUS_TH)
+            nox = cx + ca * ddux + sa * ddvx
+            noy = cy + ca * dduy + sa * ddvy
+            noz = cz + ca * dduz + sa * ddvz
+        else:
+            nox, noy, noz = fzero + cx, fzero + cy, fzero + cz
+        return (nox, noy, noz, sx - nox, sy - noy, sz - noz,
+                rng.uniform(hashrng.SITE_TIME))
+
+    def trace_bounce(o, d, rtime, tp, rad, alive, depth_left_ok, rngb):
+        ox, oy, oz = o
+        dx, dy, dz = d
+        t_best, w_mat, w_nx, w_ny, w_nz, a_len, inv_a = closest_surface(
+            ox, oy, oz, dx, dy, dz, rtime, alive)
+        w_is_med = torch.zeros(P, dtype=torch.bool, device=dev)
+
+        # constant media (constant_medium.rs:34-71)
+        for i, (m, (kind, mat)) in enumerate(zip(med_rows, med_kinds)):
+            if kind == MED_BOX:
+                rx, ry, rz = ox - m[9], oy - m[10], oz - m[11]
+                lo_ = (m[0] * rx + m[1] * ry + m[2] * rz,
+                       m[3] * rx + m[4] * ry + m[5] * rz,
+                       m[6] * rx + m[7] * ry + m[8] * rz)
+                ld_ = (m[0] * dx + m[1] * dy + m[2] * dz,
+                       m[3] * dx + m[4] * dy + m[5] * dz,
+                       m[6] * dx + m[7] * dy + m[8] * dz)
+                entry = fzero - float("inf")
+                exit_ = fzero + float("inf")
+                for ax in range(3):
+                    oo, dd2 = lo_[ax], ld_[ax]
+                    invd = 1.0 / torch.where(dd2.abs() < 1e-30, 1e-30, dd2)
+                    t0 = (m[12 + ax] - oo) * invd
+                    t1 = (m[15 + ax] - oo) * invd
+                    entry = torch.maximum(entry, torch.minimum(t0, t1))
+                    exit_ = torch.minimum(exit_, torch.maximum(t0, t1))
+                okb = entry < exit_
+            else:
+                ocx, ocy, ocz = ox - m[18], oy - m[19], oz - m[20]
+                half_b = ocx * dx + ocy * dy + ocz * dz
+                c = ocx * ocx + ocy * ocy + ocz * ocz - m[21]
+                disc = half_b * half_b - a_len * c
+                sq = torch.sqrt(torch.clamp(disc, min=0.0))
+                entry = (-half_b - sq) * inv_a
+                exit_ = (-half_b + sq) * inv_a
+                okb = disc > 0.0
+            entry = torch.clamp(entry, min=T_MIN)
+            exit_ = torch.minimum(exit_, t_best)
+            okb = okb & (entry < exit_)
+            ray_len = torch.sqrt(a_len)
+            dist_in = (exit_ - entry) * ray_len
+            u = torch.clamp(rngb.uniform(hashrng.SITE_MEDIUM + i), min=1e-12)
+            hd = m[22] * torch.log(u)
+            okb = okb & (hd <= dist_in)
+            t_m = entry + hd / ray_len
+            hit = okb & (t_m < t_best)
+            t_best = torch.where(hit, t_m, t_best)
+            w_mat = torch.where(hit, mat, w_mat)
+            w_is_med = w_is_med | hit
+
+        hit_any = torch.isfinite(t_best) & alive
+        miss = alive & ~hit_any
+        tp_r, tp_g, tp_b = tp
+        rad_r, rad_g, rad_b = rad
+        # background on miss (renderer.rs:152-154)
+        rad_r = rad_r + torch.where(miss, tp_r * bg_r, 0.0)
+        rad_g = rad_g + torch.where(miss, tp_g * bg_g, 0.0)
+        rad_b = rad_b + torch.where(miss, tp_b * bg_b, 0.0)
+
+        t_safe = torch.where(hit_any, t_best, 0.0)
+        hpx = ox + t_safe * dx
+        hpy = oy + t_safe * dy
+        hpz = oz + t_safe * dz
+
+        # flip normal toward the ray (hittable.rs:22-37); a medium's
+        # "normal" is the ray direction -> front_face False
+        mx = torch.where(w_is_med, dx, w_nx)
+        my = torch.where(w_is_med, dy, w_ny)
+        mz = torch.where(w_is_med, dz, w_nz)
+        ndotd = torch.where(w_is_med, a_len,
+                            w_nx * dx + w_ny * dy + w_nz * dz)
+        front = ndotd < 0.0
+        sign = torch.where(front, 1.0, -1.0)
+        nx_, ny_, nz_ = sign * mx, sign * my, sign * mz
+
+        m_type = mat_i[w_mat, 0]
+        fuzz = mat_f[w_mat, 3]
+        ir = mat_f[w_mat, 4]
+        is_lam = m_type == LAMBERTIAN
+        is_metal = m_type == METAL
+        is_diel = m_type == DIELECTRIC
+        is_light = m_type == DIFFUSE_LIGHT
+        is_iso = m_type == ISOTROPIC
+
+        m_tex = mat_i[w_mat, 1]
+        al_r, al_g, al_b = mat_f[w_mat, 0], mat_f[w_mat, 1], mat_f[w_mat, 2]
+        tex_r, tex_g, tex_b = tex_value(m_tex, hpx, hpy, hpz)
+
+        # emission (material.rs:114-122), pre-scatter throughput
+        em = hit_any & is_light
+        rad_r = rad_r + torch.where(em, tp_r * tex_r, 0.0)
+        rad_g = rad_g + torch.where(em, tp_g * tex_g, 0.0)
+        rad_b = rad_b + torch.where(em, tp_b * tex_b, 0.0)
+
+        # scatter
+        uvx, uvy, uvz = rngb.unit_vector(hashrng.SITE_SCATTER_Z,
+                                         hashrng.SITE_SCATTER_PHI)
+        inv_len = torch.rsqrt(torch.clamp(a_len, min=1e-30))
+        udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
+
+        # Lambertian: n + unit, near-zero fallback (material.rs:26-42)
+        ldx_, ldy_, ldz_ = nx_ + uvx, ny_ + uvy, nz_ + uvz
+        nz_fb = ((ldx_.abs() < 1e-8) & (ldy_.abs() < 1e-8)
+                 & (ldz_.abs() < 1e-8))
+        ldx_ = torch.where(nz_fb, nx_, ldx_)
+        ldy_ = torch.where(nz_fb, ny_, ldy_)
+        ldz_ = torch.where(nz_fb, nz_, ldz_)
+
+        # Metal: mirror + fuzz ball (material.rs:53-64)
+        fx, fy, fz = rngb.in_unit_sphere(hashrng.SITE_FUZZ_Z,
+                                         hashrng.SITE_FUZZ_PHI,
+                                         hashrng.SITE_FUZZ_R)
+        rdot = udx * nx_ + udy * ny_ + udz * nz_
+        mdx = udx - 2.0 * rdot * nx_ + fuzz * fx
+        mdy = udy - 2.0 * rdot * ny_ + fuzz * fy
+        mdz = udz - 2.0 * rdot * nz_ + fuzz * fz
+        metal_ok = (mdx * nx_ + mdy * ny_ + mdz * nz_) > 0.0
+
+        # Dielectric (material.rs:80-104). Integer powers are repeated
+        # multiplication: x^2 = x*x, x^5 = x * ((x*x) * (x*x)).
+        ratio = torch.where(front, 1.0 / ir, ir)
+        cos_t = torch.clamp(-(udx * nx_ + udy * ny_ + udz * nz_), max=1.0)
+        sin_sq = torch.clamp(1.0 - cos_t * cos_t, min=0.0)
+        cannot = ratio * ratio * sin_sq > 1.0
+        r0s = (1.0 - ratio) / (1.0 + ratio)
+        r0 = r0s * r0s
+        omc = 1.0 - cos_t
+        omc2 = omc * omc
+        refl = r0 + (1.0 - r0) * (omc * (omc2 * omc2))
+        coin = rngb.uniform(hashrng.SITE_SCHLICK)
+        do_refl = cannot | (refl > coin)
+        rpx = ratio * (udx + cos_t * nx_)
+        rpy = ratio * (udy + cos_t * ny_)
+        rpz = ratio * (udz + cos_t * nz_)
+        plen = torch.clamp(1.0 - (rpx * rpx + rpy * rpy + rpz * rpz), min=0.0)
+        par = -torch.sqrt(plen)
+        rfx, rfy, rfz = rpx + par * nx_, rpy + par * ny_, rpz + par * nz_
+        rlx = udx - 2.0 * rdot * nx_
+        rly = udy - 2.0 * rdot * ny_
+        rlz = udz - 2.0 * rdot * nz_
+        ddx = torch.where(do_refl, rlx, rfx)
+        ddy = torch.where(do_refl, rly, rfy)
+        ddz = torch.where(do_refl, rlz, rfz)
+
+        lam_or_iso = is_lam | is_iso
+        new_dx = torch.where(lam_or_iso, torch.where(is_iso, uvx, ldx_),
+                             torch.where(is_metal, mdx, ddx))
+        new_dy = torch.where(lam_or_iso, torch.where(is_iso, uvy, ldy_),
+                             torch.where(is_metal, mdy, ddy))
+        new_dz = torch.where(lam_or_iso, torch.where(is_iso, uvz, ldz_),
+                             torch.where(is_metal, mdz, ddz))
+
+        scattered = (is_metal & metal_ok) | (~is_metal & ~is_light)
+        # the path dies when its max_depth-th segment ends
+        # (renderer.rs:140-142: accumulated radiance stays, the rest is black)
+        scat = hit_any & scattered
+        if not depth_left_ok:
+            scat = scat & False
+
+        one = fzero + 1.0
+        at_r = torch.where(is_metal, al_r, torch.where(is_diel, one, tex_r))
+        at_g = torch.where(is_metal, al_g, torch.where(is_diel, one, tex_g))
+        at_b = torch.where(is_metal, al_b, torch.where(is_diel, one, tex_b))
+        tp_r = torch.where(scat, tp_r * at_r, tp_r)
+        tp_g = torch.where(scat, tp_g * at_g, tp_g)
+        tp_b = torch.where(scat, tp_b * at_b, tp_b)
+
+        # f32 origin offset along the normal, media excluded; sign(0) == 0
+        side = torch.sign(new_dx * nx_ + new_dy * ny_ + new_dz * nz_)
+        mag = torch.maximum(hpx.abs(), torch.maximum(hpy.abs(), hpz.abs()))
+        eps = ORIGIN_EPS_ABS + ORIGIN_EPS_REL * mag
+        off = torch.where(w_is_med, 0.0, side * eps)
+        o = _sel3(scat, (hpx + off * nx_, hpy + off * ny_, hpz + off * nz_),
+                  (ox, oy, oz))
+        d = _sel3(scat, (new_dx, new_dy, new_dz), (dx, dy, dz))
+        return o, d, (tp_r, tp_g, tp_b), (rad_r, rad_g, rad_b), scat
+
+    acc = [fzero, fzero, fzero]
+    acc_n = torch.zeros(P, dtype=torch.int32, device=dev)
+    for si in range(p.spp):
+        s_glob = si + p.sample_offset
+        nox, noy, noz, ndx, ndy, ndz, rtime = camera_ray(s_glob)
+        o, d = (nox, noy, noz), (ndx, ndy, ndz)
+        tp = (fzero + 1.0, fzero + 1.0, fzero + 1.0)
+        rad = (fzero, fzero, fzero)
+        alive = torch.ones(P, dtype=torch.bool, device=dev)
+        d_i = 0
+        while True:
+            acc_n = acc_n + alive.to(torch.int32)
+            rngb = CounterRng(seed, pid, s_glob, d_i)
+            o, d, tp, rad, scat = trace_bounce(
+                o, d, rtime, tp, rad, alive, d_i + 1 < max_depth, rngb)
+            # a path that did not scatter is finished: flush its radiance
+            died = alive & ~scat
+            acc = [a + torch.where(died, r, 0.0) for a, r in zip(acc, rad)]
+            alive = scat
+            d_i += 1
+            if d_i >= max_depth or not bool(alive.any()):
+                break
+    inv = 1.0 / p.spp
+    rgb = torch.stack([a * inv for a in acc], dim=-1)
+    return rgb, acc_n
+
+
+# ------------------------------------------------------------ entry points
+def render_pixels(scene, camera, seed: int = 0, spp: Optional[int] = None,
+                  max_depth: Optional[int] = None, sample_offset: int = 0,
+                  pixel_base: int = 0, pixel_count: Optional[int] = None):
+    """Fused render of a contiguous range of flat pixel ids (``j*w + i``)
+    over samples ``sample_offset .. sample_offset + spp``, on the scene's
+    device: one launch of the CUDA kernel for a scene on a CUDA device, the
+    plain version for a scene on the CPU.
+
+    Returns tensors ``(rgb (count,3) f32 mean radiance, n (count,) i32 scene
+    queries)`` on that device."""
+    spp = spp or camera.samples_per_pixel
+    max_depth = max_depth or camera.max_depth
+    n_prims = int(_np(scene.sph_valid).sum() + _np(scene.quad_valid).sum())
+    if n_prims >= BVH_KERNEL_THRESHOLD:
+        raise NotImplementedError(
+            f"scene has {n_prims} primitives: the in-kernel BVH walk that "
+            f"replaces the brute-force loop from {BVH_KERNEL_THRESHOLD} "
+            "primitives on is not ported yet")
+    packed, tables = _packed_dev(scene)
+    if packed.has_noise or packed.has_image:
+        raise NotImplementedError(
+            "noise and image textures inside the fused render kernel are not "
+            "ported yet (solid and checker textures only)")
+    p = make_params(camera, packed, seed, spp, max_depth, sample_offset,
+                    pixel_base, pixel_count)
+    if scene.device.type == "cpu":
+        return render_fast_plain(tables, p)
+    return render_kernel(tables, p)
+
+
+def render_fast(scene, camera, seed: int = 0, spp: Optional[int] = None,
+                max_depth: Optional[int] = None, sample_offset: int = 0,
+                use_bvh: Optional[bool] = None, with_stats: bool = False):
+    """Fused offline render -> (H,W,3) float32 linear image (numpy).
+
+    With ``with_stats``, returns (image, rays_traced) where rays_traced is
+    the exact number of scene queries, summed in int64 on the device.
+
+    Requires supports(scene)."""
+    if use_bvh:
+        raise NotImplementedError(
+            "use_bvh=True: the in-kernel BVH walk is not ported yet")
+    w, h = camera.image_width, camera.image_height
+    rgb, n = render_pixels(scene, camera, seed=seed, spp=spp,
+                           max_depth=max_depth, sample_offset=sample_offset)
+    nrays = n.sum(dtype=torch.int64)
+    image = rgb.reshape(h, w, 3).cpu().numpy()
+    if with_stats:
+        return image, int(nrays.item())
+    return image

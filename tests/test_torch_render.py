@@ -1,0 +1,219 @@
+"""The forward render as a whole: ``render`` of the port on the CPU against the JAX
+package's ``render``, the progressive renderer, the CLI, the branches that are
+not ported yet, and the port's independence from JAX."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import rust_tracing_tpu as J
+import rust_tracing_tpu_torch as T
+from rust_tracing_tpu_torch import cli, renderer
+from rust_tracing_tpu_torch.models import builders as tbuilders
+from torch_port_helpers import assert_images_agree, both
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _small(name="cornell_box", width=16, spp=4, depth=3):
+    b, s = getattr(tbuilders, name)()
+    s = dataclasses.replace(s, image_width=width, samples_per_pixel=spp,
+                            max_depth=depth)
+    return T.compile_scene(b, device="cpu"), T.Camera.create(s)
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "quads"])
+def test_render_matches_jax_render(name):
+    """Entry point to entry point, settings taken from the camera."""
+    jscene, jcam, tscene, tcam = both(name, image_width=20,
+                                      samples_per_pixel=3, max_depth=4)
+    ref, ref_stats = J.render(jscene, jcam, seed=2)
+    img, stats = T.render(tscene, tcam, seed=2, device="cpu")
+    assert img.dtype == np.float64 and img.shape == (20, 20, 3)
+    assert stats.seconds > 0 and stats.rays_per_sec > 0
+    assert_images_agree(img, np.asarray(ref), stats.rays, ref_stats.rays)
+
+
+def test_auto_policy_takes_the_fused_path_on_cpu():
+    scene, cam = _small()
+    assert renderer.use_megakernel_default(scene, torch.float32, None)
+    assert not renderer.use_wavefront_default(scene)
+    assert not renderer.use_deferred_default(scene)
+    auto, _ = T.render(scene, cam, device="cpu")
+    forced, _ = T.render(scene, cam, device="cpu", use_megakernel=True)
+    np.testing.assert_array_equal(auto, forced)
+
+
+def test_progress_callback_and_metrics(tmp_path, monkeypatch):
+    from rust_tracing_tpu_torch.utils import metrics
+
+    scene, cam = _small()
+    path = tmp_path / "m.jsonl"
+    metrics.enable(str(path))
+    seen = []
+    try:
+        T.render(scene, cam, device="cpu", progress=lambda d, t: seen.append((d, t)))
+    finally:
+        monkeypatch.setenv("RT_METRICS", "0")
+        metrics._sink = None
+    assert seen == [(256, 256)]
+    line = path.read_text().strip().splitlines()[-1]
+    assert '"event": "render"' in line and '"path": "megakernel"' in line
+
+
+def test_progressive_equals_offline():
+    """Progressive steps address samples globally, so they accumulate the
+    offline render's sample set; the running mean is taken in float64 in
+    another order than the kernel's f32 sum, hence the reference's tolerance
+    (tests/test_live.py)."""
+    scene, cam = _small(spp=6)
+    st = T.progressive_init(cam, seed=9)
+    for _ in range(3):
+        st = T.progressive_step(scene, cam, st, samples=2, device="cpu")
+    assert st.num_samples == 6 and st.seed == 9
+    offline, _ = T.render(scene, cam, seed=9, spp=6, device="cpu")
+    np.testing.assert_allclose(st.accum, offline, rtol=3e-6, atol=3e-7)
+    # one step of all samples IS the offline render
+    one = T.progressive_step(scene, cam, T.progressive_init(cam, seed=9),
+                             samples=6, device="cpu")
+    np.testing.assert_array_equal(one.accum, offline)
+
+
+def test_default_device_needs_a_card():
+    """No 'cuda if available else cpu': with no card and no device='cpu' the
+    entry points raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal cannot be shown")
+    b, _ = tbuilders.cornell_box()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.compile_scene(b)
+    scene, cam = _small()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.render(scene, cam)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["-s", "6", "--width", "8", "--spp", "1", "-o", "unused"])
+
+
+def _big_scene():
+    b = T.SceneBuilder(background=(0.5, 0.5, 0.5))
+    mat = b.lambertian((0.5, 0.5, 0.5))
+    for i in range(renderer.WAVEFRONT_PRIM_THRESHOLD):
+        b.add_sphere((i % 32, i // 32, -40.0), 0.4, mat)
+    return T.compile_scene(b, device="cpu")
+
+
+@pytest.mark.parametrize("case,match", [
+    ("use_megakernel_false", "tensor wavefront integrator"),
+    ("hit_fn", "hit_fn"),
+    ("float64", "float64"),
+    ("deferred_noise", "deferred shading"),
+    ("deferred_image", "deferred shading"),
+    ("render_deferred", "deferred shading"),
+    ("wavefront", "sorted deferred wavefront"),
+    ("fused_noise", "noise and image"),
+])
+def test_unported_branches_raise(case, match):
+    """Every branch that is not ported yet names what is missing; none
+    routes to another path silently."""
+    scene, cam = _small()
+    kw = {}
+    if case == "use_megakernel_false":
+        kw = dict(use_megakernel=False)
+    elif case == "hit_fn":
+        kw = dict(hit_fn=lambda *a: None)
+    elif case == "float64":
+        kw = dict(dtype=torch.float64)
+    elif case in ("deferred_noise", "fused_noise"):
+        scene, cam = _small("two_perlin_spheres")
+        kw = dict(use_megakernel=True) if case == "fused_noise" else {}
+    elif case == "deferred_image":
+        scene, cam = _small("earth")
+    elif case == "wavefront":
+        scene = _big_scene()
+    with pytest.raises(NotImplementedError, match=match):
+        if case == "render_deferred":
+            renderer.render_deferred(scene, cam)
+        else:
+            T.render(scene, cam, device="cpu", **kw)
+
+
+def test_scene_on_other_device_is_refused():
+    """render moves nothing silently: the scene must live on the device the
+    render is asked for."""
+    scene, cam = _small()
+    with pytest.raises(ValueError, match="scene is on cpu"):
+        T.render(scene, cam, device="meta")
+
+
+def test_cli_writes_png_on_cpu(tmp_path, capsys):
+    out = str(tmp_path / "cornell")
+    rc = cli.main(["-s", "6", "--width", "16", "--spp", "2", "--max-depth",
+                   "3", "--seed", "4", "--device", "cpu", "-o", out])
+    assert rc == 0
+    from PIL import Image
+
+    with Image.open(out + ".png") as im:
+        assert im.size == (16, 16) and im.mode == "RGB"
+        px = np.asarray(im)
+    assert px.max() > 0  # the light is in view
+    text = capsys.readouterr().out
+    assert "18 quads" in text and "Mrays/s" in text
+    # the PNG is the gamma-encoded render of the same settings
+    scene, cam = _small(width=16, spp=2, depth=3)
+    img, _ = T.render(scene, cam, seed=4, device="cpu")
+    from rust_tracing_tpu_torch.utils.color import color_to_rgb8
+
+    np.testing.assert_array_equal(px, color_to_rgb8(img))
+
+
+def test_cli_unknown_scene():
+    with pytest.raises(ValueError, match="unknown scene index"):
+        cli.main(["-s", "12", "--device", "cpu"])
+
+
+def test_port_imports_without_jax():
+    """The package and chip_smoke import with ``jax`` and ``rust_tracing_tpu``
+    blocked; chip_smoke then refuses to run without a CUDA device."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['rust_tracing_tpu'] = None\n"
+        "import torch\n"
+        "import rust_tracing_tpu_torch as T\n"
+        "from rust_tracing_tpu_torch import cli, renderer, camera\n"
+        "from rust_tracing_tpu_torch.ops import megakernel, hashrng, perlin\n"
+        "from rust_tracing_tpu_torch.models import builders, bvh, compile\n"
+        "from rust_tracing_tpu_torch.runtime import kernels\n"
+        "b, s = builders.build_scene(6)\n"
+        "T.compile_scene(b, device='cpu')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('rust_tracing_tpu.')]\n"
+        "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
+        "print('PORT_OK')\n"
+        "torch.cuda.is_available = lambda: True\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke',"
+        " 'chip_smoke.py')\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert callable(mod.main)\n"
+        "print('SMOKE_IMPORT_OK')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "PORT_OK" in res.stdout and "SMOKE_IMPORT_OK" in res.stdout
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal cannot be shown")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert res.stdout.strip() == ""
