@@ -3,34 +3,56 @@
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 device and the CUDA toolkit (``nvcc``), builds the hand-written kernels from
-``rust_tracing_tpu_torch/csrc/`` and drives the port's main path through the
+``rust_tracing_tpu_torch/csrc/`` and drives the port's main paths through the
 entry points a user would call. Every phase prints one JSON line; any failure
 exits non-zero. Without a CUDA device it exits non-zero and prints no result.
 
 Phases:
   device     card name and power limit (nvidia-smi), torch and CUDA versions
   build      seconds to compile the kernel library at first use
-  exact      closed-form cases through the kernel (background, emitter)
-  kernels    the CUDA render kernel against its plain PyTorch version ON THE
-             CARD, same inputs, on four scenes at a small frame and on
-             cornell_box at the main path's 600x600 frame with spp cut
+  exact      closed-form cases through the render kernel
+  kernels    every CUDA kernel against its plain PyTorch version ON THE CARD,
+             same inputs: the render kernel (B1) and the path recorder (B2)
+             on four scenes at a small frame and on cornell_box at 600x600;
+             the gathers (B5, B6) and their transpose (the reduction) on
+             tables of 4 to 3407 rows and 3.96 M indices
   main_path  render() of cornell_box at 600x600, 4096 spp, depth 8
   cli        the command-line entry point writes a PNG
+  grad_path  loss_and_grad() of cornell_box at 600x600, 200 spp, depth 8
+             w.r.t. every float scene leaf (the record/replay gradient), then
+             the L2 loss of the same workload
+  profile    device time by kernel of one grad_path run (torch.profiler)
+  train      fit_scene() on cornell_box 600x600 @ 16 spp: the loss falls
+  grad_check the CLI's --grad-check on the card
 
-Tolerance of `kernels` and its reason. The kernel is built without fused
-multiply-add contraction and without fast math, and does the plain version's
-f32 operations in the plain version's order; `sinf cosf logf expf rsqrtf`
-come from the same device library PyTorch's CUDA ops call. So almost every
-pixel is expected equal to a few ulp: a pixel counts as equal when
-|kernel - plain| <= 1e-5 + 1e-5 * |plain| in all three channels. Where one
-ulp in a transcendental flips a hit decision the path after it is a different
-path and the pixel differs freely, so what is bounded is the SHARE of such
-pixels (<= 0.5 %), the share of pixels whose ray count differs (<= 0.5 %) and
-the ratio of the mean images (within 1e-3 of 1). On an H100 the share seen is
-0; a build with multiply-add contraction left on shows 1.2 % on random_balls.
+Tolerances and their reasons.
+- Render kernel: built without fused multiply-add contraction and without
+  fast math, it does the plain version's f32 operations in the plain
+  version's order; `sinf cosf logf expf rsqrtf` come from the same device
+  library PyTorch's CUDA ops call. A pixel counts as equal when
+  |kernel - plain| <= 1e-5 + 1e-5 * |plain|. Where one ulp flips a hit
+  decision the path after it differs freely, so what is bounded is the SHARE
+  of such pixels (<= 0.5 %), the share of pixels whose ray count differs
+  (<= 0.5 %) and the ratio of the mean images (within 1e-3 of 1). Seen on an
+  H100: 0; a build with contraction left on shows 1.2 % on random_balls.
+- Recorder: records are integers, and every record must be equal.
+- Gathers: a gather copies bits; equal to the plain version and to
+  torch.index_select bit for bit.
+- Reduction: with integer-valued cotangents every partial sum is exact, so
+  the kernel must equal the plain version bit for bit; with normal-valued
+  cotangents the two add the same terms in different orders, so each row
+  may differ by at most 1e-6 of the sum of |cotangent| over the row (f32
+  rounding of a blocked sum stays far below). Two calls must give the same
+  bits.
+- grad_path: the loss (the image mean, linear_loss) must equal the mean of
+  the render kernel's image at the same seed, spp and depth to rtol 1e-5:
+  the same estimator, summed in another association (per-slice float means
+  weighted by k/spp, against one f32 sample sum per pixel).
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -48,7 +70,9 @@ if not torch.cuda.is_available():
 
 import rust_tracing_tpu_torch as rt  # noqa: E402
 from rust_tracing_tpu_torch import cli  # noqa: E402
+from rust_tracing_tpu_torch import grad as tg  # noqa: E402
 from rust_tracing_tpu_torch.models import builders  # noqa: E402
+from rust_tracing_tpu_torch.ops import lanegather as lg  # noqa: E402
 from rust_tracing_tpu_torch.ops import megakernel as mk  # noqa: E402
 from rust_tracing_tpu_torch.runtime import kernels  # noqa: E402
 from rust_tracing_tpu_torch.utils.image_io import write_png  # noqa: E402
@@ -71,8 +95,14 @@ FLOP_PER_CAMERA_RAY = 60
 PIX_ATOL, PIX_RTOL = 1e-5, 1e-5
 MAX_DIVERGED_SHARE = 0.005
 MAX_MEAN_RATIO_ERR = 1e-3
+SUM_TOL = 1e-6      # reduction: share of the row's sum of |cotangent|
+LOSS_RTOL = 1e-5    # grad_path loss against the render kernel's image mean
 
 MAIN_SPP_TIME_BUDGET_S = 120.0
+GRAD_SPP, GRAD_DEPTH = 200, 8          # bench.py's headline workload
+TABLE_ROWS = (4, 18, 24, 64, 488, 3407)  # 24: cornell's padded quad table
+N_INDEX = 11 * 360000  # the main path's replay wavefront: 11 samples x 600^2
+TRAIN_LR = 8.0
 # where to keep the main path's PNG for a look; unset = not kept
 OUT_DIR = os.environ.get("RT_SMOKE_OUT")
 
@@ -107,33 +137,82 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(tables, p, n_rays):
-    """Least time the card could take for this render: the larger of bytes
-    moved (each table read once, 16 bytes written a pixel) over the memory
-    rate and operations over the float32 rate."""
+def _kernel_events(prof):
+    """(name, device microseconds) of every device kernel, copy and fill a
+    torch.profiler run recorded."""
+    from torch.autograd import DeviceType
+
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps):
+    """Mean device time of one call of ``fn``, in ms: the summed duration
+    of the device work it launches, from torch.profiler, over ``reps`` calls
+    after a warm-up. Unlike CUDA events around a loop of calls, this does
+    not include the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(us for _, us in _kernel_events(prof)) / 1e3 / reps
+
+
+def once_ms(fn):
+    """Milliseconds of one run of ``fn`` on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def reset_launches():
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+
+
+def bytes_bound(n_bytes):
+    return n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"
+
+
+def bound_ms(tables, p, n_rays, shade=True):
+    """Least time the card could take for this trace: the larger of bytes
+    moved (each table read once, each output written once) over the memory
+    rate and operations over the float32 rate. The render writes 16 bytes a
+    pixel and shades every bounce; the recorder (shade=False) writes 4 bytes
+    per (pixel, sample, bounce) and shades nothing."""
     n_bytes = sum(t.numel() * t.element_size() for t in tables.values())
-    n_bytes += p.pixel_count * 16
+    if shade:
+        n_bytes += p.pixel_count * 16
+    else:
+        n_bytes += p.pixel_count * p.spp * p.max_depth * 4
     flop = (n_rays * ((p.n_spheres + p.n_quads) * FLOP_PER_PRIM_TEST
-                      + FLOP_PER_BOUNCE_SHADE)
+                      + (FLOP_PER_BOUNCE_SHADE if shade else 0))
             + p.pixel_count * p.spp * FLOP_PER_CAMERA_RAY)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_flop = flop / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_flop), ("bytes" if t_bytes > t_flop else "operations")
 
 
-def scene_inputs(name, width, spp, depth, seed=0):
+def scene_inputs(name, width, spp, depth, seed=0, sample_offset=0):
     b, settings = getattr(builders, name)()
     settings = dataclasses.replace(settings, image_width=width,
                                    samples_per_pixel=spp, max_depth=depth)
     scene = rt.compile_scene(b, device=DEVICE)
     camera = rt.Camera.create(settings)
     packed, tables = mk._packed_dev(scene)
-    p = mk.make_params(camera, packed, seed, spp, depth)
+    p = mk.make_params(camera, packed, seed, spp, depth, sample_offset)
     return scene, camera, tables, p
 
 
 def compare(name, width, spp, depth, reps_kernel=3):
-    """Kernel vs plain version on the card, same inputs."""
+    """Render kernel vs plain version on the card, same inputs."""
     scene, camera, tables, p = scene_inputs(name, width, spp, depth, seed=11)
     rgb_k, n_k = mk.render_kernel(tables, p)
     torch.cuda.synchronize()
@@ -150,6 +229,7 @@ def compare(name, width, spp, depth, reps_kernel=3):
     n_rays = int(n_k.sum(dtype=torch.int64).item())
     b_ms, b_by = bound_ms(tables, p, n_rays)
     res = dict(
+        kernel="render_kernel",
         scene=name, width=camera.image_width, height=camera.image_height,
         spp=spp, depth=depth, spheres=p.n_spheres, quads=p.n_quads,
         media=p.n_media, rays=n_rays,
@@ -172,6 +252,135 @@ def compare(name, width, spp, depth, reps_kernel=3):
     if abs(res["mean_ratio"] - 1.0) > MAX_MEAN_RATIO_ERR:
         fail(f"{name}: mean-image ratio {res['mean_ratio']}")
     return res
+
+
+def compare_records(name, width, spp, depth, sample_offset, timed=False):
+    """Path recorder vs its plain version on the card: every record equal.
+    With ``timed``, also the kernel's time by CUDA events and its bound,
+    whose ray count comes from the render kernel's per-pixel count of the
+    same paths (both trace them through the same device functions)."""
+    scene, camera, tables, p = scene_inputs(name, width, spp, depth, seed=3,
+                                            sample_offset=sample_offset)
+    rec_k = mk.record_kernel(tables, p)
+    torch.cuda.synchronize()
+    rec_p, plain_ms = once_ms(lambda: mk.record_paths_plain(tables, p))
+    differ = int((rec_k != rec_p).sum().item())
+    res = dict(kernel="record_kernel", scene=name, width=camera.image_width,
+               height=camera.image_height, spp=spp, depth=depth,
+               sample_offset=sample_offset, records=rec_k.numel(),
+               records_differ=differ,
+               nonzero=int((rec_k != 0).sum().item()),
+               max_abs_err=float((rec_k.long() - rec_p.long()).abs().max()
+                                 .item()),
+               plain_ms=plain_ms)
+    if timed:
+        _, n = mk.render_kernel(tables, p)
+        n_rays = int(n.sum(dtype=torch.int64).item())
+        res["kernel_ms"] = time_ms(lambda: mk.record_kernel(tables, p), 3)
+        res["rays"] = n_rays
+        res["bound_ms"], res["bound_by"] = bound_ms(tables, p, n_rays,
+                                                    shade=False)
+    say("kernels", **res)
+    if differ:
+        fail(f"record_kernel: {differ} records of {name} differ from the "
+             f"plain version")
+    return res
+
+
+def compare_gathers(reps=10):
+    """B5 and B6 against their plain versions and torch.index_select: equal
+    bits; times at every table size, f32 and i32."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    out = {}
+    for n in TABLE_ROWS:
+        idx = torch.randint(0, n, (N_INDEX,), device=DEVICE,
+                            dtype=torch.int32, generator=gen)
+        idx_l = idx.long()
+        for dt in (torch.float32, torch.int32):
+            col = (torch.randn(n, device=DEVICE, generator=gen) * 1e3).to(dt)
+            got = lg.gather_kernel(col, idx)
+            _, plain_ms = once_ms(lambda: lg.gather_plain(col, idx))
+            same = (torch.equal(got, lg.gather_plain(col, idx))
+                    and torch.equal(got, col.index_select(0, idx_l)))
+            ms = device_ms(lambda: lg.gather_kernel(col, idx), reps)
+            call = time_ms(lambda: lg.gather_kernel(col, idx), reps)
+            lib = device_ms(lambda: col.index_select(0, idx_l), reps)
+            b_ms, b_by = bytes_bound(N_INDEX * (4 + 4) + n * 4)
+            res = dict(kernel="gather_kernel", rows=n, dtype=str(dt),
+                       indices=N_INDEX, bitwise_equal=same, kernel_ms=ms,
+                       call_ms=call, plain_ms=plain_ms, library_ms=lib,
+                       bound_ms=b_ms, bound_by=b_by)
+            say("kernels", **res)
+            if not same:
+                fail(f"gather_kernel differs at {n} rows, {dt}")
+            out[("gather", n, dt)] = res
+            for K in (8, 17):
+                tab = (torch.randn(K, n, device=DEVICE, generator=gen)
+                       * 1e3).to(dt)
+                got = lg.gather_cols_kernel(tab, idx)
+                _, plain_ms = once_ms(lambda: lg.gather_cols_plain(tab, idx))
+                same = (torch.equal(got, lg.gather_cols_plain(tab, idx))
+                        and torch.equal(got, tab.index_select(1, idx_l)))
+                ms = device_ms(lambda: lg.gather_cols_kernel(tab, idx), reps)
+                call = time_ms(lambda: lg.gather_cols_kernel(tab, idx), reps)
+                lib = device_ms(lambda: tab.index_select(1, idx_l), reps)
+                b_ms, b_by = bytes_bound(N_INDEX * (4 + 4 * K) + K * n * 4)
+                res = dict(kernel="gather_cols_kernel", rows=n, columns=K,
+                           dtype=str(dt), indices=N_INDEX,
+                           bitwise_equal=same, kernel_ms=ms, call_ms=call,
+                           plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                           bound_by=b_by)
+                say("kernels", **res)
+                if not same:
+                    fail(f"gather_cols_kernel differs at {n} rows, K={K}, "
+                         f"{dt}")
+                out[("cols", n, K, dt)] = res
+    return out
+
+
+def compare_reductions(reps=5):
+    """The reduction against its plain version: exact on integer-valued
+    cotangents, within SUM_TOL of each row's sum of |cotangent| on normal
+    ones, bitwise repeatable; times against index_add_."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    out = {}
+    for n in TABLE_ROWS:
+        idx = torch.randint(0, n, (N_INDEX,), device=DEVICE,
+                            dtype=torch.int32, generator=gen)
+        idx_l = idx.long()
+        for K in (1, 17):
+            ints = torch.randint(-8, 9, (K, N_INDEX), device=DEVICE,
+                                 generator=gen).to(torch.float32)
+            exact = torch.equal(lg.scatter_sum_kernel(ints, idx, n),
+                                lg.scatter_sum_plain(ints, idx, n))
+            ct = torch.randn(K, N_INDEX, device=DEVICE, generator=gen)
+            got = lg.scatter_sum_kernel(ct, idx, n)
+            repeat = torch.equal(got, lg.scatter_sum_kernel(ct, idx, n))
+            ref, plain_ms = once_ms(lambda: lg.scatter_sum_plain(ct, idx, n))
+            scale = lg.scatter_sum_plain(ct.abs(), idx, n)
+            err = (got - ref).abs()
+            within = bool((err <= SUM_TOL * scale).all())
+            ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
+            call = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
+            lib = device_ms(lambda: torch.zeros(
+                (K, n), device=DEVICE).index_add_(1, idx_l, ct), reps)
+            b_ms, b_by = bytes_bound(N_INDEX * (4 + 4 * K) + K * n * 4)
+            res = dict(kernel="scatter_sum_kernel", rows=n, columns=K,
+                       indices=N_INDEX, exact_on_integers=exact,
+                       bitwise_repeatable=repeat, within_tol=within,
+                       max_abs_err=float(err.max().item()),
+                       max_err_over_abs_sum=float((err / scale.clamp(
+                           min=1e-30)).max().item()),
+                       kernel_ms=ms, call_ms=call, plain_ms=plain_ms,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            say("kernels", **res)
+            if not (exact and repeat and within):
+                fail(f"scatter_sum_kernel at {n} rows, K={K}: exact={exact} "
+                     f"repeatable={repeat} within_tol={within}")
+            out[(n, K)] = res
+    return out
 
 
 def phase_exact():
@@ -203,30 +412,8 @@ def gamma_mean(img):
     return float(g.mean())
 
 
-def main():
-    t_start = time.perf_counter()
-    card = gpu_line()
-    say("device", nvidia_smi=card, torch=torch.__version__,
-        cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0))
-
-    kernels.load()
-    regs = [ln.strip() for ln in kernels.build_log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    say("build", seconds=kernels.build_seconds, sources=list(kernels.SOURCES),
-        ptxas=regs[-4:])
-
-    phase_exact()
-
-    # the kernel against its plain version, four scene families, small frame
-    compare("cornell_box", 64, 16, 8)
-    compare("cornell_smoke", 64, 16, 8)
-    compare("two_spheres", 64, 16, 8)
-    compare("random_balls", 64, 8, 8)
-    # and at the shapes the main path gives it (600x600 frame, depth 8, the
-    # same tables), with spp cut so the plain version ends in seconds
-    at_main = compare("cornell_box", 600, 16, 8)
-
-    # ---- main path: render() through the package's normal entry point
+def phase_main_path(at_main):
+    """render() through the package's normal entry point."""
     b, settings = builders.cornell_box()
     est_s = at_main["kernel_ms"] / 1e3 / at_main["spp"] \
         * settings.samples_per_pixel
@@ -237,12 +424,11 @@ def main():
     settings = dataclasses.replace(settings, samples_per_pixel=spp)
     scene = rt.compile_scene(b, device=DEVICE)
     camera = rt.Camera.create(settings)
-    for k in mk.LAUNCHES:
-        mk.LAUNCHES[k] = 0
+    reset_launches()
     torch.cuda.synchronize()
     img, stats = rt.render(scene, camera)
     torch.cuda.synchronize()
-    launches = dict(mk.LAUNCHES)
+    launches = dict(kernels.LAUNCHES)
     if launches["render_kernel"] < 1:
         fail("main path did not launch render_kernel")
     if img.shape != (600, 600, 3) or not np.isfinite(img).all():
@@ -262,6 +448,210 @@ def main():
     if OUT_DIR:
         os.makedirs(OUT_DIR, exist_ok=True)
         write_png(os.path.join(OUT_DIR, "cornell_main.png"), img)
+    return dict(seconds=stats.seconds, spp=spp, bound=main_bound,
+                launches=launches["render_kernel"])
+
+
+def headline(scene, camera, seed, loss_fn, linear):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g, rays = tg.loss_and_grad(scene, camera, loss_fn, seed=seed,
+                                     spp=GRAD_SPP, max_depth=GRAD_DEPTH,
+                                     with_rays=True, linear_loss=linear)
+    torch.cuda.synchronize()
+    return loss, g, rays, time.perf_counter() - t0
+
+
+def phase_grad_path():
+    """The headline gradient workload through loss_and_grad."""
+    b, settings = builders.cornell_box()
+    scene = rt.compile_scene(b, device=DEVICE)
+    camera = rt.Camera.create(settings)
+
+    def mean_loss(im, p):
+        return im.mean()
+
+    # first call: builds nothing, but pays PyTorch's first-use costs
+    _, _, _, warm_s = headline(scene, camera, 0, mean_loss, True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss, g, rays, secs = headline(scene, camera, 1, mean_loss, True)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _, _, rays2, secs2 = headline(scene, camera, 2, mean_loss, True)
+
+    img = mk.render_fast(scene, camera, seed=1, spp=GRAD_SPP,
+                         max_depth=GRAD_DEPTH)
+    b1_mean = float(img.astype(np.float64).mean())
+    rel = abs(float(loss) - b1_mean) / abs(b1_mean)
+    leaves = {f: getattr(g, f) for f in ("sph_center", "sph_radius",
+                                         "sph_cvec", "quad_q", "quad_u",
+                                         "quad_v", "mat_albedo", "mat_fuzz",
+                                         "mat_ir", "tex_rgb", "background",
+                                         "med_neg_inv_density")}
+    finite = {f: bool(torch.isfinite(t).all()) for f, t in leaves.items()}
+    tex = g.tex_rgb
+    res = dict(scene="cornell_box", width=600, height=600, spp=GRAD_SPP,
+               depth=GRAD_DEPTH, loss=float(loss), b1_image_mean=b1_mean,
+               loss_rel_err=rel, rays=rays, seconds=secs,
+               fwdbwd_rays_per_s=rays / secs, seconds_rep2=secs2,
+               fwdbwd_rays_per_s_rep2=rays2 / secs2, first_call_s=warm_s,
+               peak_mem_gb=peak / 1e9, launches=launches,
+               tex_rgb_grad=tex.tolist(),
+               geometry_grad_absmax={f: float(leaves[f].abs().max())
+                                     for f in ("quad_q", "quad_u", "quad_v")})
+    say("grad_path", **res)
+    if launches["record_kernel"] != 9:
+        fail(f"grad_path launched record_kernel {launches['record_kernel']} "
+             "times, expected 9 sample slices")
+    for k in ("gather_kernel", "gather_cols_kernel", "scatter_sum_kernel"):
+        if launches[k] < 1:
+            fail(f"grad_path did not launch {k}")
+    if not rel <= LOSS_RTOL:
+        fail(f"loss {float(loss)} vs render kernel image mean {b1_mean}")
+    if not all(finite.values()):
+        fail(f"non-finite gradient leaves: {finite}")
+    if not (tex.abs().max() > 0 and tex[3].abs().max() > 0):
+        fail("tex_rgb gradient (or the light's emission row) is zero")
+
+    # the L2 loss of bench.py: a nonlinear loss takes the render kernel's
+    # forward for its cotangent (pass 1) before the sliced backward
+    l2 = tg.l2_to_target(torch.from_numpy(img.reshape(-1, 3)).to(DEVICE))
+    reset_launches()
+    l2_loss, g2, rays_l2, secs_l2 = headline(scene, camera, 3, l2, False)
+    say("grad_path", loss_kind="l2_to_target", loss=float(l2_loss),
+        rays=rays_l2, seconds=secs_l2, fwdbwd_rays_per_s=rays_l2 / secs_l2,
+        launches=dict(kernels.LAUNCHES))
+    if not (np.isfinite(float(l2_loss))
+            and bool(torch.isfinite(g2.tex_rgb).all())):
+        fail("L2 loss or its gradient is not finite")
+    if kernels.LAUNCHES["render_kernel"] < 1:
+        fail("the L2 loss did not take the render kernel's forward")
+    return res, scene, camera
+
+
+def phase_profile(scene, camera, run_s):
+    """Device time by kernel over one grad_path run, and the device's busy
+    share of that run's wall time (kernels run one at a time on the one
+    stream, so their summed time is the busy time). Then the stages of an
+    unprofiled run of ``run_s`` seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, rays, wall_s = headline(scene, camera, 4,
+                                      lambda im, p: im.mean(), True)
+    by_name = {}
+    for name, us in _kernel_events(prof):
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us / 1e3, c + 1)
+    total = sum(t for t, _ in by_name.values())
+    ours = {k: 0.0 for k in ("record_kernel", "gather_kernel",
+                             "gather_cols_kernel", "scatter_sum")}
+    for name, (t, _) in by_name.items():
+        for k in ours:
+            if k in name:
+                ours[k] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+
+    # the same slices by stage on the host clock: records (B2) alone, and
+    # the replay forward alone (no graph); the rest of a run is the
+    # backward, with its checkpoint recompute of the forward
+    pid = torch.arange(camera.image_width * camera.image_height,
+                       dtype=torch.int32, device=DEVICE)
+    cam_c = camera.constants(device=DEVICE)
+    k_max = tg.RECORD_BUDGET_ENTRIES // (GRAD_DEPTH * pid.numel())
+    rec_ms = fwd_ms = 0.0
+    for c0 in range(0, GRAD_SPP, k_max):
+        k = min(k_max, GRAD_SPP - c0)
+        recs, ms = once_ms(lambda: tg.get_records(
+            scene, camera, 4, k, GRAD_DEPTH, pixel_ids=pid, sample_offset=c0))
+        rec_ms += ms
+        with torch.no_grad():
+            _, ms = once_ms(lambda: tg.radiance_mean_replay_rays(
+                scene, cam_c, pid, 4, recs, k, GRAD_DEPTH, sample_base=c0))
+        fwd_ms += ms
+        del recs
+    say("profile", wall_s_profiled=wall_s, rays=rays,
+        device_ms_total=total, device_busy_share=total / (wall_s * 1e3),
+        ours_ms=ours, other_ms=total - sum(ours.values()),
+        stages_ms=dict(records=rec_ms, replay_forward=fwd_ms,
+                       backward_with_recompute=run_s * 1e3 - rec_ms - fwd_ms),
+        top=[dict(kernel=k[:100], ms=t, count=c) for k, (t, c) in top])
+
+
+def phase_train():
+    b, settings = builders.cornell_box()
+    settings = dataclasses.replace(settings, samples_per_pixel=16)
+    scene = rt.compile_scene(b, device=DEVICE)
+    camera = rt.Camera.create(settings)
+    target = mk.render_fast(scene, camera, seed=0, spp=16, max_depth=8)
+    wrong = scene.tex_rgb.clone()
+    true_red = wrong[0].clone()
+    wrong[0] = torch.tensor([0.3, 0.3, 0.3], device=DEVICE)
+    t0 = time.perf_counter()
+    fitted, losses = tg.fit_scene(scene.replace(tex_rgb=wrong), camera,
+                                  target, steps=3,
+                                  learning_rates={"tex_rgb": TRAIN_LR},
+                                  spp=16, max_depth=8, resample=False)
+    torch.cuda.synchronize()
+    say("train", scene="cornell_box", width=600, height=600, spp=16,
+        depth=8, lr=TRAIN_LR, losses=losses,
+        seconds=time.perf_counter() - t0,
+        red_wall_start=[0.3, 0.3, 0.3], red_wall_end=fitted.tex_rgb[0]
+        .tolist(), red_wall_true=true_red.tolist())
+    if not losses[2] < losses[0]:
+        fail(f"train: loss did not fall: {losses}")
+
+
+def phase_grad_check():
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(buf):
+        rc = cli.main(["-s", "6", "--width", "64", "--grad-check",
+                       "-o", os.path.join(tmp, "gc")])
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("grad-check")]
+    say("grad_check", rc=rc, lines=lines)
+    if rc != 0 or "grad-check: OK" not in text:
+        fail("cli --grad-check did not pass on the card")
+
+
+def main():
+    t_start = time.perf_counter()
+    card = gpu_line()
+    say("device", nvidia_smi=card, torch=torch.__version__,
+        cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0))
+
+    kernels.load()
+    regs = [ln.strip() for ln in kernels.build_log.splitlines()
+            if "registers" in ln or "spill" in ln or ln.startswith("==")]
+    say("build", seconds=kernels.build_seconds, sources=list(kernels.SOURCES),
+        ptxas=regs)
+
+    phase_exact()
+
+    # the render kernel against its plain version, four scene families,
+    # small frame, and at the main path's shapes (600x600 frame, depth 8,
+    # the same tables) with spp cut so the plain version ends in seconds
+    for name, spp in (("cornell_box", 16), ("cornell_smoke", 16),
+                      ("two_spheres", 16), ("random_balls", 8)):
+        compare(name, 64, spp, 8)
+    at_main = compare("cornell_box", 600, 16, 8)
+
+    # the recorder against its plain version: the same scenes at a small
+    # frame, cornell_box 600x600 at two sample offsets, and one full sample
+    # slice of the gradient path (23 spp at offset 23), timed
+    for name in ("cornell_box", "cornell_smoke", "two_spheres",
+                 "random_balls"):
+        compare_records(name, 64, 4, 8, 0)
+    for off in (0, 23):
+        compare_records("cornell_box", 600, 4, 8, off)
+    rec_main = compare_records("cornell_box", 600, 23, 8, 23, timed=True)
+
+    gathers = compare_gathers()
+    sums = compare_reductions()
+
+    main = phase_main_path(at_main)
 
     # ---- CLI
     with tempfile.TemporaryDirectory() as tmp:
@@ -271,20 +661,75 @@ def main():
             fail(f"cli returned {rc} or wrote no PNG")
         say("cli", rc=rc, png_bytes=os.path.getsize(out + ".png"))
 
+    grad, scene, camera = phase_grad_path()
+    try:
+        phase_profile(scene, camera, grad["seconds_rep2"])
+    except Exception as e:  # noqa: BLE001  (a diagnosis, not a check)
+        say("profile", error=f"{type(e).__name__}: {e}",
+            device_ms_total="not measured")
+    phase_train()
+    phase_grad_check()
+
     say("total", seconds=time.perf_counter() - t_start)
+    g5 = gathers[("gather", 4, torch.float32)]
+    g6 = gathers[("cols", 24, 17, torch.float32)]
+    rd = sums[(24, 17)]
+    gl = grad["launches"]
     print(json.dumps({"kernels": [{
         "name": "render_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
         "replaces": "rust_tracing_tpu/ops/megakernel.py:1262",
-        "launches": launches["render_kernel"],
+        "launches": main["launches"],
         "max_abs_err": at_main["max_abs_err"],
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
         "library_ms": None,
         "shape": "cornell_box 600x600 depth 8 spp 16 (main-path frame and "
                  "tables, spp cut for the plain version)",
-        "main_path_ms": stats.seconds * 1e3, "main_path_spp": spp,
-        "main_path_bound_ms": main_bound,
+        "main_path_ms": main["seconds"] * 1e3, "main_path_spp": main["spp"],
+        "main_path_bound_ms": main["bound"],
+    }, {
+        "name": "record_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/megakernel.py:1050",
+        "launches": gl["record_kernel"],
+        "max_abs_err": rec_main["max_abs_err"],
+        "ms": rec_main["kernel_ms"], "plain_ms": rec_main["plain_ms"],
+        "bound_ms": rec_main["bound_ms"], "bound_by": rec_main["bound_by"],
+        "library_ms": None,
+        "shape": "cornell_box 600x600 depth 8, one 23-spp sample slice of "
+                 "the gradient path (offset 23)",
+    }, {
+        "name": "gather_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/lanegather.py:64",
+        "launches": gl["gather_kernel"], "max_abs_err": 0.0,
+        "ms": g5["kernel_ms"], "plain_ms": g5["plain_ms"],
+        "bound_ms": g5["bound_ms"], "bound_by": g5["bound_by"],
+        "library_ms": g5["library_ms"],
+        "shape": f"f32 table of 4 rows (cornell's texture and material "
+                 f"tables), {N_INDEX} indices (one replay wavefront)",
+    }, {
+        "name": "gather_cols_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/lanegather.py:112",
+        "launches": gl["gather_cols_kernel"], "max_abs_err": 0.0,
+        "ms": g6["kernel_ms"], "plain_ms": g6["plain_ms"],
+        "bound_ms": g6["bound_ms"], "bound_by": g6["bound_by"],
+        "library_ms": g6["library_ms"],
+        "shape": f"f32 (17, 24) quad column table (cornell), {N_INDEX} "
+                 "indices",
+    }, {
+        "name": "scatter_sum_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/tgather.py:65",
+        "launches": gl["scatter_sum_kernel"],
+        "max_abs_err": rd["max_abs_err"],
+        "ms": rd["kernel_ms"], "plain_ms": rd["plain_ms"],
+        "bound_ms": rd["bound_ms"], "bound_by": rd["bound_by"],
+        "library_ms": rd["library_ms"],
+        "shape": f"f32 cotangent (17, {N_INDEX}) into the (17, 24) quad "
+                 "column table (the transpose of the B6 gather)",
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
-// Forward path-tracing render kernel for Hopper (sm_90a), written by hand.
+// Forward path-tracing render kernel and path recorder for Hopper (sm_90a),
+// written by hand.
 //
-// Replaces the Pallas kernel of rust_tracing_tpu/ops/megakernel.py
-// (`_make_kernel.kernel`, render mode, brute-force primitive loop): the whole
-// render of a pixel range in one launch. Camera ray, closest hit over spheres
+// render_kernel replaces the Pallas kernel of rust_tracing_tpu/ops/
+// megakernel.py (`_make_kernel.kernel`, render mode, brute-force primitive
+// loop): the whole render of a pixel range in one launch. record_kernel
+// replaces the same Pallas kernel's record mode (see its own comment). Camera ray, closest hit over spheres
 // and quads, constant media, five-material scatter, emission, solid/checker
 // textures, spp accumulation.
 //
@@ -71,9 +73,11 @@ struct SceneTables {
     const int* tex_i;     // (T,3)  type even odd
 };
 
-// What a trace computes. RENDER shades and accumulates radiance; RECORD and
-// HIT (later kernels: winner ids per bounce, one-bounce search) reuse the same
-// device functions and additionally track which primitive won.
+// What a trace computes. RENDER shades and accumulates radiance; RECORD
+// (record_kernel: winner ids per bounce) and HIT (a later kernel: one-bounce
+// search) reuse the same device functions and track which primitive won. The
+// record is taken right after the search, before the emitter and depth
+// short-cuts, so a bounce that ends its path still records its winner.
 enum Mode { MODE_RENDER = 0, MODE_RECORD = 1, MODE_HIT = 2 };
 
 constexpr float T_MIN = 1e-3f;
@@ -503,7 +507,92 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     out_n[local] = n;
 }
 
+// Path recorder (replaces the Pallas kernel's record mode,
+// rust_tracing_tpu/ops/megakernel.py:1050-1077): the same lockstep
+// `for sample { for bounce }` trace as render_kernel through
+// trace_bounce<MODE_RECORD>, which skips texture and radiance work and
+// reports the winner `kind<<24 | idx` (1 sphere, 2 quad, 3+m medium m) of
+// every bounce. After a path dies (miss, emitter, absorbed metal ray, or its
+// max_depth-th segment) every later bounce of that sample records 0, as the
+// reference's `alive` carry and records_xla's `where(tp_alive, rec, 0)` do.
+//
+// out (max_depth, spp, pixel_count) int32, depth-major, written in place:
+// replay reads one (spp * pixels) bounce row at a time, so no transpose or
+// unswizzle follows. A warp's 32 pixels are four 8-pixel row segments, so
+// each store instruction fills four whole 32-byte sectors.
+// Bound: operations (the same primitive tests as render_kernel without the
+// shading); it writes 4 bytes per (pixel, sample, bounce).
+__global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
+    record_kernel(SceneTables sc, RenderParams p, int row0,
+                  int* __restrict__ out) {
+    const int i = blockIdx.x * BLOCK_X + threadIdx.x;
+    const int j = row0 + blockIdx.y * BLOCK_Y + threadIdx.y;
+    if (i >= p.width || j >= p.height) return;
+    const int pid = j * p.width + i;
+    const int local = pid - p.pixel_base;
+    if (local < 0 || local >= p.pixel_count) return;
+    const float pi = (float)i, pj = (float)j;
+    const size_t plane = (size_t)p.pixel_count;
+
+    for (int si = 0; si < p.spp; ++si) {
+        const uint32_t s_glob = (uint32_t)(si + p.sample_offset);
+        Path s;
+        camera_ray(p, (uint32_t)pid, pi, pj, s_glob, s.ray);
+        s.tp_r = s.tp_g = s.tp_b = 1.0f;
+        s.rad_r = s.rad_g = s.rad_b = 0.0f;
+        bool alive = true;
+        for (int d = 0; d < p.max_depth; ++d) {
+            int rec = 0;
+            if (alive) {
+                const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
+                                      (uint32_t)d);
+                alive = trace_bounce<MODE_RECORD>(sc, p, s, d + 1 < p.max_depth,
+                                                  rngb, rec);
+            }
+            out[((size_t)d * p.spp + si) * plane + local] = rec;
+        }
+    }
+}
+
 }  // namespace rt
+
+namespace {
+
+rt::SceneTables make_tables(const void* sph_f, const void* sph_m,
+                            const void* quad_f, const void* quad_m,
+                            const void* med_f, const void* med_i,
+                            const void* mat_f, const void* mat_i,
+                            const void* tex_f, const void* tex_i) {
+    rt::SceneTables sc;
+    sc.sph_f = static_cast<const float4*>(sph_f);
+    sc.sph_m = static_cast<const int*>(sph_m);
+    sc.quad_f = static_cast<const float4*>(quad_f);
+    sc.quad_m = static_cast<const int*>(quad_m);
+    sc.med_f = static_cast<const float*>(med_f);
+    sc.med_i = static_cast<const int*>(med_i);
+    sc.mat_f = static_cast<const float*>(mat_f);
+    sc.mat_i = static_cast<const int*>(mat_i);
+    sc.tex_f = static_cast<const float*>(tex_f);
+    sc.tex_i = static_cast<const int*>(tex_i);
+    return sc;
+}
+
+// Grid of 8x8 pixel blocks covering the frame rows of the pixel range;
+// false if the range is empty or outside the frame.
+bool pixel_grid(const rt::RenderParams& p, int& row0, dim3& grid) {
+    if (p.width < 1 || p.height < 1 || p.pixel_count < 1 || p.pixel_base < 0
+        || p.spp < 1
+        || (long long)p.pixel_base + p.pixel_count
+               > (long long)p.width * p.height)
+        return false;
+    row0 = p.pixel_base / p.width;
+    const int row1 = (p.pixel_base + p.pixel_count - 1) / p.width;
+    grid = dim3((p.width + rt::BLOCK_X - 1) / rt::BLOCK_X,
+                (row1 - row0 + rt::BLOCK_Y) / rt::BLOCK_Y);
+    return true;
+}
+
+}  // namespace
 
 // Launch the render kernel on `stream` over pixels
 // [params->pixel_base, params->pixel_base + params->pixel_count). `params`
@@ -516,28 +605,39 @@ extern "C" int rt_render_launch(const void* sph_f, const void* sph_m,
                                 const void* params, void* out_rgb, void* out_n,
                                 void* stream) {
     const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
-    rt::SceneTables sc;
-    sc.sph_f = static_cast<const float4*>(sph_f);
-    sc.sph_m = static_cast<const int*>(sph_m);
-    sc.quad_f = static_cast<const float4*>(quad_f);
-    sc.quad_m = static_cast<const int*>(quad_m);
-    sc.med_f = static_cast<const float*>(med_f);
-    sc.med_i = static_cast<const int*>(med_i);
-    sc.mat_f = static_cast<const float*>(mat_f);
-    sc.mat_i = static_cast<const int*>(mat_i);
-    sc.tex_f = static_cast<const float*>(tex_f);
-    sc.tex_i = static_cast<const int*>(tex_i);
-    if (p.width < 1 || p.height < 1 || p.pixel_count < 1 || p.pixel_base < 0
-        || p.spp < 1)
-        return (int)cudaErrorInvalidValue;
-    const int row0 = p.pixel_base / p.width;
-    const int row1 = (p.pixel_base + p.pixel_count - 1) / p.width;
+    const rt::SceneTables sc = make_tables(sph_f, sph_m, quad_f, quad_m, med_f,
+                                           med_i, mat_f, mat_i, tex_f, tex_i);
+    int row0;
+    dim3 grid;
+    if (!pixel_grid(p, row0, grid)) return (int)cudaErrorInvalidValue;
     const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
-    const dim3 grid((p.width + rt::BLOCK_X - 1) / rt::BLOCK_X,
-                    (row1 - row0 + rt::BLOCK_Y) / rt::BLOCK_Y);
     (void)cudaGetLastError();  // clear a stale error of an earlier call
     rt::render_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         sc, p, row0, static_cast<float*>(out_rgb), static_cast<int*>(out_n));
+    return (int)cudaGetLastError();
+}
+
+// Launch the path recorder on `stream` over the same pixel range; `out_rec`
+// holds max_depth * spp * pixel_count int32. Does not synchronise. Returns
+// cudaGetLastError().
+extern "C" int rt_record_launch(const void* sph_f, const void* sph_m,
+                                const void* quad_f, const void* quad_m,
+                                const void* med_f, const void* med_i,
+                                const void* mat_f, const void* mat_i,
+                                const void* tex_f, const void* tex_i,
+                                const void* params, void* out_rec,
+                                void* stream) {
+    const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
+    const rt::SceneTables sc = make_tables(sph_f, sph_m, quad_f, quad_m, med_f,
+                                           med_i, mat_f, mat_i, tex_f, tex_i);
+    int row0;
+    dim3 grid;
+    if (!pixel_grid(p, row0, grid) || p.max_depth < 1)
+        return (int)cudaErrorInvalidValue;
+    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
+    (void)cudaGetLastError();
+    rt::record_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+        sc, p, row0, static_cast<int*>(out_rec));
     return (int)cudaGetLastError();
 }
 

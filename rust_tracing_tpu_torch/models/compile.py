@@ -16,6 +16,7 @@ import torch
 
 from ..config import resolve_device
 from ..ops import perlin as perlin_ops
+from ..ops.linalg import cross, dot, length_squared
 from . import scene as scene_mod
 
 
@@ -122,6 +123,21 @@ class CompiledScene:
     def device(self) -> torch.device:
         return self.sph_center.device
 
+    def quad_frame(self):
+        """Derived quad quantities (reference: src/quad.rs:23-38), computed
+        from ``quad_q/u/v`` on every call so that gradients reach them:
+        ``(normal (Q,3), d (Q,), w (Q,3))``."""
+        n = cross(self.quad_u, self.quad_v)
+        nlen2 = torch.clamp(length_squared(n), min=1e-30)[:, None]
+        normal = n / torch.sqrt(nlen2)
+        d = dot(normal, self.quad_q)
+        w = n / nlen2
+        return normal, d, w
+
+    def replace(self, **fields) -> "CompiledScene":
+        """A copy with the given fields replaced."""
+        return dataclasses.replace(self, **fields)
+
 
 _FLAG_NAMES = tuple(
     f.name for f in dataclasses.fields(CompiledScene) if f.type == "bool")
@@ -156,6 +172,15 @@ def scene_from_numpy(fields: Dict[str, np.ndarray], flags: Dict[str, bool],
     if unknown:
         raise KeyError(f"unknown scene flags: {sorted(unknown)}")
     return CompiledScene(**leaves, **{k: bool(v) for k, v in flags.items()})
+
+
+def grad_to_numpy(g: CompiledScene) -> Dict[str, np.ndarray]:
+    """The tensor fields of a CompiledScene (for example a gradient returned
+    by ``grad.loss_and_grad``) as numpy arrays, one entry per field, so they
+    can be compared field by field with another implementation's."""
+    return {f.name: getattr(g, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(CompiledScene)
+            if f.name not in _FLAG_NAMES}
 
 
 # Policy constant copied from the JAX package, where it was measured on a TPU

@@ -1,0 +1,215 @@
+"""Table gathers and their transpose: CUDA kernel wrappers and plain versions.
+
+Replaces rust_tracing_tpu/ops/lanegather.py (the Pallas lane gathers
+``_kernel``/``lane_gather`` and ``_kernel_cols``/``lane_gather_cols``) and
+supplies the transpose of both (``_reduce_cotangent`` of
+rust_tracing_tpu/ops/tgather.py). The kernels are hand-written CUDA C++ in
+``csrc/gather_kernel.cu``:
+
+- ``gather``: ``out[i] = col[idx[i]]`` for a 1-D table (kernel B5);
+- ``gather_cols``: ``out[k, i] = tab[k, idx[i]]`` for a ``(K, n)`` table,
+  the index read once (kernel B6);
+- ``scatter_sum``: ``d[k, r] = sum of ct[k, i] over idx[i] == r``, the
+  transpose of both, deterministic (no float atomics; the summation order is
+  fixed by the index length alone and stated in the source).
+
+Each takes its device from its inputs: on CUDA tensors it launches its
+kernel (or raises), on CPU tensors it runs its plain version. Out-of-range
+indices gather 0 and are dropped by the sum.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..runtime.kernels import LAUNCHES
+
+# The reference's lane-gather thresholds. They are the TPU's: they guard
+# against XLA's serial lowering of a one-element gather there, which the GPU
+# does not have, so the port launches its gather kernels at every table size
+# and index count. Kept for reading the reference; nothing here selects by
+# them.
+LANE_GATHER_MAX_N = 8192
+LANE_GATHER_MIN_N = 65
+LANE_GATHER_MIN_R = 4096
+
+# Largest table whose plain transpose is the dense masked sum (the
+# reference's rule); larger tables take index_add_, deterministic on the CPU.
+TGATHER_DENSE_MAX = 64
+
+# The reduction kernel cuts R into block slices of at most this many
+# elements and at most this many blocks: the launch shape, and so the
+# summation order, depends on R alone.
+SCATTER_CHUNK = 8192
+SCATTER_MAX_BLOCKS = 1024
+
+_ELEM = {torch.float32: 4, torch.int32: 4, torch.float64: 8, torch.int64: 8}
+
+
+def _index(idx: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    if idx.device != dev:
+        raise ValueError(f"index on {idx.device}, table on {dev}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"index must be int32 or int64, got {idx.dtype}")
+    return idx.reshape(-1).to(torch.int32).contiguous()
+
+
+def _launch_args(dev):
+    from ..runtime import kernels
+
+    return kernels, kernels.load(), torch.cuda.current_stream(dev).cuda_stream
+
+
+# ----------------------------------------------------------------- gathers
+def gather_plain(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gather_kernel``."""
+    n = col.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, col[idx.clamp(0, n - 1).long()],
+                       torch.zeros((), dtype=col.dtype, device=col.device))
+
+
+def gather_kernel(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One launch of the CUDA gather: ``col[idx]`` for a 1-D CUDA table of a
+    4- or 8-byte dtype, any-shape index. Does not synchronise."""
+    dev = col.device
+    if dev.type != "cuda":
+        raise ValueError(f"gather_kernel needs CUDA tensors, got {dev}")
+    if col.ndim != 1 or col.dtype not in _ELEM:
+        raise TypeError(f"gather_kernel takes a 1-D f32/f64/i32/i64 table, "
+                        f"got {tuple(col.shape)} {col.dtype}")
+    flat = _index(idx, dev)
+    col = col.contiguous()
+    out = torch.empty(flat.shape, dtype=col.dtype, device=dev)
+    if flat.numel():
+        kernels, lib, stream = _launch_args(dev)
+        with torch.cuda.device(dev):
+            err = lib.rt_gather_launch(col.data_ptr(), col.shape[0],
+                                       flat.data_ptr(), flat.numel(),
+                                       _ELEM[col.dtype], out.data_ptr(),
+                                       stream)
+        LAUNCHES["gather_kernel"] += 1
+        kernels.check(err, "gather kernel")
+    return out.reshape(idx.shape)
+
+
+def gather(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``col[idx]`` (0 out of range): the kernel on CUDA, the plain version
+    on the CPU."""
+    if col.device.type == "cpu":
+        return gather_plain(col, idx)
+    return gather_kernel(col, idx)
+
+
+def gather_cols_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``gather_cols_kernel``."""
+    return torch.stack([gather_plain(tab[k], idx)
+                        for k in range(tab.shape[0])])
+
+
+def gather_cols_kernel(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One launch of the CUDA multi-column gather: ``tab[:, idx]`` for a
+    ``(K, n)`` CUDA table, the index read once. Returns ``(K, *idx.shape)``.
+    Does not synchronise."""
+    dev = tab.device
+    if dev.type != "cuda":
+        raise ValueError(f"gather_cols_kernel needs CUDA tensors, got {dev}")
+    if tab.ndim != 2 or tab.dtype not in _ELEM:
+        raise TypeError(f"gather_cols_kernel takes a (K, n) f32/f64/i32/i64 "
+                        f"table, got {tuple(tab.shape)} {tab.dtype}")
+    flat = _index(idx, dev)
+    tab = tab.contiguous()
+    K, n = tab.shape
+    out = torch.empty((K, flat.numel()), dtype=tab.dtype, device=dev)
+    if flat.numel():
+        kernels, lib, stream = _launch_args(dev)
+        with torch.cuda.device(dev):
+            err = lib.rt_gather_cols_launch(tab.data_ptr(), K, n,
+                                            flat.data_ptr(), flat.numel(),
+                                            _ELEM[tab.dtype], out.data_ptr(),
+                                            stream)
+        LAUNCHES["gather_cols_kernel"] += 1
+        kernels.check(err, "gather_cols kernel")
+    return out.reshape((K,) + tuple(idx.shape))
+
+
+def gather_cols(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``tab[:, idx]``: the kernel on CUDA, the plain version on the CPU."""
+    if tab.device.type == "cpu":
+        return gather_cols_plain(tab, idx)
+    return gather_cols_kernel(tab, idx)
+
+
+# --------------------------------------------------------------- transpose
+def _reduce_plain(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The reference's ``_reduce_cotangent`` for one column: a dense masked
+    sum for tables of at most TGATHER_DENSE_MAX rows, else a segment sum
+    (``index_add_``; out-of-range indices dropped)."""
+    ct_f, idx_f = ct.reshape(-1), idx.reshape(-1)
+    if n <= TGATHER_DENSE_MAX:
+        seg = torch.arange(n, dtype=idx_f.dtype, device=idx_f.device)
+        mask = idx_f[None, :] == seg[:, None]                   # (n, R)
+        return torch.where(mask, ct_f[None, :], 0.0).sum(dim=1)
+    ok = (idx_f >= 0) & (idx_f < n)
+    out = torch.zeros(n, dtype=ct.dtype, device=ct.device)
+    return out.index_add_(0, idx_f[ok].long(), ct_f[ok])
+
+
+def scatter_sum_plain(ct: torch.Tensor, idx: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """Plain version of ``scatter_sum_kernel``: ``ct`` is ``(K, *idx.shape)``,
+    returns ``(K, n)``."""
+    return torch.stack([_reduce_plain(ct[k], idx, n)
+                        for k in range(ct.shape[0])])
+
+
+def scatter_blocks(R: int):
+    """(blocks, elements a block) of the reduction kernel for R elements."""
+    B = max(1, min(-(-R // SCATTER_CHUNK), SCATTER_MAX_BLOCKS))
+    return B, -(-R // B)
+
+
+def scatter_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """One launch of the CUDA reduction (two kernels, one call): ``ct`` f32
+    or f64 of shape ``(K, *idx.shape)``; returns ``(K, n)``. Same bits on
+    every call. Does not synchronise."""
+    dev = ct.device
+    if dev.type != "cuda":
+        raise ValueError(f"scatter_sum_kernel needs CUDA tensors, got {dev}")
+    if ct.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"scatter_sum_kernel sums f32 or f64, got {ct.dtype}")
+    flat = _index(idx, dev)
+    R = flat.numel()
+    if tuple(ct.shape[1:]) != tuple(idx.shape):
+        raise ValueError(f"cotangent {tuple(ct.shape)} does not match index "
+                         f"{tuple(idx.shape)}")
+    K = ct.shape[0]
+    ct2 = ct.reshape(K, R).contiguous()
+    out = torch.zeros((K, n), dtype=ct.dtype, device=dev)
+    if R and n and K:
+        B, chunk = scatter_blocks(R)
+        partial = torch.empty((K, B, n), dtype=ct.dtype, device=dev)
+        kernels, lib, stream = _launch_args(dev)
+        with torch.cuda.device(dev):
+            err = lib.rt_scatter_sum_launch(
+                ct2.data_ptr(), flat.data_ptr(), R, n, K,
+                int(ct.dtype == torch.float64), B, chunk, partial.data_ptr(),
+                out.data_ptr(), stream)
+        LAUNCHES["scatter_sum_kernel"] += 1
+        kernels.check(err, "scatter_sum kernel")
+    return out
+
+
+def scatter_sum_cols(ct: torch.Tensor, idx: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """Transpose of ``gather_cols``: ``ct`` ``(K, *idx.shape)`` -> ``(K, n)``;
+    the kernel on CUDA, the plain version on the CPU."""
+    if ct.device.type == "cpu":
+        return scatter_sum_plain(ct, idx, n)
+    return scatter_sum_kernel(ct, idx, n)
+
+
+def scatter_sum(ct: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Transpose of ``gather``: ``ct`` of ``idx``'s shape -> ``(n,)``."""
+    return scatter_sum_cols(ct[None], idx, n)[0]

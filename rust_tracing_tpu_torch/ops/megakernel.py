@@ -7,16 +7,23 @@ rays, closest hit over spheres and quads, constant media, five-material
 scatter, emission, solid/checker textures, spp accumulation — is ONE launch
 of the hand-written CUDA kernel in ``csrc/render_kernel.cu``.
 
+The same file holds the path recorder (``record_kernel``, the reference
+kernel's record mode): the same trace, writing the winner record
+``kind<<24 | idx`` of every (pixel, sample, bounce) for the replay pipeline
+(ops/replay.py, grad.py).
+
 Three layers live here:
 
 - ``pack_scene``: a CompiledScene's valid primitives as plain row-major
   ``(N, F)`` tables (f64 host arithmetic rounded once to f32, the same
   arithmetic as the reference pack), cached per scene on the device;
-- ``render_kernel``: the wrapper that launches the CUDA kernel on CUDA
-  tensors (or raises) and counts its launches in ``LAUNCHES``;
-- ``render_fast_plain``: the same function as tensor code over all pixels at
-  once, with the kernel's arithmetic in the kernel's order. It is what runs
-  for tensors on the CPU and what the kernel is held against on the card.
+- ``render_kernel`` and ``record_kernel``: the wrappers that launch the CUDA
+  kernels on CUDA tensors (or raise) and count their launches in
+  ``LAUNCHES``;
+- ``render_fast_plain`` and ``record_paths_plain``: the same functions as
+  tensor code over all pixels at once, with the kernel's arithmetic in the
+  kernel's order (one shared trace, ``_trace_plain``). They are what runs for
+  tensors on the CPU and what the kernels are held against on the card.
 
 Camera, spp, depth, primitive counts, seed, pixel range and sample offset
 are runtime arguments of the kernel, so one compiled library serves every
@@ -41,6 +48,7 @@ import torch
 from ..config import QUAD_DENOM_EPS, T_MIN
 from ..models.scene import (DIELECTRIC, DIFFUSE_LIGHT, ISOTROPIC, LAMBERTIAN,
                             MED_BOX, METAL, TEX_CHECKER, TEX_IMAGE, TEX_NOISE)
+from ..runtime.kernels import LAUNCHES
 from . import hashrng
 from .hashrng import CounterRng
 
@@ -53,10 +61,6 @@ BVH_KERNEL_THRESHOLD = 1024
 # f32 origin offset along the normal after a surface scatter.
 ORIGIN_EPS_ABS = 1e-4
 ORIGIN_EPS_REL = 2e-4
-
-# Launch counts of the hand-written kernels, by kernel name. A wrapper adds
-# one where it launches its kernel and nowhere else.
-LAUNCHES = {"render_kernel": 0}
 
 SPH_F, QUAD_F, MED_F = 8, 16, 24
 
@@ -357,11 +361,35 @@ def render_kernel(tables: dict, p: RenderParams):
             ctypes.byref(p), rgb.data_ptr(), n.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["render_kernel"] += 1
-    if err != 0:
-        raise RuntimeError(
-            f"render kernel launch failed: CUDA error {err} "
-            f"({kernels.error_string(err)})")
+    kernels.check(err, "render kernel")
     return rgb, n
+
+
+def record_kernel(tables: dict, p: RenderParams) -> torch.Tensor:
+    """One launch of the CUDA path recorder over the pixel range of ``p``.
+
+    Returns ``(p.max_depth, p.spp, p.pixel_count)`` int32 packed winner
+    records (``kind<<24 | idx``; 0 for a miss or a dead path), depth-major.
+    Launches on the current stream and does not synchronise. Tensors that are
+    not on a CUDA device are refused."""
+    dev = _check_tables(tables, p)
+    if dev.type != "cuda":
+        raise ValueError(f"record_kernel needs CUDA tensors, got {dev}")
+    if p.max_depth < 1:
+        raise ValueError(f"max_depth must be >= 1, got {p.max_depth}")
+    from ..runtime import kernels
+
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        rec = torch.empty((p.max_depth, p.spp, p.pixel_count),
+                          dtype=torch.int32, device=dev)
+        err = lib.rt_record_launch(
+            *[tables[name].data_ptr() for name in PackedScene.TABLES],
+            ctypes.byref(p), rec.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["record_kernel"] += 1
+    kernels.check(err, "record kernel")
+    return rec
 
 
 # ----------------------------------------------------------- plain version
@@ -377,6 +405,20 @@ def render_fast_plain(tables: dict, p: RenderParams):
     order; the same media, scatter and texture arithmetic, written with the
     same operations in the same order (explicit multiply-adds, no matmul, no
     pow, no fused multiply-add)."""
+    return _trace_plain(tables, p, record=False)
+
+
+def record_paths_plain(tables: dict, p: RenderParams) -> torch.Tensor:
+    """Plain PyTorch version of ``record_kernel``: the same trace as
+    ``render_fast_plain`` (one shared program), returning the
+    ``(max_depth, spp, pixel_count)`` int32 winner records instead of
+    radiance."""
+    if p.max_depth < 1:
+        raise ValueError(f"max_depth must be >= 1, got {p.max_depth}")
+    return _trace_plain(tables, p, record=True)
+
+
+def _trace_plain(tables: dict, p: RenderParams, record: bool):
     dev = _check_tables(tables, p)
     host = {k: tables[k].detach().cpu().numpy() for k in
             ("sph_f", "sph_m", "quad_f", "quad_m", "med_f", "med_i")}
@@ -431,7 +473,8 @@ def render_fast_plain(tables: dict, p: RenderParams):
         inv_a = 1.0 / torch.clamp(a_len, min=1e-30)
         t_best = torch.where(alive, float("inf"), T_MIN).to(torch.float32)
         w_mat, w_nx, w_ny, w_nz = izero, fzero, fzero, fzero + 1.0
-        for s, m in zip(sph_rows, sph_mats):
+        w_rec = izero  # winner record kind<<24 | idx
+        for i, (s, m) in enumerate(zip(sph_rows, sph_mats)):
             # sphere.rs:59-89 + moving-centre lerp; strict bounds, near root
             ccx = s[0] + s[5] * rtime
             ccy = s[1] + s[6] * rtime
@@ -452,7 +495,8 @@ def render_fast_plain(tables: dict, p: RenderParams):
             w_nx = torch.where(hit, (ox + root * dx - ccx) * s[4], w_nx)
             w_ny = torch.where(hit, (oy + root * dy - ccy) * s[4], w_ny)
             w_nz = torch.where(hit, (oz + root * dz - ccz) * s[4], w_nz)
-        for q, m in zip(quad_rows, quad_mats):
+            w_rec = torch.where(hit, (1 << 24) | i, w_rec)
+        for i, (q, m) in enumerate(zip(quad_rows, quad_mats)):
             # quad.rs:96-133: inclusive bounds, no back-face culling
             nx, ny, nz = q[9], q[10], q[11]
             denom = nx * dx + ny * dy + nz * dz
@@ -477,7 +521,8 @@ def render_fast_plain(tables: dict, p: RenderParams):
             w_nx = torch.where(hit, nx, w_nx)
             w_ny = torch.where(hit, ny, w_ny)
             w_nz = torch.where(hit, nz, w_nz)
-        return t_best, w_mat, w_nx, w_ny, w_nz, a_len, inv_a
+            w_rec = torch.where(hit, (2 << 24) | i, w_rec)
+        return t_best, w_mat, w_nx, w_ny, w_nz, w_rec, a_len, inv_a
 
     def camera_ray(s_glob):
         rng = CounterRng(seed, pid, s_glob)
@@ -500,8 +545,8 @@ def render_fast_plain(tables: dict, p: RenderParams):
     def trace_bounce(o, d, rtime, tp, rad, alive, depth_left_ok, rngb):
         ox, oy, oz = o
         dx, dy, dz = d
-        t_best, w_mat, w_nx, w_ny, w_nz, a_len, inv_a = closest_surface(
-            ox, oy, oz, dx, dy, dz, rtime, alive)
+        t_best, w_mat, w_nx, w_ny, w_nz, w_rec, a_len, inv_a = \
+            closest_surface(ox, oy, oz, dx, dy, dz, rtime, alive)
         w_is_med = torch.zeros(P, dtype=torch.bool, device=dev)
 
         # constant media (constant_medium.rs:34-71)
@@ -545,9 +590,12 @@ def render_fast_plain(tables: dict, p: RenderParams):
             hit = okb & (t_m < t_best)
             t_best = torch.where(hit, t_m, t_best)
             w_mat = torch.where(hit, mat, w_mat)
+            w_rec = torch.where(hit, (3 + i) << 24, w_rec)
             w_is_med = w_is_med | hit
 
         hit_any = torch.isfinite(t_best) & alive
+        # the record is taken before the emitter and depth short-cuts
+        rec = torch.where(hit_any, w_rec, 0).to(torch.int32)
         miss = alive & ~hit_any
         tp_r, tp_g, tp_b = tp
         rad_r, rad_g, rad_b = rad
@@ -672,8 +720,11 @@ def render_fast_plain(tables: dict, p: RenderParams):
         o = _sel3(scat, (hpx + off * nx_, hpy + off * ny_, hpz + off * nz_),
                   (ox, oy, oz))
         d = _sel3(scat, (new_dx, new_dy, new_dz), (dx, dy, dz))
-        return o, d, (tp_r, tp_g, tp_b), (rad_r, rad_g, rad_b), scat
+        return o, d, (tp_r, tp_g, tp_b), (rad_r, rad_g, rad_b), scat, rec
 
+    if record:
+        recs = torch.zeros((max(max_depth, 1), p.spp, P), dtype=torch.int32,
+                           device=dev)
     acc = [fzero, fzero, fzero]
     acc_n = torch.zeros(P, dtype=torch.int32, device=dev)
     for si in range(p.spp):
@@ -687,8 +738,10 @@ def render_fast_plain(tables: dict, p: RenderParams):
         while True:
             acc_n = acc_n + alive.to(torch.int32)
             rngb = CounterRng(seed, pid, s_glob, d_i)
-            o, d, tp, rad, scat = trace_bounce(
+            o, d, tp, rad, scat, rec = trace_bounce(
                 o, d, rtime, tp, rad, alive, d_i + 1 < max_depth, rngb)
+            if record:
+                recs[d_i, si] = rec  # dead lanes record 0 (no hit)
             # a path that did not scatter is finished: flush its radiance
             died = alive & ~scat
             acc = [a + torch.where(died, r, 0.0) for a, r in zip(acc, rad)]
@@ -696,6 +749,8 @@ def render_fast_plain(tables: dict, p: RenderParams):
             d_i += 1
             if d_i >= max_depth or not bool(alive.any()):
                 break
+    if record:
+        return recs
     inv = 1.0 / p.spp
     rgb = torch.stack([a * inv for a in acc], dim=-1)
     return rgb, acc_n
@@ -752,3 +807,25 @@ def render_fast(scene, camera, seed: int = 0, spp: Optional[int] = None,
     if with_stats:
         return image, int(nrays.item())
     return image
+
+
+def record_paths(scene, camera, seed: int, spp: int, max_depth: int,
+                 sample_offset: int = 0) -> torch.Tensor:
+    """Winner records of every (pixel, sample, bounce) over global samples
+    ``sample_offset .. sample_offset + spp``: the search half of the
+    record/replay gradient (ops/replay.py). Returns ``(max_depth, spp, H*W)``
+    int32 on the scene's device, depth-major (replay reads bounce rows): one
+    launch of the CUDA recorder for a scene on a CUDA device, its plain
+    version for a scene on the CPU. Records carry no texture work, so every
+    texture family is served."""
+    n_prims = int(_np(scene.sph_valid).sum() + _np(scene.quad_valid).sum())
+    if n_prims >= BVH_KERNEL_THRESHOLD:
+        raise NotImplementedError(
+            f"scene has {n_prims} primitives: the in-kernel BVH walk that "
+            f"replaces the brute-force loop from {BVH_KERNEL_THRESHOLD} "
+            "primitives on is not ported yet")
+    packed, tables = _packed_dev(scene)
+    p = make_params(camera, packed, seed, spp, max_depth, sample_offset)
+    if scene.device.type == "cpu":
+        return record_paths_plain(tables, p)
+    return record_kernel(tables, p)

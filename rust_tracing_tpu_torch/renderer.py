@@ -8,7 +8,9 @@ missing and never route to another path silently.
 
 The fused path is the same on both devices: a scene on a CUDA device renders
 through the hand-written CUDA kernel, a scene on the CPU through the kernel's
-plain PyTorch version (ops/megakernel.py).
+plain PyTorch version (ops/megakernel.py). ``use_megakernel=False``, a custom
+``hit_fn`` or float64 take the tensor integrator (ops/integrator.py) over
+pixel chunks (``render_chunk``), the estimator the gradient differentiates.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .camera import Camera
+from .camera import Camera, CameraConstants, get_rays
 from .config import resolve_device
-from .ops import megakernel
+from .ops import integrator, megakernel
 from .utils import metrics
 
 # Primitive count from which the reference renders through its sorted
@@ -39,6 +41,43 @@ class RenderStats:
     @property
     def rays_per_sec(self) -> float:
         return self.rays / self.seconds if self.seconds > 0 else 0.0
+
+
+def _auto_chunk(scene, target_bytes: int = 192 * 1024 * 1024) -> int:
+    """Pixel-chunk size such that the widest per-ray broadcast fits
+    ``target_bytes``: brute force holds (rays x spheres) and (rays x quads)
+    temporaries, media (rays x media x 3) for the slab test."""
+    per_ray = 0
+    if scene.has_bvh:
+        per_ray += 16 * 4 * 4  # ~16 gathered f32 rows live per step
+    else:
+        per_ray += (scene.num_spheres + scene.num_quads) * 4 * 8
+    if scene.has_media:
+        per_ray += scene.med_mat.shape[0] * 3 * 4 * 6  # (R,M,3) temporaries
+    per_ray = max(per_ray, 64)
+    chunk = max(1024, min(1 << 16, target_bytes // per_ray))
+    return max(1024, (chunk // 1024) * 1024)
+
+
+def render_chunk(scene, cam: CameraConstants, pixel_ids, seed: int,
+                 sample_offset: int, spp: int, max_depth: int, hit_fn=None):
+    """Sum of ``spp`` radiance samples for each pixel id over global sample
+    indices ``sample_offset .. sample_offset + spp``, added in sample order,
+    through the tensor integrator. The RNG is addressed by (seed, pixel,
+    sample), so the result does not depend on how pixels are chunked.
+
+    Returns (radiance sum (C,3), rays traced as an int64 scalar)."""
+    C = pixel_ids.shape[0]
+    acc = torch.zeros((C, 3), dtype=cam.center.dtype, device=pixel_ids.device)
+    nrays = torch.zeros((), dtype=torch.int64, device=pixel_ids.device)
+    for s in range(spp):
+        sample = sample_offset + s
+        o, d, t = get_rays(cam, seed, pixel_ids, sample)
+        rad, nb = integrator.trace(scene, o, d, t, (seed, pixel_ids, sample),
+                                   max_depth, closest_hit_fn=hit_fn)
+        acc = acc + rad
+        nrays = nrays + nb.sum(dtype=torch.int64)
+    return acc, nrays
 
 
 def use_megakernel_default(scene, dtype, hit_fn) -> bool:
@@ -73,14 +112,18 @@ def render_deferred(scene, camera: Camera, seed: int = 0,
 
 
 def render(scene, camera: Camera, seed: int = 0, spp: Optional[int] = None,
-           max_depth: Optional[int] = None, hit_fn=None, dtype=torch.float32, progress=None,
-           use_megakernel: Optional[bool] = None, sample_offset: int = 0,
-           device=None) -> Tuple[np.ndarray, RenderStats]:
+           max_depth: Optional[int] = None, hit_fn=None, dtype=torch.float32,
+           progress=None, use_megakernel: Optional[bool] = None,
+           sample_offset: int = 0, device=None,
+           pixel_chunk: Optional[int] = None
+           ) -> Tuple[np.ndarray, RenderStats]:
     """Offline render -> (image (H,W,3) linear float64 numpy, stats).
 
     ``device=None`` means the GPU; the CPU runs only on ``device="cpu"``.
     The scene must already live on that device (``compile_scene(...,
-    device=...)``): nothing is moved silently.
+    device=...)``): nothing is moved silently. ``hit_fn`` replaces the
+    tensor integrator's closest-hit search (``intersect.closest_hit`` by
+    default); ``pixel_chunk`` sets its pixels per chunk.
     """
     dev = resolve_device(device)
     if scene.device.type != dev.type:
@@ -90,14 +133,6 @@ def render(scene, camera: Camera, seed: int = 0, spp: Optional[int] = None,
     spp = spp or camera.samples_per_pixel
     max_depth = max_depth or camera.max_depth
 
-    if hit_fn is not None:
-        raise NotImplementedError(
-            "hit_fn: custom closest-hit functions belong to the tensor "
-            "wavefront integrator, which is not ported yet")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"dtype={dtype}: only float32 is ported (the float64 path is the "
-            "tensor wavefront integrator, not ported yet)")
     if use_megakernel is None:
         use_megakernel = use_megakernel_default(scene, dtype, hit_fn)
         if use_megakernel and use_wavefront_default(scene):
@@ -110,9 +145,8 @@ def render(scene, camera: Camera, seed: int = 0, spp: Optional[int] = None,
                                    max_depth=max_depth,
                                    sample_offset=sample_offset)
     if not use_megakernel:
-        raise NotImplementedError(
-            "use_megakernel=False: the tensor wavefront integrator is not "
-            "ported yet; only the fused render path is")
+        return _render_tensor(scene, camera, seed, spp, max_depth, hit_fn,
+                              dtype, progress, sample_offset, pixel_chunk)
 
     t0 = _time.perf_counter()
     image, nrays = megakernel.render_fast(scene, camera, seed=seed, spp=spp,
@@ -129,6 +163,41 @@ def render(scene, camera: Camera, seed: int = 0, spp: Optional[int] = None,
         n = camera.image_width * camera.image_height
         progress(n, n)
     return image.astype(np.float64), stats
+
+
+def _render_tensor(scene, camera, seed, spp, max_depth, hit_fn, dtype,
+                   progress, sample_offset, pixel_chunk):
+    """The tensor-integrator render over pixel chunks (the tail chunk padded
+    with the last pixel)."""
+    if hit_fn is None and scene.has_bvh:
+        raise NotImplementedError(
+            "scene has a BVH: its closest-hit search (closest_hit_bvh of "
+            "ops/bvh_traverse.py in the reference) is not ported yet")
+    w, h = camera.image_width, camera.image_height
+    dev = scene.device
+    cam = camera.constants(dtype, device=dev)
+    n_pixels = w * h
+    chunk = min(pixel_chunk or _auto_chunk(scene), n_pixels)
+    out = np.zeros((n_pixels, 3), np.float64)
+    stats = RenderStats()
+    t0 = _time.perf_counter()
+    with torch.no_grad():
+        for start in range(0, n_pixels, chunk):
+            ids = np.minimum(np.arange(start, start + chunk, dtype=np.int32),
+                             n_pixels - 1)
+            acc, nrays = render_chunk(scene, cam,
+                                      torch.from_numpy(ids).to(dev), seed,
+                                      sample_offset, spp, max_depth, hit_fn)
+            n_valid = min(chunk, n_pixels - start)
+            out[start:start + n_valid] = acc.cpu().numpy()[:n_valid]
+            stats.rays += int(nrays)
+            if progress is not None:
+                progress(start + n_valid, n_pixels)
+    stats.seconds = _time.perf_counter() - t0
+    metrics.emit("render", path="tensor_wavefront", device=str(dev), spp=spp,
+                 width=w, height=h, seconds=stats.seconds, rays=stats.rays,
+                 rays_per_sec=stats.rays_per_sec)
+    return (out / spp).reshape(h, w, 3), stats
 
 
 @dataclasses.dataclass

@@ -1,16 +1,20 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, placed in the
-package's ``build/`` directory (not tracked by git), and loaded with ctypes.
-Nothing here runs at import time: the CPU tests import every module on
-machines with no ``nvcc``.
+``sm_90a``, one ``nvcc`` process per source, all started together, and linked
+into one shared library with a plain C interface, placed in the package's
+``build/`` directory (not tracked by git), and loaded with ctypes. Nothing
+here runs at import time: the CPU tests import every module on machines with
+no ``nvcc``.
 
 Flags that matter for agreement with the plain PyTorch version:
 ``--fmad=false`` (no fused multiply-add contraction: a contracted
 ``disc > 0`` or ``t < t_best`` flips a hit decision and the path after it is
 a different path) and no ``--use_fast_math`` (IEEE division and square root,
 the accurate ``sinf cosf logf expf``).
+
+``LAUNCHES`` counts the launches of each kernel, by kernel name: a wrapper
+adds one where it launches its kernel and nowhere else.
 """
 
 from __future__ import annotations
@@ -24,11 +28,15 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("render_kernel.cu",)
+SOURCES = ("render_kernel.cu", "gather_kernel.cu")
 HEADERS = ("hashrng.cuh",)
 LIB_NAME = "librt_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+              "-fPIC")
+
+LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "gather_kernel": 0,
+            "gather_cols_kernel": 0, "scatter_sum_kernel": 0}
 
 _lib = None
 build_seconds = None  # seconds the last build in this process took
@@ -46,7 +54,8 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile csrc/*.cu into build/librt_kernels.so; returns its path.
-    Rebuilds when a source is newer than the library."""
+    Rebuilds when a source is newer than the library. Each source compiles
+    in its own nvcc process, all at once; one more nvcc call links them."""
     global build_seconds, build_log
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     deps = srcs + [os.path.join(CSRC, h) for h in HEADERS]
@@ -55,14 +64,37 @@ def build() -> str:
             and os.path.getmtime(so) >= max(os.path.getmtime(d) for d in deps)):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-o", tmp, *srcs]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-c", "-o", o, s],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    logs, failed = [], []
+    for s, pr in zip(SOURCES, procs):
+        out, _ = pr.communicate()
+        logs.append(f"== {s}\n{out}")
+        if pr.returncode != 0:
+            failed.append(f"{s} ({pr.returncode})")
+    tmp = f"{so}.{tag}"
+    try:
+        if not failed:
+            res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                                 capture_output=True, text=True)
+            logs.append(f"== link\n{res.stdout}{res.stderr}")
+            if res.returncode != 0:
+                failed.append(f"link ({res.returncode})")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{build_log}")
     os.replace(tmp, so)
     return so
 
@@ -72,11 +104,24 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        vp = ctypes.c_void_p
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # 10 scene tables, params (host pointer), out_rgb, out_n, stream
         lib.rt_render_launch.argtypes = [vp] * 10 + [vp, vp, vp, vp]
-        lib.rt_render_launch.restype = ctypes.c_int
-        lib.rt_error_string.argtypes = [ctypes.c_int]
+        lib.rt_render_launch.restype = ci
+        # 10 scene tables, params (host pointer), out_rec, stream
+        lib.rt_record_launch.argtypes = [vp] * 10 + [vp, vp, vp]
+        lib.rt_record_launch.restype = ci
+        # col, n, idx, R, elem, out, stream
+        lib.rt_gather_launch.argtypes = [vp, ci, vp, cll, ci, vp, vp]
+        lib.rt_gather_launch.restype = ci
+        # tab, K, n, idx, R, elem, out, stream
+        lib.rt_gather_cols_launch.argtypes = [vp, ci, ci, vp, cll, ci, vp, vp]
+        lib.rt_gather_cols_launch.restype = ci
+        # ct, idx, R, n, K, is_double, B, chunk, partial, out, stream
+        lib.rt_scatter_sum_launch.argtypes = [vp, vp, cll, ci, ci, ci, ci,
+                                              cll, vp, vp, vp]
+        lib.rt_scatter_sum_launch.restype = ci
+        lib.rt_error_string.argtypes = [ci]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
@@ -84,3 +129,10 @@ def load() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load().rt_error_string(err).decode()
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} "
+                           f"({error_string(err)})")

@@ -10,11 +10,12 @@ class ProgressBar:
     """Minimal ETA progress bar, ticked from the render chunk loop."""
 
     def __init__(self, total: int, prefix: str = "rendering", width: int = 40,
-                 stream=sys.stderr):
+                 stream=None):
         self.total = max(1, total)
         self.prefix = prefix
         self.width = width
-        self.stream = stream
+        # sys.stderr as it is now, not as it was when the module was imported
+        self.stream = stream if stream is not None else sys.stderr
         self.start = time.perf_counter()
         self._last = 0.0
 

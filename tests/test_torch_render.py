@@ -108,9 +108,9 @@ def _big_scene():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("use_megakernel_false", "tensor wavefront integrator"),
-    ("hit_fn", "hit_fn"),
-    ("float64", "float64"),
+    ("use_megakernel_false", "noise textures in the tensor integrator"),
+    ("hit_fn", "closest_hit_bvh"),
+    ("float64", "image textures in the tensor integrator"),
     ("deferred_noise", "deferred shading"),
     ("deferred_image", "deferred shading"),
     ("render_deferred", "deferred shading"),
@@ -119,14 +119,25 @@ def _big_scene():
 ])
 def test_unported_branches_raise(case, match):
     """Every branch that is not ported yet names what is missing; none
-    routes to another path silently."""
+    routes to another path silently. The tensor integrator (use_megakernel
+    False, float64) serves solid and checker textures; noise and image
+    textures wait for their slice, and a BVH scene's default hit function
+    (the one a custom hit_fn replaces) for the BVH slice."""
     scene, cam = _small()
     kw = {}
     if case == "use_megakernel_false":
+        scene, cam = _small("two_perlin_spheres")
         kw = dict(use_megakernel=False)
     elif case == "hit_fn":
-        kw = dict(hit_fn=lambda *a: None)
+        b, _ = tbuilders.cornell_box()
+        scene = T.compile_scene(b, use_bvh=True, device="cpu")
+        kw = dict(use_megakernel=False)
     elif case == "float64":
+        b, s = tbuilders.earth()
+        s = dataclasses.replace(s, image_width=8, samples_per_pixel=1,
+                                max_depth=2)
+        scene = T.compile_scene(b, dtype=torch.float64, device="cpu")
+        cam = T.Camera.create(s)
         kw = dict(dtype=torch.float64)
     elif case in ("deferred_noise", "fused_noise"):
         scene, cam = _small("two_perlin_spheres")
@@ -185,12 +196,18 @@ def test_port_imports_without_jax():
         "sys.modules['rust_tracing_tpu'] = None\n"
         "import torch\n"
         "import rust_tracing_tpu_torch as T\n"
-        "from rust_tracing_tpu_torch import cli, renderer, camera\n"
+        "from rust_tracing_tpu_torch import cli, renderer, camera, grad\n"
         "from rust_tracing_tpu_torch.ops import megakernel, hashrng, perlin\n"
+        "from rust_tracing_tpu_torch.ops import linalg, lanegather, tgather\n"
+        "from rust_tracing_tpu_torch.ops import intersect, textures\n"
+        "from rust_tracing_tpu_torch.ops import materials, integrator, replay\n"
         "from rust_tracing_tpu_torch.models import builders, bvh, compile\n"
         "from rust_tracing_tpu_torch.runtime import kernels\n"
         "b, s = builders.build_scene(6)\n"
-        "T.compile_scene(b, device='cpu')\n"
+        "sc = T.compile_scene(b, device='cpu')\n"
+        "s = s.__class__(**{**s.__dict__, 'image_width': 8})\n"
+        "grad.loss_and_grad(sc, T.Camera.create(s), lambda im, p: im.mean(),"
+        " spp=1, max_depth=2)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('rust_tracing_tpu.')]\n"
         "assert not [m for m in bad if sys.modules[m] is not None], bad\n"

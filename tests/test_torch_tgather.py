@@ -1,0 +1,139 @@
+"""The port's differentiable table gathers (ops/tgather.py, ops/lanegather.py)
+on the CPU, where they run their kernels' plain versions, against the JAX
+package's tgather primitives: forward values, reverse mode against
+``jax.vjp`` and forward mode against a gather of the tangent.
+
+Tolerance of the backward and its reason: the transpose sums the cotangents
+of each table row; the port's CPU sum (a dense masked ``sum`` up to 64 rows,
+``index_add_`` above) and XLA's reduce add them in different orders, so rows
+agree to float32 rounding of a sum of ~R/n terms: rtol 1e-5 plus an absolute
+1e-6 of the largest row (float64: 1e-12)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rust_tracing_tpu.ops import tgather as jtg
+from rust_tracing_tpu_torch.ops import lanegather as lg
+from rust_tracing_tpu_torch.ops import tgather as ttg
+
+R = 3000
+TOL = {np.float32: (1e-5, 1e-6), np.float64: (1e-12, 1e-12)}
+
+
+def _inputs(n, dtype, seed=0):
+    rng = np.random.default_rng(seed + n)
+    col = rng.standard_normal(n).astype(dtype)
+    idx = rng.integers(0, n, R).astype(np.int32)
+    ct = rng.standard_normal(R).astype(dtype)
+    return col, idx, ct
+
+
+def _close(got, ref, dtype):
+    rtol, atol = TOL[dtype]
+    np.testing.assert_allclose(got, ref, rtol=rtol,
+                               atol=atol * max(np.abs(ref).max(), 1.0))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [4, 64, 488])
+def test_tgather_value_and_vjp(n, dtype):
+    """Tables of 4 and 64 rows take the dense transpose, 488 the segment
+    sum."""
+    col, idx, ct = _inputs(n, dtype)
+    out, vjp = jax.vjp(lambda c: jtg.tgather(c, jnp.asarray(idx)),
+                       jnp.asarray(col))
+    (ref_g,) = vjp(jnp.asarray(ct))
+    tcol = torch.from_numpy(col).requires_grad_(True)
+    tout = ttg.tgather(tcol, torch.from_numpy(idx))
+    np.testing.assert_array_equal(tout.detach().numpy(), np.asarray(out))
+    np.testing.assert_array_equal(tout.detach().numpy(), col[idx])
+    (g,) = torch.autograd.grad(tout, tcol, torch.from_numpy(ct))
+    _close(g.numpy(), np.asarray(ref_g), dtype)
+
+
+@pytest.mark.parametrize("n", [4, 64, 488])
+def test_tgather_cols_and_group_value_and_vjp(n):
+    dtype = np.float32
+    rng = np.random.default_rng(7 + n)
+    cols = [rng.standard_normal(n).astype(dtype) for _ in range(3)]
+    idx = rng.integers(0, n, R).astype(np.int32)
+    cts = [rng.standard_normal(R).astype(dtype) for _ in range(3)]
+    outs, vjp = jax.vjp(
+        lambda *c: jtg.tgather_cols(c, jnp.asarray(idx)),
+        *[jnp.asarray(c) for c in cols])
+    ref_g = vjp(tuple(jnp.asarray(c) for c in cts))
+    tcols = [torch.from_numpy(c).requires_grad_(True) for c in cols]
+    for fn in (ttg.tgather_cols, ttg.tgather_group):
+        touts = fn(tuple(tcols), torch.from_numpy(idx))
+        for t, o in zip(touts, outs):
+            np.testing.assert_array_equal(t.detach().numpy(), np.asarray(o))
+        gs = torch.autograd.grad(touts, tcols,
+                                 [torch.from_numpy(c) for c in cts])
+        for g, r in zip(gs, ref_g):
+            _close(g.numpy(), np.asarray(r), dtype)
+
+
+def test_jvp_is_a_gather_of_the_tangent():
+    col, idx, _ = _inputs(64, np.float64)
+    tan = np.random.default_rng(3).standard_normal(64)
+    tidx = torch.from_numpy(idx)
+    out, dout = torch.func.jvp(lambda c: ttg.tgather(c, tidx),
+                               (torch.from_numpy(col),),
+                               (torch.from_numpy(tan),))
+    np.testing.assert_array_equal(out.numpy(), col[idx])
+    np.testing.assert_array_equal(dout.numpy(), tan[idx])
+    _, douts = torch.func.jvp(
+        lambda c: ttg.tgather_cols((c, 2.0 * c), tidx),
+        (torch.from_numpy(col),), (torch.from_numpy(tan),))
+    np.testing.assert_array_equal(douts[0].numpy(), tan[idx])
+    np.testing.assert_array_equal(douts[1].numpy(), 2.0 * tan[idx])
+
+
+def test_integer_tables_gather_without_gradient():
+    idx = torch.tensor([[0, 3], [3, 1]], dtype=torch.int32)
+    tab = torch.tensor([5, 6, 7, 8], dtype=torch.int32)
+    out = ttg.tgather(tab, idx)
+    assert out.dtype == torch.int32 and not out.requires_grad
+    np.testing.assert_array_equal(out.numpy(), [[5, 8], [8, 6]])
+    a, b = ttg.tgather_cols((tab, tab + 1), idx[0])
+    np.testing.assert_array_equal(a.numpy(), [5, 8])
+    np.testing.assert_array_equal(b.numpy(), [6, 9])
+    # a material id riding a float gather round-trips exactly below 2^24
+    ids = torch.tensor([0, 1, (1 << 24) - 1], dtype=torch.int32)
+    back = ttg.tgather(ids.to(torch.float32), torch.tensor([2, 0]))
+    assert back.to(torch.int32).tolist() == [(1 << 24) - 1, 0]
+
+
+def test_plain_versions_out_of_range_and_regimes():
+    """The kernels' plain versions: out-of-range rows gather 0 and are
+    dropped by the sum; the dense and segment regimes give the same sums."""
+    col = torch.arange(1.0, 5.0)
+    idx = torch.tensor([-1, 0, 3, 4, 9], dtype=torch.int32)
+    np.testing.assert_array_equal(lg.gather_plain(col, idx).numpy(),
+                                  [0, 1, 4, 0, 0])
+    ct = torch.ones(1, 5)
+    np.testing.assert_array_equal(lg.scatter_sum_plain(ct, idx, 4).numpy(),
+                                  [[1, 0, 0, 1]])
+    big = lg.TGATHER_DENSE_MAX + 1
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(rng.integers(0, big, 500).astype(np.int32))
+    ct = torch.from_numpy(rng.standard_normal(500))
+    dense = torch.stack([torch.where(idx == r, ct, 0.0).sum()
+                         for r in range(big)])
+    np.testing.assert_allclose(lg.scatter_sum(ct, idx, big).numpy(),
+                               dense.numpy(), rtol=1e-12, atol=1e-12)
+    assert lg.scatter_blocks(3_960_000) == (484, 8182)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """On a CPU tensor the dispatchers take the plain version; the kernel
+    wrappers themselves launch on CUDA tensors only."""
+    col, idx = torch.arange(4.0), torch.tensor([1, 2], dtype=torch.int32)
+    for call in (lambda: lg.gather_kernel(col, idx),
+                 lambda: lg.gather_cols_kernel(col[None], idx),
+                 lambda: lg.scatter_sum_kernel(col[None, :2], idx, 4)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call()
