@@ -14,10 +14,26 @@ Phases:
   kernels    every CUDA kernel against its plain PyTorch version ON THE CARD,
              same inputs: the render kernel (B1) and the path recorder (B2)
              on four scenes at a small frame and on cornell_box at 600x600;
-             the gathers (B5, B6) and their transpose (the reduction) on
-             tables of 4 to 3407 rows and 3.96 M indices
+             the render kernel's noise and image families (B8) and the
+             recorder on two_perlin_spheres, simple_light and earth, and B8
+             on simple_light's own 600x337 frame; the gathers (B5, B6) and
+             their transpose (the reduction) on tables of 4 to 3407 rows and
+             3.96 M indices, and its sorted form (the segment sum) on 3407 to
+             524 288 rows; the Perlin turbulence kernel (B7) at 2^22 lanes
   main_path  render() of cornell_box at 600x600, 4096 spp, depth 8
   cli        the command-line entry point writes a PNG
+  deferred_path
+             render() (auto policy: deferred shading, B2 + replay with B7)
+             of simple_light at 600x337, 1024 spp, depth 8, then of
+             two_perlin_spheres and earth at 1200x675, 128 spp, depth 8;
+             on a small frame of each, deferred == the tensor integrator bit
+             for bit; each full frame's gamma mean against the fused render
+  fused_textures
+             render(use_megakernel=True) of simple_light at its own settings
+             through B8
+  grad_textures
+             loss_and_grad() of two_perlin_spheres and earth at 400x225,
+             32 spp, depth 8 w.r.t. every float leaf
   grad_path  loss_and_grad() of cornell_box at 600x600, 200 spp, depth 8
              w.r.t. every float scene leaf (the record/replay gradient), then
              the L2 loss of the same workload
@@ -38,8 +54,8 @@ Tolerances and their reasons.
 - Recorder: records are integers, and every record must be equal.
 - Gathers: a gather copies bits; equal to the plain version and to
   torch.index_select bit for bit.
-- Reduction: with integer-valued cotangents every partial sum is exact, so
-  the kernel must equal the plain version bit for bit; with normal-valued
+- Reduction (both forms): with integer-valued cotangents every partial sum
+  is exact, so the kernel must equal the plain version bit for bit; with normal-valued
   cotangents the two add the same terms in different orders, so each row
   may differ by at most 1e-6 of the sum of |cotangent| over the row (f32
   rounding of a blocked sum stays far below). Two calls must give the same
@@ -48,6 +64,18 @@ Tolerances and their reasons.
   the render kernel's image at the same seed, spp and depth to rtol 1e-5:
   the same estimator, summed in another association (per-slice float means
   weighted by k/spp, against one f32 sample sum per pixel).
+- Turbulence kernel: no transcendental, no contraction; bit for bit.
+- Render kernel with noise/image (B8): the render kernel's tolerances; its
+  `sinf` for the marble is the device library's, as torch.sin's on the card.
+- deferred_path: deferred shading and the tensor integrator are one
+  estimator (replay == direct), so on a frame both take in one sample slice
+  and one pixel chunk the images are equal as f32, bit for bit. Against the
+  fused render, whose noise is another random instance (hash lattice) and
+  whose image is a mip, the gamma means' ratio lies within 0.08 of 1 for the
+  noise scenes (the reference's bound on two noise instances,
+  tests/test_megakernel.py) and within 0.01 for earth (its mip gate).
+- grad_textures: the loss equals the deferred render's image mean at the
+  same seed to rtol 1e-5 (the same estimator, another summation).
 """
 
 import contextlib
@@ -74,6 +102,8 @@ from rust_tracing_tpu_torch import grad as tg  # noqa: E402
 from rust_tracing_tpu_torch.models import builders  # noqa: E402
 from rust_tracing_tpu_torch.ops import lanegather as lg  # noqa: E402
 from rust_tracing_tpu_torch.ops import megakernel as mk  # noqa: E402
+from rust_tracing_tpu_torch.ops import perlin  # noqa: E402
+from rust_tracing_tpu_torch.ops import perlin_fused as pf  # noqa: E402
 from rust_tracing_tpu_torch.runtime import kernels  # noqa: E402
 from rust_tracing_tpu_torch.utils.image_io import write_png  # noqa: E402
 
@@ -91,6 +121,16 @@ PEAK_BYTES_PER_S = 3.35e12
 FLOP_PER_PRIM_TEST = 25
 FLOP_PER_BOUNCE_SHADE = 120
 FLOP_PER_CAMERA_RAY = 60
+# Perlin turbulence, counted from csrc/perlin_kernel.cu: per octave 15
+# operations (3 scalings, 3 floors, 3 fractions, 6 of the Hermite weights)
+# and per corner 14 (3 weight products, 3 offsets, 5 of the dot product, 3
+# of the accumulation); 7 octaves x 8 corners.
+TURB_OPS = 7 * (15 + 8 * 14)
+# B8's hash turbulence adds per corner three hashes of ~11 integer
+# operations each (3 multiplies, 3 adds, the 5-step mixer) and 3 of the
+# gradient's scale; its marble 6 more. The image arm's polynomial UV is ~45.
+FLOP_PER_NOISE_SHADE = 7 * (15 + 8 * (14 + 3 * 11 + 3)) + 6
+FLOP_PER_IMAGE_SHADE = 45
 
 PIX_ATOL, PIX_RTOL = 1e-5, 1e-5
 MAX_DIVERGED_SHARE = 0.005
@@ -103,6 +143,12 @@ GRAD_SPP, GRAD_DEPTH = 200, 8          # bench.py's headline workload
 TABLE_ROWS = (4, 18, 24, 64, 488, 3407)  # 24: cornell's padded quad table
 N_INDEX = 11 * 360000  # the main path's replay wavefront: 11 samples x 600^2
 TRAIN_LR = 8.0
+TURB_LANES = 1 << 22    # the replay wavefront's budget (grad.REPLAY_RAY_BUDGET)
+TURB_RANGE = 300.0      # positions in [-300, 300]^3
+TEXTURE_SCENES = ("two_perlin_spheres", "simple_light", "earth")
+NOISE_MEAN_TOL, IMAGE_MEAN_TOL = 0.08, 0.01
+GRAD_TEX_WIDTH, GRAD_TEX_SPP = 400, 32
+SEG_ROWS = (3407, 65536, 524288)  # 524288: earth's full-resolution image
 # where to keep the main path's PNG for a look; unset = not kept
 OUT_DIR = os.environ.get("RT_SMOKE_OUT")
 
@@ -181,20 +227,25 @@ def bytes_bound(n_bytes):
     return n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
-def bound_ms(tables, p, n_rays, shade=True):
+def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0)):
     """Least time the card could take for this trace: the larger of bytes
     moved (each table read once, each output written once) over the memory
     rate and operations over the float32 rate. The render writes 16 bytes a
     pixel and shades every bounce; the recorder (shade=False) writes 4 bytes
-    per (pixel, sample, bounce) and shades nothing."""
-    n_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    per (pixel, sample, bounce) and shades nothing and reads no image.
+    ``shades`` = (bounces shaded by a noise texture, by an image texture)
+    in this run's paths (``texture_shades``)."""
+    n_bytes = sum(t.numel() * t.element_size() for k, t in tables.items()
+                  if shade or k != "img_f")
     if shade:
         n_bytes += p.pixel_count * 16
     else:
         n_bytes += p.pixel_count * p.spp * p.max_depth * 4
     flop = (n_rays * ((p.n_spheres + p.n_quads) * FLOP_PER_PRIM_TEST
                       + (FLOP_PER_BOUNCE_SHADE if shade else 0))
-            + p.pixel_count * p.spp * FLOP_PER_CAMERA_RAY)
+            + p.pixel_count * p.spp * FLOP_PER_CAMERA_RAY
+            + shades[0] * FLOP_PER_NOISE_SHADE
+            + shades[1] * FLOP_PER_IMAGE_SHADE)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_flop = flop / PEAK_FP32_FLOPS * 1e3
     return max(t_bytes, t_flop), ("bytes" if t_bytes > t_flop else "operations")
@@ -209,6 +260,40 @@ def scene_inputs(name, width, spp, depth, seed=0, sample_offset=0):
     packed, tables = mk._packed_dev(scene)
     p = mk.make_params(camera, packed, seed, spp, depth, sample_offset)
     return scene, camera, tables, p
+
+
+def texture_shades(tables, p):
+    """(noise, image) shaded bounces of the paths of ``p``: the winners the
+    recorder reports (the render traces the same paths) whose material's
+    texture is noise or image, a checker counted by either child. Sample
+    slices keep the records under grad.RECORD_BUDGET_ENTRIES."""
+    sph_m, quad_m = tables["sph_m"], tables["quad_m"]
+    med_m = tables["med_i"][:, 1].contiguous()
+    tex_i = tables["tex_i"]
+    mat_tex = tables["mat_i"][:, 1].contiguous()
+    step = max(1, tg.RECORD_BUDGET_ENTRIES // (p.max_depth * p.pixel_count))
+    counts = [0, 0]
+    for s0 in range(0, p.spp, step):
+        q = type(p).from_buffer_copy(p)
+        q.spp, q.sample_offset = min(step, p.spp - s0), p.sample_offset + s0
+        rec = mk.record_kernel(tables, q).reshape(-1)
+        kind, idx = rec >> 24, rec & 0xFFFFFF
+        mat = torch.where(
+            kind == 1, sph_m[idx.clamp(max=sph_m.numel() - 1)],
+            torch.where(kind == 2, quad_m[idx.clamp(max=quad_m.numel() - 1)],
+                        med_m[(kind - 3).clamp(0, med_m.numel() - 1)]))
+        del idx
+        tex = mat_tex[mat]
+        del mat
+        kinds = [tex_i[tex, 0], tex_i[tex_i[tex, 1], 0],
+                 tex_i[tex_i[tex, 2], 0]]
+        is_chk = kinds[0] == mk.TEX_CHECKER
+        for k, code in enumerate((mk.TEX_NOISE, mk.TEX_IMAGE)):
+            uses = (kinds[0] == code) | (is_chk & ((kinds[1] == code)
+                                                   | (kinds[2] == code)))
+            counts[k] += int(((kind > 0) & uses).sum().item())
+        del rec, kind, tex, kinds
+    return tuple(counts)
 
 
 def compare(name, width, spp, depth, reps_kernel=3):
@@ -227,9 +312,12 @@ def compare(name, width, spp, depth, reps_kernel=3):
     diff = (rgb_k - rgb_p).abs()
     beyond = (diff > PIX_ATOL + PIX_RTOL * rgb_p.abs()).any(dim=-1)
     n_rays = int(n_k.sum(dtype=torch.int64).item())
-    b_ms, b_by = bound_ms(tables, p, n_rays)
+    shades = texture_shades(tables, p) if (p.has_noise or p.has_image) \
+        else (0, 0)
+    b_ms, b_by = bound_ms(tables, p, n_rays, shades=shades)
     res = dict(
-        kernel="render_kernel",
+        kernel="render_kernel", has_noise=p.has_noise, has_image=p.has_image,
+        noise_shades=shades[0], image_shades=shades[1],
         scene=name, width=camera.image_width, height=camera.image_height,
         spp=spp, depth=depth, spheres=p.n_spheres, quads=p.n_quads,
         media=p.n_media, rays=n_rays,
@@ -383,6 +471,84 @@ def compare_reductions(reps=5):
     return out
 
 
+def compare_segment_sums(reps=3):
+    """The sorted reduction (segment sum) against its plain version: exact
+    on integer-valued cotangents, within SUM_TOL on normal ones, bitwise
+    repeatable; times (sort included) against the tile kernel and
+    index_add_, 3 columns (an image's r g b) and one replay wavefront."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    out = {}
+    for n in SEG_ROWS:
+        idx = torch.randint(0, n, (N_INDEX,), device=DEVICE,
+                            dtype=torch.int32, generator=gen)
+        ints = torch.randint(-8, 9, (3, N_INDEX), device=DEVICE,
+                             generator=gen).to(torch.float32)
+        exact = torch.equal(lg.segment_sum_kernel(ints, idx, n),
+                            lg.scatter_sum_plain(ints, idx, n))
+        ct = torch.randn(3, N_INDEX, device=DEVICE, generator=gen)
+        got = lg.segment_sum_kernel(ct, idx, n)
+        repeat = torch.equal(got, lg.segment_sum_kernel(ct, idx, n))
+        ref, plain_ms = once_ms(lambda: lg.scatter_sum_plain(ct, idx, n))
+        scale = lg.scatter_sum_plain(ct.abs(), idx, n)
+        err = (got - ref).abs()
+        within = bool((err <= SUM_TOL * scale).all())
+        ms = device_ms(lambda: lg.segment_sum_kernel(ct, idx, n), reps)
+        tile_ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
+        lib = device_ms(lambda: torch.zeros((3, n), device=DEVICE).index_add_(
+            1, idx.long(), ct), reps)
+        b_ms, b_by = bytes_bound(N_INDEX * (4 + 4 * 3) + 3 * n * 4)
+        res = dict(kernel="segment_sum_kernel", rows=n, columns=3,
+                   indices=N_INDEX, exact_on_integers=exact,
+                   bitwise_repeatable=repeat, within_tol=within,
+                   max_abs_err=float(err.max().item()), kernel_ms=ms,
+                   tile_kernel_ms=tile_ms, plain_ms=plain_ms,
+                   library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        say("kernels", **res)
+        if not (exact and repeat and within):
+            fail(f"segment_sum_kernel at {n} rows: exact={exact} "
+                 f"repeatable={repeat} within_tol={within}")
+        out[n] = res
+    return out
+
+
+def compare_perlin(reps=10):
+    """The turbulence kernel (B7) against its plain version at the replay
+    wavefront's size: bit for bit, f32 (and f64 on fewer lanes). Positions
+    from a seeded numpy draw over [-300, 300]^3: negative lattice cells and
+    final_scene's coordinate range."""
+    rv, px, py, pz = perlin.make_tables(5)
+    tabs = (torch.from_numpy(rv).float().to(DEVICE),
+            *[torch.from_numpy(q).to(DEVICE) for q in (px, py, pz)])
+    pts = np.random.default_rng(7).uniform(-TURB_RANGE, TURB_RANGE,
+                                           (3, TURB_LANES)).astype(np.float32)
+    pos = [torch.from_numpy(a).to(DEVICE) for a in pts]
+    got = pf.turbulence_kernel(*tabs, *pos)
+    ref, plain_ms = once_ms(lambda: pf.turbulence_plain(*tabs, *pos))
+    pos64 = [a[:65536].double() for a in pos]
+    same64 = torch.equal(pf.turbulence_kernel(*tabs, *pos64),
+                         pf.turbulence_plain(*tabs, *pos64))
+    ms = device_ms(lambda: pf.turbulence_kernel(*tabs, *pos), reps)
+    call = time_ms(lambda: pf.turbulence_kernel(*tabs, *pos), reps)
+    t_ops = TURB_LANES * TURB_OPS / PEAK_FP32_FLOPS * 1e3
+    t_bytes, _ = bytes_bound(TURB_LANES * 16 + 4 * 256 * 4)
+    res = dict(kernel="perlin_kernel", lanes=TURB_LANES, range=TURB_RANGE,
+               ops_per_lane=TURB_OPS,
+               differ=int((got != ref).sum().item()),
+               f64_bitwise_equal=same64,
+               max_abs_err=float((got - ref).abs().max().item()),
+               finite=bool(torch.isfinite(got).all()),
+               kernel_ms=ms, call_ms=call, plain_ms=plain_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops > t_bytes else "bytes",
+               bound_ops_ms=t_ops, bound_bytes_ms=t_bytes, library_ms=None)
+    say("kernels", **res)
+    if res["differ"] or not same64 or not res["finite"]:
+        fail(f"perlin_kernel: {res['differ']} of {TURB_LANES} lanes differ "
+             f"from the plain version (f64 equal: {same64})")
+    return res
+
+
 def phase_exact():
     # background-only scene equals the background
     b = rt.SceneBuilder(background=(0.2, 0.4, 0.8))
@@ -450,6 +616,160 @@ def phase_main_path(at_main):
         write_png(os.path.join(OUT_DIR, "cornell_main.png"), img)
     return dict(seconds=stats.seconds, spp=spp, bound=main_bound,
                 launches=launches["render_kernel"])
+
+
+def texture_scene(name, width=None, spp=None, depth=None):
+    b, settings = getattr(builders, name)()
+    over = {k: v for k, v in (("image_width", width),
+                              ("samples_per_pixel", spp),
+                              ("max_depth", depth)) if v is not None}
+    settings = dataclasses.replace(settings, **over)
+    return rt.compile_scene(b, device=DEVICE), rt.Camera.create(settings)
+
+
+def timed_render(scene, camera, **kw):
+    """render() with every launch count set to 0 just before and read just
+    after; the host clock around it ends in the image's copy to the host."""
+    reset_launches()
+    torch.cuda.synchronize()
+    img, stats = rt.render(scene, camera, **kw)
+    torch.cuda.synchronize()
+    return img, stats, dict(kernels.LAUNCHES)
+
+
+def phase_deferred_path(fused_images):
+    """Deferred shading through render()'s auto policy at each scene's own
+    settings; correctness gates on the card. ``fused_images`` holds fused
+    renders of these frames already made (by name)."""
+    # (a) deferred == the tensor integrator on a small frame of each scene
+    exact = {}
+    for name in TEXTURE_SCENES:
+        scene, camera = texture_scene(name, width=64, spp=8, depth=8)
+        img_d, st_d = rt.render(scene, camera, seed=5)
+        img_t, st_t = rt.render(scene, camera, seed=5, use_megakernel=False)
+        exact[name] = dict(
+            pixels_differ=int((img_d.astype(np.float32)
+                               != img_t.astype(np.float32)).any(-1).sum()),
+            rays=st_d.rays, rays_tensor=st_t.rays)
+    say("deferred_path", check="deferred_equals_tensor_integrator",
+        width=64, spp=8, depth=8, scenes=exact)
+    for name, r in exact.items():
+        if r["pixels_differ"] or r["rays"] != r["rays_tensor"]:
+            fail(f"{name}: deferred render differs from the tensor "
+                 f"integrator in {r['pixels_differ']} pixels")
+
+    out = {}
+    for name in TEXTURE_SCENES:
+        scene, camera = texture_scene(name)
+        img, stats, launches = timed_render(scene, camera)
+        n_pix = camera.image_width * camera.image_height
+        fused = fused_images.get(name)
+        if fused is None:
+            fused, _ = rt.render(scene, camera, use_megakernel=True)
+        g, gf = gamma_mean(img), gamma_mean(fused)
+        tol = NOISE_MEAN_TOL if scene.has_noise else IMAGE_MEAN_TOL
+        res = dict(
+            scene=name, width=camera.image_width,
+            height=camera.image_height, spp=camera.samples_per_pixel,
+            depth=camera.max_depth, seconds=stats.seconds, rays=stats.rays,
+            mrays_per_s=stats.rays_per_sec / 1e6, launches=launches,
+            record_slices=launches["record_kernel"],
+            spp_per_slice=tg.RECORD_BUDGET_ENTRIES // (camera.max_depth
+                                                      * n_pix),
+            finite=bool(np.isfinite(img).all()), gamma_mean=g,
+            fused_gamma_mean=gf, gamma_mean_ratio=g / gf,
+            mean_ratio=float(img.mean() / fused.mean()), ratio_tol=tol)
+        say("deferred_path", **res)
+        if img.shape != (camera.image_height, camera.image_width, 3) \
+                or not res["finite"]:
+            fail(f"{name}: deferred image {img.shape} not finite")
+        if launches["record_kernel"] < 1:
+            fail(f"{name}: deferred render did not launch record_kernel")
+        if scene.has_noise and launches["perlin_kernel"] < 1:
+            fail(f"{name}: deferred render did not launch perlin_kernel")
+        if scene.has_image and launches["gather_cols_kernel"] < 1:
+            fail(f"{name}: deferred render did not gather image texels")
+        if abs(g / gf - 1.0) > tol:
+            fail(f"{name}: gamma mean {g} vs fused render's {gf} "
+                 f"(ratio tolerance {tol})")
+        out[name] = res
+    return out
+
+
+def phase_fused_textures():
+    """render(use_megakernel=True) of simple_light at its own settings: one
+    launch of the render kernel's noise instantiation (B8)."""
+    scene, camera = texture_scene("simple_light")
+    img, stats, launches = timed_render(scene, camera, use_megakernel=True)
+    packed, tables = mk._packed_dev(scene)
+    p = mk.make_params(camera, packed, 0, camera.samples_per_pixel,
+                       camera.max_depth)
+    shades = texture_shades(tables, p)
+    b_ms, b_by = bound_ms(tables, p, stats.rays, shades=shades)
+    res = dict(scene="simple_light", width=camera.image_width,
+               height=camera.image_height, spp=camera.samples_per_pixel,
+               depth=camera.max_depth, seconds=stats.seconds,
+               rays=stats.rays, mrays_per_s=stats.rays_per_sec / 1e6,
+               gamma_mean=gamma_mean(img), launches=launches,
+               noise_shades=shades[0], bound_ms=b_ms, bound_by=b_by,
+               roofline_share=b_ms / (stats.seconds * 1e3))
+    say("fused_textures", **res)
+    if launches["render_kernel"] < 1:
+        fail("fused_textures did not launch render_kernel")
+    if not np.isfinite(img).all():
+        fail("fused_textures image not finite")
+    return res, img
+
+
+def phase_grad_textures():
+    """loss_and_grad of the noise and image scenes (mean loss, linear),
+    w.r.t. every float leaf; then the reduction at the image's size."""
+    out = {}
+    for name, leaf in (("two_perlin_spheres", "perlin_ranvec"),
+                       ("earth", "image")):
+        scene, camera = texture_scene(name, width=GRAD_TEX_WIDTH,
+                                      spp=GRAD_TEX_SPP, depth=GRAD_DEPTH)
+        img, _ = rt.render(scene, camera, seed=6)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g, rays = tg.loss_and_grad(scene, camera,
+                                         lambda im, p: im.mean(), seed=6,
+                                         with_rays=True, linear_loss=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        ref = float(img.astype(np.float64).mean())
+        rel = abs(float(loss) - ref) / abs(ref)
+        grads = {f.name: getattr(g, f.name) for f in dataclasses.fields(g)
+                 if isinstance(getattr(g, f.name), torch.Tensor)
+                 and getattr(g, f.name).is_floating_point()}
+        finite = {k: bool(torch.isfinite(t).all()) for k, t in grads.items()}
+        res = dict(scene=name, width=camera.image_width,
+                   height=camera.image_height, spp=GRAD_TEX_SPP,
+                   depth=GRAD_DEPTH, loss=float(loss),
+                   deferred_image_mean=ref, loss_rel_err=rel, rays=rays,
+                   seconds=secs, fwdbwd_rays_per_s=rays / secs,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=launches, leaf=leaf,
+                   leaf_grad_absmax=float(grads[leaf].abs().max()),
+                   all_finite=all(finite.values()))
+        say("grad_textures", **res)
+        if not rel <= LOSS_RTOL:
+            fail(f"{name}: loss {float(loss)} vs deferred image mean {ref}")
+        if not all(finite.values()):
+            fail(f"{name}: non-finite gradient leaves: {finite}")
+        if not res["leaf_grad_absmax"] > 0:
+            fail(f"{name}: the {leaf} gradient is zero")
+        if name == "two_perlin_spheres" and launches["perlin_kernel"] < 1:
+            fail("grad_textures did not launch perlin_kernel")
+        if name == "earth" and launches["segment_sum_kernel"] < 1:
+            fail("grad_textures did not reduce the image gradient through "
+                 "segment_sum_kernel")
+        out[name] = res
+
+    return out
 
 
 def headline(scene, camera, seed, loss_fn, linear):
@@ -624,7 +944,8 @@ def main():
 
     kernels.load()
     regs = [ln.strip() for ln in kernels.build_log.splitlines()
-            if "registers" in ln or "spill" in ln or ln.startswith("==")]
+            if "registers" in ln or "spill" in ln or ln.startswith("==")
+            or "Compiling entry" in ln]
     say("build", seconds=kernels.build_seconds, sources=list(kernels.SOURCES),
         ptxas=regs)
 
@@ -648,8 +969,18 @@ def main():
         compare_records("cornell_box", 600, 4, 8, off)
     rec_main = compare_records("cornell_box", 600, 23, 8, 23, timed=True)
 
+    # the render kernel's noise and image families (B8) and the recorder on
+    # the texture scenes, then B8 at simple_light's own 600x337 frame and
+    # depth with spp cut so the plain version ends in seconds
+    for name in TEXTURE_SCENES:
+        compare(name, 64, 16, 8)
+        compare_records(name, 64, 4, 8, 0)
+    at_fused = compare("simple_light", 600, 4, 8)
+
     gathers = compare_gathers()
     sums = compare_reductions()
+    segs = compare_segment_sums()
+    turb = compare_perlin()
 
     main = phase_main_path(at_main)
 
@@ -661,12 +992,12 @@ def main():
             fail(f"cli returned {rc} or wrote no PNG")
         say("cli", rc=rc, png_bytes=os.path.getsize(out + ".png"))
 
+    fused_tex, fused_img = phase_fused_textures()
+    deferred = phase_deferred_path({"simple_light": fused_img})
+    grad_tex = phase_grad_textures()
+
     grad, scene, camera = phase_grad_path()
-    try:
-        phase_profile(scene, camera, grad["seconds_rep2"])
-    except Exception as e:  # noqa: BLE001  (a diagnosis, not a check)
-        say("profile", error=f"{type(e).__name__}: {e}",
-            device_ms_total="not measured")
+    phase_profile(scene, camera, grad["seconds_rep2"])
     phase_train()
     phase_grad_check()
 
@@ -730,6 +1061,46 @@ def main():
         "library_ms": rd["library_ms"],
         "shape": f"f32 cotangent (17, {N_INDEX}) into the (17, 24) quad "
                  "column table (the transpose of the B6 gather)",
+    }, {
+        "name": "segment_sum_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/tgather.py:65",
+        "launches": grad_tex["earth"]["launches"]["segment_sum_kernel"],
+        "max_abs_err": segs[524288]["max_abs_err"],
+        "ms": segs[524288]["kernel_ms"], "plain_ms": segs[524288]["plain_ms"],
+        "bound_ms": segs[524288]["bound_ms"],
+        "bound_by": segs[524288]["bound_by"],
+        "library_ms": segs[524288]["library_ms"],
+        "shape": f"f32 cotangent (3, {N_INDEX}) into earth's (3, 524288) "
+                 "image table, sort included; launches from grad_textures, "
+                 "earth 400x225 @ 32 spp",
+    }, {
+        "name": "perlin_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/perlin_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/perlin_tpu.py:106",
+        "launches": deferred["simple_light"]["launches"]["perlin_kernel"],
+        "max_abs_err": turb["max_abs_err"],
+        "ms": turb["kernel_ms"], "plain_ms": turb["plain_ms"],
+        "bound_ms": turb["bound_ms"], "bound_by": turb["bound_by"],
+        "library_ms": None,
+        "shape": f"f32, {TURB_LANES} lanes over [-{TURB_RANGE}, "
+                 f"{TURB_RANGE}]^3 (the replay wavefront's budget); "
+                 "launches from deferred_path, simple_light 600x337 @ 1024 "
+                 "spp",
+    }, {
+        "name": "render_kernel_textures", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/megakernel.py:1262",
+        "launches": fused_tex["launches"]["render_kernel"],
+        "max_abs_err": at_fused["max_abs_err"],
+        "ms": at_fused["kernel_ms"], "plain_ms": at_fused["plain_ms"],
+        "bound_ms": at_fused["bound_ms"], "bound_by": at_fused["bound_by"],
+        "library_ms": None,
+        "shape": "render_kernel<noise> (B8): simple_light 600x337 depth 8 "
+                 "spp 4 (its own frame, spp cut for the plain version)",
+        "main_path_ms": fused_tex["seconds"] * 1e3,
+        "main_path_spp": fused_tex["spp"],
+        "main_path_bound_ms": fused_tex["bound_ms"],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

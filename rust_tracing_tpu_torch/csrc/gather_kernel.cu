@@ -31,9 +31,20 @@
 //      order and writes one partial per (column, block, row).
 //   4. scatter_sum_final adds the B partials of each row in block order.
 // Tables with more rows than fit shared memory are processed in row tiles,
-// each tile re-reading the slice. Work is O(R) per tile plus O(B n) for the
-// partials, so large tables cost little more than small ones. Bound: bytes
-// (8 bytes read per element: the cotangent and its index).
+// each tile re-reading the slice: work is O(R) per tile plus O(B n) for the
+// partials. Bound: bytes (8 bytes read per element: the cotangent and its
+// index).
+//
+// segment_sum_kernel is the same reduction for tables with many rows (an
+// image texture's 524 288 texels), where the tile loop re-reads the slice
+// once per 3072 rows and the partials take K * B * n elements. The wrapper
+// sorts the index stably (torch.sort(stable=True): equal rows keep their
+// positions in ascending order), so the order of the sum depends on the
+// index alone: one warp per row finds its run in the sorted index by binary
+// search, lane l adds the run's elements l, l+32, ... in order, and the 32
+// lane sums are added in a fixed shuffle tree. No atomics; out of range
+// indices fall outside every row's run and are dropped. Bound: bytes (the
+// sorted index and its permutation, and one gather of each cotangent).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +55,8 @@ constexpr int G_THREADS = 256;
 constexpr int SS_WARPS = 4;
 constexpr int SS_THREADS = 32 * SS_WARPS;
 constexpr int SS_SMEM_BYTES = 48 * 1024;
+constexpr int SEG_THREADS = 256;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 template <typename T>
 __global__ void __launch_bounds__(G_THREADS)
@@ -143,6 +156,54 @@ __global__ void __launch_bounds__(G_THREADS)
     out[t] = s;
 }
 
+// First position in the ascending array a[0, R) whose value is >= key.
+__device__ __forceinline__ long long lower_bound(const int* __restrict__ a,
+                                                 long long R, int key) {
+    long long lo = 0, hi = R;
+    while (lo < hi) {
+        const long long mid = (lo + hi) >> 1;
+        if (__ldg(a + mid) < key)
+            lo = mid + 1;
+        else
+            hi = mid;
+    }
+    return lo;
+}
+
+// out[k, r] = sum over the run of row r in the sorted index `sidx` of
+// ct[k, perm[i]]; one warp per row, grid-stride over rows.
+template <typename T>
+__global__ void __launch_bounds__(SEG_THREADS)
+    segment_sum_kernel(const T* __restrict__ ct, const int* __restrict__ sidx,
+                       const long long* __restrict__ perm, long long R, int n,
+                       int K, T* __restrict__ out) {
+    const int lane = threadIdx.x & 31;
+    const long long warps = (long long)gridDim.x * (SEG_THREADS / 32);
+    // the row is the same for all lanes of a warp: every lane takes part in
+    // the shuffles
+    for (long long r = (long long)blockIdx.x * (SEG_THREADS / 32)
+                       + (threadIdx.x >> 5);
+         r < n; r += warps) {
+        long long lo = 0, hi = 0;
+        if (lane == 0) {
+            lo = lower_bound(sidx, R, (int)r);
+            hi = lower_bound(sidx, R, (int)r + 1);
+        }
+        lo = __shfl_sync(FULL_MASK, lo, 0);
+        hi = __shfl_sync(FULL_MASK, hi, 0);
+        for (int k = 0; k < K; ++k) {
+            const T* ctk = ct + (size_t)k * R;
+            T acc = T(0);
+            for (long long i = lo + lane; i < hi; i += 32)
+                acc = acc + __ldg(ctk + __ldg(perm + i));
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                acc = acc + __shfl_down_sync(FULL_MASK, acc, off);
+            if (lane == 0) out[(size_t)k * n + r] = acc;
+        }
+    }
+}
+
 int gather_blocks(long long R) {
     const long long b = (R + G_THREADS - 1) / G_THREADS;
     return (int)(b < 132 * 16 ? (b < 1 ? 1 : b) : 132 * 16);
@@ -182,6 +243,18 @@ int launch_scatter_sum(const void* ct, const void* idx, long long R, int n,
     scatter_sum_final<T><<<(int)((total + G_THREADS - 1) / G_THREADS),
                            G_THREADS, 0, st>>>(static_cast<const T*>(partial),
                                                B, n, K, static_cast<T*>(out));
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_segment_sum(const void* ct, const void* sidx, const void* perm,
+                       long long R, int n, int K, void* out, cudaStream_t st) {
+    const long long rows_per_block = SEG_THREADS / 32;
+    long long blocks = (n + rows_per_block - 1) / rows_per_block;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    segment_sum_kernel<T><<<(int)blocks, SEG_THREADS, 0, st>>>(
+        static_cast<const T*>(ct), static_cast<const int*>(sidx),
+        static_cast<const long long*>(perm), R, n, K, static_cast<T*>(out));
     return (int)cudaGetLastError();
 }
 
@@ -235,4 +308,19 @@ extern "C" int rt_scatter_sum_launch(const void* ct, const void* idx,
                                           out, st);
     return launch_scatter_sum<float>(ct, idx, R, n, K, B, chunk, partial, out,
                                      st);
+}
+
+// out[k, r] = sum of ct[k, i] over idx[i] == r, for ct (K, R) float
+// (is_double 0) or double (1), from the stably sorted index `sidx` (int32)
+// and its permutation `perm` (int64): sidx[i] = idx[perm[i]].
+extern "C" int rt_segment_sum_launch(const void* ct, const void* sidx,
+                                     const void* perm, long long R, int n,
+                                     int K, int is_double, void* out,
+                                     void* stream) {
+    if (n < 1 || K < 1 || R < 1) return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (is_double)
+        return launch_segment_sum<double>(ct, sidx, perm, R, n, K, out, st);
+    return launch_segment_sum<float>(ct, sidx, perm, R, n, K, out, st);
 }

@@ -6,7 +6,11 @@
 // loop): the whole render of a pixel range in one launch. record_kernel
 // replaces the same Pallas kernel's record mode (see its own comment). Camera ray, closest hit over spheres
 // and quads, constant media, five-material scatter, emission, solid/checker
-// textures, spp accumulation.
+// textures, spp accumulation. The noise and image texture families (the
+// reference kernel's `has_noise`/`has_image` arms, megakernel.py:404-503,
+// 593-626, 922-928) are compiled in only where a scene holds them: the
+// render kernel is a template on both flags and the host picks the
+// instantiation, so a scene without them runs code without them.
 //
 // Design for this card, not carried over from the TPU tile by tile:
 //  - One thread per pixel, 8x8 blocks of neighbouring pixels so a warp's rays
@@ -58,6 +62,8 @@ struct RenderParams {
     int n_spheres, n_quads, n_media;
     int seed;
     int pixel_base, pixel_count, sample_offset;
+    int has_noise, has_image;  // pick the render kernel's instantiation
+    int img_h, img_w;          // the mipped image table's shape
 };
 
 struct SceneTables {
@@ -71,6 +77,7 @@ struct SceneTables {
     const int* mat_i;     // (N,2)  type tex
     const float* tex_f;   // (T,4)  rgb_r rgb_g rgb_b scale
     const int* tex_i;     // (T,3)  type even odd
+    const float* img_f;   // (3, IH*IW) mipped image texels r g b; render only
 };
 
 // What a trace computes. RENDER shades and accumulates radiance; RECORD
@@ -87,7 +94,7 @@ constexpr float ORIGIN_EPS_REL = 2e-4f;
 
 // material type codes (models/scene.py); 2 is DIELECTRIC, the last branch
 constexpr int LAMBERTIAN = 0, METAL = 1, DIFFUSE_LIGHT = 3, ISOTROPIC = 4;
-constexpr int TEX_CHECKER = 1;
+constexpr int TEX_CHECKER = 1, TEX_IMAGE = 2, TEX_NOISE = 3;
 constexpr int MED_BOX = 1;
 
 struct Ray {
@@ -265,18 +272,146 @@ __device__ __forceinline__ void media_test(const SceneTables& sc,
     }
 }
 
-// Solid or checker texture value at world point (hx, hy, hz). The checker's
-// parity is a FLOORED modulus (fsum - 2*floor(fsum/2)): fmodf would be wrong
-// for negative sums. Children of a checker are leaves (SceneBuilder nests one level).
-__device__ __forceinline__ void tex_value(const SceneTables& sc, int tid,
+// ---- the noise family (B8): hash-lattice Perlin turbulence
+// (megakernel.py:448-503). The corner gradients come from the RNG's mixer
+// applied to a hash of the integer corner, not from permutation tables: a
+// fresh random instance of the same texture family. Same operations in the
+// same order as the plain version's `_hash_grad`, `_noise`, `_turbulence`.
+constexpr uint32_t NOISE_SALT = 0x5EEDu;
+
+__device__ __forceinline__ void hash_grad(int hx, int hy, int hz, float& gx,
+                                          float& gy, float& gz) {
+    const uint32_t h = (uint32_t)hx * 0x9E3779B1u + (uint32_t)hy * 0x85EBCA77u
+                       + (uint32_t)hz * 0xC2B2AE3Du + NOISE_SALT;
+    gx = 2.0f * rng_bits_to_unit_float(rng_mix(h)) - 1.0f;
+    gy = 2.0f * rng_bits_to_unit_float(rng_mix(h + 0x01000193u)) - 1.0f;
+    gz = 2.0f * rng_bits_to_unit_float(rng_mix(h + 0x02000193u)) - 1.0f;
+}
+
+__device__ __forceinline__ float hash_noise(float px, float py, float pz) {
+    const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+    const float ux = px - fx, uy = py - fy, uz = pz - fz;
+    const float sx = ux * ux * (3.0f - 2.0f * ux);
+    const float sy = uy * uy * (3.0f - 2.0f * uy);
+    const float sz = uz * uz * (3.0f - 2.0f * uz);
+    const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+    float acc = 0.0f;
+#pragma unroll
+    for (int di = 0; di < 2; ++di) {
+        const float wx = di ? sx : 1.0f - sx;
+#pragma unroll
+        for (int dj = 0; dj < 2; ++dj) {
+            const float wy = dj ? sy : 1.0f - sy;
+#pragma unroll
+            for (int dk = 0; dk < 2; ++dk) {
+                const float wz = dk ? sz : 1.0f - sz;
+                float gx, gy, gz;
+                hash_grad(ix + di, iy + dj, iz + dk, gx, gy, gz);
+                const float dot = gx * (ux - (float)di) + gy * (uy - (float)dj)
+                                  + gz * (uz - (float)dk);
+                acc = acc + wx * wy * wz * dot;
+            }
+        }
+    }
+    return acc;
+}
+
+// perlin.rs:52-64: |sum of 0.5^k noise(2^k p)|, seven octaves
+__device__ __forceinline__ float hash_turbulence(float px, float py,
+                                                 float pz) {
+    float acc = 0.0f, w = 1.0f, s = 1.0f;
+#pragma unroll 1
+    for (int o = 0; o < 7; ++o) {
+        acc = acc + w * hash_noise(px * s, py * s, pz * s);
+        w = w * 0.5f;
+        s = s * 2.0f;
+    }
+    return fabsf(acc);
+}
+
+// ---- the image family (B8): polynomial acos/atan2 for the sphere UV
+// (megakernel.py:404-444). Constants are the reference's decimal literals
+// rounded from double to float, as the plain version rounds them.
+__device__ __forceinline__ float atan_poly(float r) {
+    const float r2 = r * r;
+    float p = (float)-0.005020576;
+    p = p * r2 + (float)0.025330155;
+    p = p * r2 + (float)-0.060872567;
+    p = p * r2 + (float)0.100020881;
+    p = p * r2 + (float)-0.140477845;
+    p = p * r2 + (float)0.199740231;
+    p = p * r2 + (float)-0.333322323;
+    p = p * r2 + (float)0.999999923;
+    return p * r;
+}
+
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+    const float ax = fabsf(x), ay = fabsf(y);
+    const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+    const float r = mn / fmaxf(mx, 1e-30f);
+    float a = atan_poly(r);
+    if (ay > ax) a = (float)(3.141592653589793 / 2) - a;
+    if (x < 0.0f) a = (float)3.141592653589793 - a;
+    return y < 0.0f ? -a : a;
+}
+
+__device__ __forceinline__ float acos_poly(float x) {
+    const float xa = fabsf(fminf(fmaxf(x, -1.0f), 1.0f));
+    float p = (float)-0.0012624911;
+    p = p * xa + (float)0.0066700901;
+    p = p * xa + (float)-0.0170881256;
+    p = p * xa + (float)0.0308918810;
+    p = p * xa + (float)-0.0501743046;
+    p = p * xa + (float)0.0889789874;
+    p = p * xa + (float)-0.2145988016;
+    p = p * xa + (float)1.5707963050;
+    const float a = p * sqrtf(fmaxf(1.0f - xa, 0.0f));
+    return x < 0.0f ? (float)3.141592653589793 - a : a;
+}
+
+// Texture value at world point (hx, hy, hz) with sphere UV (tu, tv). The
+// checker's parity is a FLOORED modulus (fsum - 2*floor(fsum/2)): fmodf would
+// be wrong for negative sums. Children of a checker are leaves (SceneBuilder
+// nests one level); a leaf is solid, or noise/image where the flag is on.
+// Image: nearest texel of the mipped table, u clamped, v flipped
+// (texture.rs:83-93). Noise: marble sin(scale*z + 10*turb(p))*0.5+0.5
+// (texture.rs:107-111).
+template <bool NOISE, bool IMAGE>
+__device__ __forceinline__ void tex_value(const SceneTables& sc,
+                                          const RenderParams& p, int tid,
                                           float hx, float hy, float hz,
-                                          float& tr, float& tg, float& tb) {
+                                          float tu, float tv, float& tr,
+                                          float& tg, float& tb) {
     int leaf = tid;
     if (__ldg(sc.tex_i + 3 * tid) == TEX_CHECKER) {
         const float inv = __ldg(sc.tex_f + 4 * tid + 3);
         const float fsum = floorf(inv * hx) + floorf(inv * hy) + floorf(inv * hz);
         const bool even = (fsum - 2.0f * floorf(fsum * 0.5f)) == 0.0f;
         leaf = even ? __ldg(sc.tex_i + 3 * tid + 1) : __ldg(sc.tex_i + 3 * tid + 2);
+    }
+    if (NOISE || IMAGE) {
+        const int type = __ldg(sc.tex_i + 3 * leaf);
+        if (NOISE && type == TEX_NOISE) {
+            const float scale = __ldg(sc.tex_f + 4 * leaf + 3);
+            const float marble =
+                sinf(scale * hz + 10.0f * hash_turbulence(hx, hy, hz)) * 0.5f
+                + 0.5f;
+            tr = tg = tb = marble;
+            return;
+        }
+        if (IMAGE && type == TEX_IMAGE) {
+            const float uc = fminf(fmaxf(tu, 0.0f), 1.0f);
+            const float vc = 1.0f - fminf(fmaxf(tv, 0.0f), 1.0f);
+            const int ti = (int)(uc * (float)(p.img_w - 1));
+            const int tj = (int)(vc * (float)(p.img_h - 1));
+            const int n = p.img_h * p.img_w;
+            const int lin = tj * p.img_w + ti;
+            const bool ok = lin >= 0 && lin < n;
+            tr = ok ? __ldg(sc.img_f + lin) : 0.0f;
+            tg = ok ? __ldg(sc.img_f + n + lin) : 0.0f;
+            tb = ok ? __ldg(sc.img_f + 2 * n + lin) : 0.0f;
+            return;
+        }
     }
     tr = __ldg(sc.tex_f + 4 * leaf);
     tg = __ldg(sc.tex_f + 4 * leaf + 1);
@@ -292,7 +427,7 @@ struct Path {
 // One bounce of a live path: closest hit, media, emission, scatter, advance.
 // Returns true if the path scattered and goes on. `rec` receives the packed
 // winner record `kind<<24 | idx` (0 on a miss) outside RENDER mode.
-template <int MODE>
+template <int MODE, bool NOISE = false, bool IMAGE = false>
 __device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
                                              const RenderParams& p, Path& s,
                                              bool depth_left_ok,
@@ -334,8 +469,18 @@ __device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
     const int m_type = __ldg(sc.mat_i + 2 * h.mat);
     float tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f;
     if (MODE == MODE_RENDER) {
-        tex_value(sc, __ldg(sc.mat_i + 2 * h.mat + 1), hpx, hpy, hpz, tex_r,
-                  tex_g, tex_b);
+        float tu = 0.0f, tv = 0.0f;
+        if (IMAGE) {
+            // sphere UV from the outward normal (sphere.rs:48-52):
+            // theta = acos(-n.y), phi = atan2(-n.z, n.x) + pi
+            const float theta = acos_poly(-h.ny);
+            const float phi =
+                atan2_poly(-h.nz, h.nx) + (float)3.141592653589793;
+            tu = phi * (float)(1.0 / (2.0 * 3.141592653589793));
+            tv = theta * (float)(1.0 / 3.141592653589793);
+        }
+        tex_value<NOISE, IMAGE>(sc, p, __ldg(sc.mat_i + 2 * h.mat + 1), hpx,
+                                hpy, hpz, tu, tv, tex_r, tex_g, tex_b);
         if (m_type == DIFFUSE_LIGHT) {
             // emission (material.rs:114-122), pre-scatter throughput
             s.rad_r = s.rad_r + s.tp_r * tex_r;
@@ -468,6 +613,7 @@ constexpr int BLOCK_X = 8, BLOCK_Y = 8;
 
 // out_rgb (pixel_count,3): mean radiance over spp samples, f32 sum in sample
 // order times f32(1/spp). out_n (pixel_count,): scene queries traced.
+template <bool NOISE, bool IMAGE>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     render_kernel(SceneTables sc, RenderParams p, int row0,
                   float* __restrict__ out_rgb, int* __restrict__ out_n) {
@@ -492,8 +638,8 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
             const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
                                   (uint32_t)d);
             int rec;
-            if (!trace_bounce<MODE_RENDER>(sc, p, s, d + 1 < p.max_depth, rngb,
-                                           rec))
+            if (!trace_bounce<MODE_RENDER, NOISE, IMAGE>(
+                    sc, p, s, d + 1 < p.max_depth, rngb, rec))
                 break;
         }
         acc_r = acc_r + s.rad_r;
@@ -562,7 +708,8 @@ rt::SceneTables make_tables(const void* sph_f, const void* sph_m,
                             const void* quad_f, const void* quad_m,
                             const void* med_f, const void* med_i,
                             const void* mat_f, const void* mat_i,
-                            const void* tex_f, const void* tex_i) {
+                            const void* tex_f, const void* tex_i,
+                            const void* img_f) {
     rt::SceneTables sc;
     sc.sph_f = static_cast<const float4*>(sph_f);
     sc.sph_m = static_cast<const int*>(sph_m);
@@ -574,6 +721,7 @@ rt::SceneTables make_tables(const void* sph_f, const void* sph_m,
     sc.mat_i = static_cast<const int*>(mat_i);
     sc.tex_f = static_cast<const float*>(tex_f);
     sc.tex_i = static_cast<const int*>(tex_i);
+    sc.img_f = static_cast<const float*>(img_f);
     return sc;
 }
 
@@ -594,26 +742,46 @@ bool pixel_grid(const rt::RenderParams& p, int& row0, dim3& grid) {
 
 }  // namespace
 
+template <bool NOISE, bool IMAGE>
+void launch_render(const rt::SceneTables& sc, const rt::RenderParams& p,
+                   int row0, dim3 grid, void* out_rgb, void* out_n,
+                   void* stream) {
+    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
+    rt::render_kernel<NOISE, IMAGE>
+        <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+            sc, p, row0, static_cast<float*>(out_rgb),
+            static_cast<int*>(out_n));
+}
+
 // Launch the render kernel on `stream` over pixels
 // [params->pixel_base, params->pixel_base + params->pixel_count). `params`
-// is a host pointer. Does not synchronise. Returns cudaGetLastError().
+// is a host pointer; its has_noise/has_image flags pick the instantiation
+// and `img_f` is the (3, img_h * img_w) image table. Does not synchronise.
+// Returns cudaGetLastError().
 extern "C" int rt_render_launch(const void* sph_f, const void* sph_m,
                                 const void* quad_f, const void* quad_m,
                                 const void* med_f, const void* med_i,
                                 const void* mat_f, const void* mat_i,
                                 const void* tex_f, const void* tex_i,
-                                const void* params, void* out_rgb, void* out_n,
-                                void* stream) {
+                                const void* img_f, const void* params,
+                                void* out_rgb, void* out_n, void* stream) {
     const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
-    const rt::SceneTables sc = make_tables(sph_f, sph_m, quad_f, quad_m, med_f,
-                                           med_i, mat_f, mat_i, tex_f, tex_i);
+    const rt::SceneTables sc =
+        make_tables(sph_f, sph_m, quad_f, quad_m, med_f, med_i, mat_f, mat_i,
+                    tex_f, tex_i, img_f);
     int row0;
     dim3 grid;
-    if (!pixel_grid(p, row0, grid)) return (int)cudaErrorInvalidValue;
-    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
+    if (!pixel_grid(p, row0, grid) || p.img_h < 1 || p.img_w < 1)
+        return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();  // clear a stale error of an earlier call
-    rt::render_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        sc, p, row0, static_cast<float*>(out_rgb), static_cast<int*>(out_n));
+    if (p.has_noise && p.has_image)
+        launch_render<true, true>(sc, p, row0, grid, out_rgb, out_n, stream);
+    else if (p.has_noise)
+        launch_render<true, false>(sc, p, row0, grid, out_rgb, out_n, stream);
+    else if (p.has_image)
+        launch_render<false, true>(sc, p, row0, grid, out_rgb, out_n, stream);
+    else
+        launch_render<false, false>(sc, p, row0, grid, out_rgb, out_n, stream);
     return (int)cudaGetLastError();
 }
 
@@ -629,7 +797,8 @@ extern "C" int rt_record_launch(const void* sph_f, const void* sph_m,
                                 void* stream) {
     const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
     const rt::SceneTables sc = make_tables(sph_f, sph_m, quad_f, quad_m, med_f,
-                                           med_i, mat_f, mat_i, tex_f, tex_i);
+                                           med_i, mat_f, mat_i, tex_f, tex_i,
+                                           nullptr);
     int row0;
     dim3 grid;
     if (!pixel_grid(p, row0, grid) || p.max_depth < 1)

@@ -11,7 +11,9 @@ rust_tracing_tpu/ops/tgather.py). The kernels are hand-written CUDA C++ in
   the index read once (kernel B6);
 - ``scatter_sum``: ``d[k, r] = sum of ct[k, i] over idx[i] == r``, the
   transpose of both, deterministic (no float atomics; the summation order is
-  fixed by the index length alone and stated in the source).
+  fixed by the index alone and stated in the source): ``scatter_sum_kernel``
+  for tables of up to ``SCATTER_SORT_MIN_ROWS`` rows, ``segment_sum_kernel``
+  (a segment sum over the stably sorted index) for larger ones.
 
 Each takes its device from its inputs: on CUDA tensors it launches its
 kernel (or raises), on CPU tensors it runs its plain version. Out-of-range
@@ -42,6 +44,13 @@ TGATHER_DENSE_MAX = 64
 # summation order, depends on R alone.
 SCATTER_CHUNK = 8192
 SCATTER_MAX_BLOCKS = 1024
+
+# Tables with more rows than this take the sorted segment sum: the tile
+# kernel re-reads its slice once per 3072 rows and keeps K * blocks * rows
+# partials (2.2 GB and 11.4 ms for an image's 524 288 texels at one replay
+# wavefront on an H100), the segment sum reads each element once after a
+# sort.
+SCATTER_SORT_MIN_ROWS = 8192
 
 _ELEM = {torch.float32: 4, torch.int32: 4, torch.float64: 8, torch.int64: 8}
 
@@ -201,12 +210,46 @@ def scatter_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def segment_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """The reduction for tables with many rows: a stable sort of the index,
+    then one launch of the CUDA segment sum over it. ``ct`` f32 or f64 of
+    shape ``(K, *idx.shape)``; returns ``(K, n)``. Same bits on every call
+    (the order of each row's sum is its positions' order). Does not
+    synchronise."""
+    dev = ct.device
+    if dev.type != "cuda":
+        raise ValueError(f"segment_sum_kernel needs CUDA tensors, got {dev}")
+    if ct.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"segment_sum_kernel sums f32 or f64, got {ct.dtype}")
+    flat = _index(idx, dev)
+    R = flat.numel()
+    if tuple(ct.shape[1:]) != tuple(idx.shape):
+        raise ValueError(f"cotangent {tuple(ct.shape)} does not match index "
+                         f"{tuple(idx.shape)}")
+    K = ct.shape[0]
+    ct2 = ct.reshape(K, R).contiguous()
+    out = torch.zeros((K, n), dtype=ct.dtype, device=dev)
+    if R and n and K:
+        sidx, perm = torch.sort(flat, stable=True)
+        kernels, lib, stream = _launch_args(dev)
+        with torch.cuda.device(dev):
+            err = lib.rt_segment_sum_launch(
+                ct2.data_ptr(), sidx.data_ptr(), perm.data_ptr(), R, n, K,
+                int(ct.dtype == torch.float64), out.data_ptr(), stream)
+        LAUNCHES["segment_sum_kernel"] += 1
+        kernels.check(err, "segment_sum kernel")
+    return out
+
+
 def scatter_sum_cols(ct: torch.Tensor, idx: torch.Tensor,
                      n: int) -> torch.Tensor:
     """Transpose of ``gather_cols``: ``ct`` ``(K, *idx.shape)`` -> ``(K, n)``;
-    the kernel on CUDA, the plain version on the CPU."""
+    a kernel on CUDA (by table size), the plain version on the CPU."""
     if ct.device.type == "cpu":
         return scatter_sum_plain(ct, idx, n)
+    if n > SCATTER_SORT_MIN_ROWS:
+        return segment_sum_kernel(ct, idx, n)
     return scatter_sum_kernel(ct, idx, n)
 
 

@@ -4,8 +4,13 @@ Replaces rust_tracing_tpu/ops/megakernel.py (the Pallas kernel built by
 ``_make_kernel`` and called through ``_get_call``, render mode with the
 brute-force primitive loop). The whole render of a pixel range — camera
 rays, closest hit over spheres and quads, constant media, five-material
-scatter, emission, solid/checker textures, spp accumulation — is ONE launch
-of the hand-written CUDA kernel in ``csrc/render_kernel.cu``.
+scatter, emission, every texture family, spp accumulation — is ONE launch
+of the hand-written CUDA kernel in ``csrc/render_kernel.cu``. The noise and
+image families are the reference kernel's own approximations (its
+``has_noise``/``has_image`` arms): hash-lattice turbulence instead of the
+permutation tables, and a box-filtered mip of the image sampled at a sphere
+UV from polynomial acos/atan2. Deferred shading (renderer.render_deferred)
+is the path that shades them at full fidelity.
 
 The same file holds the path recorder (``record_kernel``, the reference
 kernel's record mode): the same trace, writing the winner record
@@ -39,6 +44,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import math
 import weakref
 from typing import Optional, Tuple
 
@@ -64,6 +70,20 @@ ORIGIN_EPS_REL = 2e-4
 
 SPH_F, QUAD_F, MED_F = 8, 16, 24
 
+# In-kernel image textures sample a box-filtered mip of at most this many
+# texels (the reference's limit, megakernel.py:83). The table stays in global
+# memory: 32768 texels x 12 bytes do not fit a block's shared memory.
+IMG_MAX_TEXELS = 32768
+
+# Constants of the in-kernel noise and UV arms (megakernel.py:404-503), as the
+# reference writes them; float literals round from double to f32 once.
+NOISE_SALT = 0x5EED
+_PI = math.pi
+_ATAN_COEF = (-0.005020576, 0.025330155, -0.060872567, 0.100020881,
+              -0.140477845, 0.199740231, -0.333322323, 0.999999923)
+_ACOS_COEF = (-0.0012624911, 0.0066700901, -0.0170881256, 0.0308918810,
+              -0.0501743046, 0.0889789874, -0.2145988016, 1.5707963050)
+
 
 # ------------------------------------------------------------- scene packing
 @dataclasses.dataclass
@@ -82,14 +102,18 @@ class PackedScene:
     mat_i: np.ndarray   # (N,2) i32: type tex
     tex_f: np.ndarray   # (T,4) f32: rgb_r rgb_g rgb_b scale (inv or noise)
     tex_i: np.ndarray   # (T,3) i32: type even odd
+    img_f: np.ndarray   # (3,IH,IW) f32: mipped image texels r g b
     n_spheres: int = 0
     n_quads: int = 0
     n_media: int = 0
     has_checker: bool = False
     has_noise: bool = False
     has_image: bool = False
+    img_h: int = 1
+    img_w: int = 1
 
-    # the kernel's pointer arguments, in order
+    # the kernel's pointer arguments, in order (the render kernel also takes
+    # ``img_f``)
     TABLES = ("sph_f", "sph_m", "quad_f", "quad_m", "med_f", "med_i",
               "mat_f", "mat_i", "tex_f", "tex_i")
 
@@ -169,14 +193,27 @@ def pack_scene(scene) -> PackedScene:
     tex_i = np.stack([tex_types, _np(scene.tex_even), _np(scene.tex_odd)],
                      axis=1).astype(np.int32)
 
+    # image texture: box-filter mip to <= IMG_MAX_TEXELS (megakernel.py:
+    # 214-225), f64 means rounded once
+    has_image = bool(scene.has_image)
+    img = f64(scene.image)
+    ih, iw = img.shape[0], img.shape[1]
+    if has_image and ih * iw > IMG_MAX_TEXELS:
+        f = int(np.ceil(np.sqrt(ih * iw / IMG_MAX_TEXELS)))
+        ch, cw = (ih // f) * f, (iw // f) * f
+        img = img[:ch, :cw].reshape(ch // f, f, cw // f, f, 3).mean((1, 3))
+        ih, iw = img.shape[0], img.shape[1]
+    img_f = np.ascontiguousarray(
+        img.reshape(-1, 3).T.astype(np.float32).reshape(3, ih, iw))
+
     return PackedScene(
         sph_f=sph_f, sph_m=sph_m, quad_f=quad_f, quad_m=quad_m,
         med_f=med_f, med_i=med_i, mat_f=mat_f, mat_i=mat_i,
-        tex_f=tex_f, tex_i=tex_i,
+        tex_f=tex_f, tex_i=tex_i, img_f=img_f,
         n_spheres=S, n_quads=Q, n_media=M,
         has_checker=bool((tex_types == TEX_CHECKER).any()),
         has_noise=bool((tex_types == TEX_NOISE).any()),
-        has_image=bool(scene.has_image),
+        has_image=has_image, img_h=ih, img_w=iw,
     )
 
 
@@ -199,9 +236,7 @@ def _tex_reaches_image(scene, tex_ids) -> bool:
 def supports(scene) -> bool:
     """Fused-kernel coverage policy, as in the reference: every scene family
     except an image texture routed to a quad or medium material (only sphere
-    UVs are tracked in the kernel). Whether the texture families a supported
-    scene uses are already ported is a separate question: ``render_fast``
-    raises NotImplementedError for noise and image scenes."""
+    UVs are tracked in the kernel)."""
     if not scene.has_image:
         return True
     nonsphere_mats = []
@@ -241,7 +276,7 @@ def _packed_dev(scene) -> Tuple[PackedScene, dict]:
     packed = pack_scene(scene)
     dev = scene.device
     tables = {name: torch.from_numpy(getattr(packed, name)).to(dev).contiguous()
-              for name in PackedScene.TABLES}
+              for name in PackedScene.TABLES + ("img_f",)}
     _pack_cache[key] = (weakref.ref(scene), packed, tables)
     return packed, tables
 
@@ -271,6 +306,10 @@ class RenderParams(ctypes.Structure):
         ("pixel_base", ctypes.c_int),
         ("pixel_count", ctypes.c_int),
         ("sample_offset", ctypes.c_int),
+        ("has_noise", ctypes.c_int),
+        ("has_image", ctypes.c_int),
+        ("img_h", ctypes.c_int),
+        ("img_w", ctypes.c_int),
     ]
 
 
@@ -299,7 +338,9 @@ def make_params(camera, packed: PackedScene, seed: int, spp: int,
         n_spheres=packed.n_spheres, n_quads=packed.n_quads,
         n_media=packed.n_media, seed=hashrng._i32(int(seed)),
         pixel_base=int(pixel_base), pixel_count=int(pixel_count),
-        sample_offset=int(sample_offset))
+        sample_offset=int(sample_offset), has_noise=int(packed.has_noise),
+        has_image=int(packed.has_image), img_h=packed.img_h,
+        img_w=packed.img_w)
 
 
 # table -> (dtype, trailing shape, the count in RenderParams it must cover)
@@ -337,11 +378,25 @@ def _check_tables(tables: dict, p: RenderParams) -> torch.device:
     return dev
 
 
+def _check_image(tables: dict, p: RenderParams, dev) -> torch.Tensor:
+    """The render kernel's image table: f32 ``(3, img_h, img_w)``."""
+    img = tables["img_f"]
+    if (img.device != dev or img.dtype != torch.float32
+            or not img.is_contiguous()
+            or tuple(img.shape) != (3, p.img_h, p.img_w)):
+        raise ValueError(f"table img_f is {tuple(img.shape)} {img.dtype} on "
+                         f"{img.device}, expected contiguous f32 "
+                         f"(3, {p.img_h}, {p.img_w}) on {dev}")
+    return img
+
+
 def render_kernel(tables: dict, p: RenderParams):
     """One launch of the CUDA render kernel over pixels
     ``[p.pixel_base, p.pixel_base + p.pixel_count)``.
 
-    ``tables`` are the packed scene tables as contiguous CUDA tensors.
+    ``tables`` are the packed scene tables (and the image table ``img_f``)
+    as contiguous CUDA tensors; ``p.has_noise`` and ``p.has_image`` select
+    the kernel's instantiation with the noise and image arms.
     Returns ``(rgb (count,3) f32, n (count,) i32)``: the per-pixel mean
     radiance over ``p.spp`` samples and the number of scene queries traced.
     Launches on the current stream and does not synchronise. Tensors that
@@ -350,6 +405,7 @@ def render_kernel(tables: dict, p: RenderParams):
     dev = _check_tables(tables, p)
     if dev.type != "cuda":
         raise ValueError(f"render_kernel needs CUDA tensors, got {dev}")
+    img = _check_image(tables, p, dev)
     from ..runtime import kernels
 
     lib = kernels.load()
@@ -358,7 +414,7 @@ def render_kernel(tables: dict, p: RenderParams):
         n = torch.empty((p.pixel_count,), dtype=torch.int32, device=dev)
         err = lib.rt_render_launch(
             *[tables[name].data_ptr() for name in PackedScene.TABLES],
-            ctypes.byref(p), rgb.data_ptr(), n.data_ptr(),
+            img.data_ptr(), ctypes.byref(p), rgb.data_ptr(), n.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["render_kernel"] += 1
     kernels.check(err, "render kernel")
@@ -395,6 +451,88 @@ def record_kernel(tables: dict, p: RenderParams) -> torch.Tensor:
 # ----------------------------------------------------------- plain version
 def _sel3(cond, a, b):
     return tuple(torch.where(cond, x, y) for x, y in zip(a, b))
+
+
+def _f32(v: float) -> float:
+    """A Python float rounded to the nearest f32 value."""
+    return float(np.float32(v))
+
+
+def _hash_grad(hx, hy, hz, salt: int):
+    """Lattice gradient in [-1,1]^3 from integer corner coordinates
+    (megakernel.py:448-464): the RNG's mixer on a hash of the corner, uint32
+    arithmetic emulated in int32 as in ops/hashrng.py."""
+    i32 = hashrng._i32
+    h = (hx * i32(0x9E3779B1) + hy * i32(0x85EBCA77) + hz * i32(0xC2B2AE3D)
+         + i32(salt))
+    unit = hashrng._bits_to_unit_float
+    gx = 2.0 * unit(hashrng._mix(h)) - 1.0
+    gy = 2.0 * unit(hashrng._mix(h + i32(0x01000193))) - 1.0
+    gz = 2.0 * unit(hashrng._mix(h + i32(0x02000193 & 0xFFFFFFFF))) - 1.0
+    return gx, gy, gz
+
+
+def _noise(px, py, pz):
+    """Hash-lattice Perlin gradient noise (megakernel.py:467-491)."""
+    fx, fy, fz = torch.floor(px), torch.floor(py), torch.floor(pz)
+    ux, uy, uz = px - fx, py - fy, pz - fz
+    sx = ux * ux * (3.0 - 2.0 * ux)
+    sy = uy * uy * (3.0 - 2.0 * uy)
+    sz = uz * uz * (3.0 - 2.0 * uz)
+    ix, iy, iz = fx.to(torch.int32), fy.to(torch.int32), fz.to(torch.int32)
+    acc = torch.zeros_like(px)
+    for di in (0, 1):
+        wx = sx if di else 1.0 - sx
+        for dj in (0, 1):
+            wy = sy if dj else 1.0 - sy
+            for dk in (0, 1):
+                wz = sz if dk else 1.0 - sz
+                gx, gy, gz = _hash_grad(ix + di, iy + dj, iz + dk, NOISE_SALT)
+                dot = gx * (ux - di) + gy * (uy - dj) + gz * (uz - dk)
+                acc = acc + wx * wy * wz * dot
+    return acc
+
+
+def _turbulence(px, py, pz, depth: int = 7):
+    """perlin.rs:52-64 over the hash lattice: |sum of w^k noise(2^k p)|."""
+    acc = torch.zeros_like(px)
+    w = 1.0
+    s = 1.0
+    for _ in range(depth):
+        acc = acc + w * _noise(px * s, py * s, pz * s)
+        w *= 0.5
+        s *= 2.0
+    return torch.abs(acc)
+
+
+def _poly(coefs, x):
+    p = torch.full_like(x, _f32(coefs[0]))
+    for c in coefs[1:]:
+        p = p * x + _f32(c)
+    return p
+
+
+def _atan_poly(r):
+    """atan(r) for r in [0, 1]: odd polynomial in r^2 (megakernel.py:404-
+    416)."""
+    return _poly(_ATAN_COEF, r * r) * r
+
+
+def _atan2(y, x):
+    """atan2 from the [0, 1] core (megakernel.py:419-429)."""
+    ax, ay = x.abs(), y.abs()
+    mx, mn = torch.maximum(ax, ay), torch.minimum(ax, ay)
+    a = _atan_poly(mn / torch.clamp(mx, min=1e-30))
+    a = torch.where(ay > ax, _f32(_PI / 2) - a, a)
+    a = torch.where(x < 0.0, _f32(_PI) - a, a)
+    return torch.where(y < 0.0, -a, a)
+
+
+def _arccos(x):
+    """acos(x), Abramowitz-Stegun 4.4.45 (megakernel.py:432-444)."""
+    xa = torch.clamp(x, -1.0, 1.0).abs()
+    a = _poly(_ACOS_COEF, xa) * torch.sqrt(torch.clamp(1.0 - xa, min=0.0))
+    return torch.where(x < 0.0, _f32(_PI) - a, a)
 
 
 def render_fast_plain(tables: dict, p: RenderParams):
@@ -435,6 +573,12 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
     mat_f, tex_f = tables["mat_f"], tables["tex_f"]
     mat_i, tex_i = tables["mat_i"].long(), tables["tex_i"].long()
     has_checker = bool((tex_i[:, 0] == TEX_CHECKER).any())
+    # the recorder shades nothing, so it never evaluates noise or images
+    has_noise = bool(p.has_noise) and not record
+    has_image = bool(p.has_image) and not record
+    if has_image:
+        img = _check_image(tables, p, dev).reshape(3, -1)
+        n_texels = p.img_h * p.img_w
 
     f32 = lambda v: float(np.float32(v))
     cx, cy, cz = (f32(v) for v in p.center)
@@ -454,18 +598,51 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
     fzero = torch.zeros(P, dtype=torch.float32, device=dev)
     izero = torch.zeros(P, dtype=torch.int64, device=dev)
 
-    def tex_value(tid, hpx, hpy, hpz):
-        r, g, b = tex_f[tid, 0], tex_f[tid, 1], tex_f[tid, 2]
+    def tex_value(tid, hpx, hpy, hpz, tex_u, tex_v):
+        turb = []  # the hash turbulence at p, computed once per bounce
+
+        def leaf(t):
+            r, g, b = tex_f[t, 0], tex_f[t, 1], tex_f[t, 2]
+            if has_noise:
+                # marble: sin(scale*z + 10*turb(p,7))*0.5+0.5
+                # (texture.rs:107-111)
+                if not turb:
+                    turb.append(_turbulence(hpx, hpy, hpz))
+                marble = (torch.sin(tex_f[t, 3] * hpz + 10.0 * turb[0])
+                          * 0.5 + 0.5)
+                is_noise = tex_i[t, 0] == TEX_NOISE
+                r = torch.where(is_noise, marble, r)
+                g = torch.where(is_noise, marble, g)
+                b = torch.where(is_noise, marble, b)
+            if has_image:
+                # nearest texel of the mip, u clamp, v flip
+                # (texture.rs:83-93); out-of-range rows read 0
+                uc = torch.clamp(tex_u, 0.0, 1.0)
+                vc = 1.0 - torch.clamp(tex_v, 0.0, 1.0)
+                ti = (uc * (p.img_w - 1)).to(torch.int32)
+                tj = (vc * (p.img_h - 1)).to(torch.int32)
+                lin = tj * p.img_w + ti
+                ok = (lin >= 0) & (lin < n_texels)
+                texel = torch.where(
+                    ok, img[:, lin.clamp(0, n_texels - 1).long()], 0.0)
+                is_img = tex_i[t, 0] == TEX_IMAGE
+                r = torch.where(is_img, texel[0], r)
+                g = torch.where(is_img, texel[1], g)
+                b = torch.where(is_img, texel[2], b)
+            return r, g, b
+
+        r, g, b = leaf(tid)
         if has_checker:
             inv = tex_f[tid, 3]
             fsum = (torch.floor(inv * hpx) + torch.floor(inv * hpy)
                     + torch.floor(inv * hpz))
             even_sel = torch.remainder(fsum, 2.0) == 0.0  # floored modulus
             child = torch.where(even_sel, tex_i[tid, 1], tex_i[tid, 2])
+            cr, cg, cb = leaf(child)
             is_chk = tex_i[tid, 0] == TEX_CHECKER
-            r = torch.where(is_chk, tex_f[child, 0], r)
-            g = torch.where(is_chk, tex_f[child, 1], g)
-            b = torch.where(is_chk, tex_f[child, 2], b)
+            r = torch.where(is_chk, cr, r)
+            g = torch.where(is_chk, cg, g)
+            b = torch.where(is_chk, cb, b)
         return r, g, b
 
     def closest_surface(ox, oy, oz, dx, dy, dz, rtime, alive):
@@ -631,7 +808,16 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
 
         m_tex = mat_i[w_mat, 1]
         al_r, al_g, al_b = mat_f[w_mat, 0], mat_f[w_mat, 1], mat_f[w_mat, 2]
-        tex_r, tex_g, tex_b = tex_value(m_tex, hpx, hpy, hpz)
+        if has_image:
+            # sphere UV from the outward normal (sphere.rs:48-52):
+            # theta = acos(-n.y), phi = atan2(-n.z, n.x) + pi
+            theta = _arccos(-w_ny)
+            phi = _atan2(-w_nz, w_nx) + _f32(_PI)
+            tex_u = phi * _f32(1.0 / (2.0 * _PI))
+            tex_v = theta * _f32(1.0 / _PI)
+        else:
+            tex_u = tex_v = fzero
+        tex_r, tex_g, tex_b = tex_value(m_tex, hpx, hpy, hpz, tex_u, tex_v)
 
         # emission (material.rs:114-122), pre-scatter throughput
         em = hit_any & is_light
@@ -776,10 +962,6 @@ def render_pixels(scene, camera, seed: int = 0, spp: Optional[int] = None,
             f"replaces the brute-force loop from {BVH_KERNEL_THRESHOLD} "
             "primitives on is not ported yet")
     packed, tables = _packed_dev(scene)
-    if packed.has_noise or packed.has_image:
-        raise NotImplementedError(
-            "noise and image textures inside the fused render kernel are not "
-            "ported yet (solid and checker textures only)")
     p = make_params(camera, packed, seed, spp, max_depth, sample_offset,
                     pixel_base, pixel_count)
     if scene.device.type == "cpu":

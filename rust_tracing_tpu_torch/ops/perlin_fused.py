@@ -1,0 +1,129 @@
+"""Fused Perlin turbulence: CUDA kernel wrapper and autograd Function.
+
+Counterpart of rust_tracing_tpu/ops/perlin_tpu.py, whose Pallas kernel
+(``_kernel``, called through ``turbulence``) fuses the whole 7-octave
+turbulence of the exact table noise into one dispatch. Here it is the
+hand-written CUDA kernel of ``csrc/perlin_kernel.cu`` (kernel B7): one thread
+per lane, the four 256-entry tables staged in shared memory, seven octaves x
+eight corners in registers. Its plain version is ``ops/perlin.py::
+turbulence_c``, which it equals bit for bit (same f32 or f64 operations in
+the same order, built without multiply-add contraction).
+
+``turbulence`` is a ``torch.autograd.Function``:
+
+- forward: the kernel for CUDA tensors, the plain version for CPU tensors;
+- backward: the gradient of the plain version, recomputed under
+  ``torch.enable_grad()`` (the reference's primitive delegates its jvp to
+  the XLA formulation the same way and has no backward kernel). Gradients
+  reach ``px, py, pz`` and ``ranvec``; the permutation tables are integers.
+
+Not ported yet: the reference's batching rule (``vmap``), which no path
+needs; it comes with the multi-GPU slice, with ``tgather``'s.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..runtime.kernels import LAUNCHES
+from . import perlin
+
+DEPTH = 7
+
+
+def _check(ranvec, perms, pts):
+    dev = pts[0].device
+    dtype = pts[0].dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"turbulence takes f32 or f64 positions, got {dtype}")
+    for p in pts:
+        if p.device != dev or p.dtype != dtype or p.shape != pts[0].shape:
+            raise ValueError("px, py, pz must share device, dtype and shape")
+    if ranvec.shape != (perlin.POINT_COUNT, 3) or ranvec.device != dev:
+        raise ValueError(f"ranvec must be ({perlin.POINT_COUNT}, 3) on {dev}, "
+                         f"got {tuple(ranvec.shape)} on {ranvec.device}")
+    for q in perms:
+        if (q.shape != (perlin.POINT_COUNT,) or q.device != dev
+                or q.is_floating_point()):
+            raise ValueError(f"permutation tables must be integer "
+                             f"({perlin.POINT_COUNT},) on {dev}")
+    return dev, dtype
+
+
+def turbulence_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
+                      depth: int = DEPTH) -> torch.Tensor:
+    """One launch of the CUDA turbulence kernel over every lane of
+    ``px, py, pz`` (any shape, f32 or f64 CUDA tensors). Returns a tensor of
+    their shape. Launches on the current stream and does not synchronise.
+    CPU tensors are refused: the caller picks the plain version for those."""
+    dev, dtype = _check(ranvec, (perm_x, perm_y, perm_z), (px, py, pz))
+    if dev.type != "cuda":
+        raise ValueError(f"turbulence_kernel needs CUDA tensors, got {dev}")
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+    from ..runtime import kernels
+
+    flat = [p.reshape(-1).contiguous() for p in (px, py, pz)]
+    rv = ranvec.detach().to(dtype).t().contiguous()          # (3, 256)
+    perms = torch.stack([q.to(torch.int32) for q in (perm_x, perm_y, perm_z)]
+                        ).contiguous()                         # (3, 256)
+    out = torch.empty(flat[0].shape, dtype=dtype, device=dev)
+    R = flat[0].numel()
+    if R:
+        lib = kernels.load()
+        with torch.cuda.device(dev):
+            err = lib.rt_perlin_launch(
+                rv.data_ptr(), perms.data_ptr(), *[f.data_ptr() for f in flat],
+                R, int(depth), int(dtype == torch.float64), out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        LAUNCHES["perlin_kernel"] += 1
+        kernels.check(err, "perlin kernel")
+    return out.reshape(px.shape)
+
+
+def turbulence_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
+                     depth: int = DEPTH) -> torch.Tensor:
+    """Plain version of ``turbulence_kernel`` (ops/perlin.py)."""
+    return perlin.turbulence_c(ranvec.to(px.dtype), perm_x, perm_y, perm_z,
+                               px, py, pz, depth=depth)
+
+
+class _Turbulence(torch.autograd.Function):
+    @staticmethod
+    def forward(ranvec, perm_x, perm_y, perm_z, px, py, pz, depth):
+        if px.device.type == "cpu":
+            return turbulence_plain(ranvec, perm_x, perm_y, perm_z, px, py,
+                                    pz, depth)
+        return turbulence_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
+                                 depth)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ranvec, perm_x, perm_y, perm_z, px, py, pz, depth = inputs
+        ctx.depth = depth
+        ctx.save_for_backward(ranvec, perm_x, perm_y, perm_z, px, py, pz)
+
+    @staticmethod
+    def backward(ctx, g):
+        ranvec, perm_x, perm_y, perm_z, px, py, pz = ctx.saved_tensors
+        want = [ctx.needs_input_grad[i] for i in (0, 4, 5, 6)]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(w)
+                      for t, w in zip((ranvec, px, py, pz), want)]
+            out = turbulence_plain(leaves[0], perm_x, perm_y, perm_z,
+                                   *leaves[1:], ctx.depth)
+            asked = [t for t, w in zip(leaves, want) if w]
+            got = iter(torch.autograd.grad(out, asked, g, allow_unused=True)
+                       if asked else ())
+        d_rv, d_px, d_py, d_pz = [next(got) if w else None for w in want]
+        return d_rv, None, None, None, d_px, d_py, d_pz, None
+
+
+def turbulence(ranvec, perm_x, perm_y, perm_z, px, py, pz,
+               depth: int = DEPTH) -> torch.Tensor:
+    """Exact table Perlin turbulence (perlin.rs:52-64) of component-form
+    positions: the CUDA kernel on a GPU, its plain version on the CPU; equal
+    bit for bit. Differentiable w.r.t. ``ranvec`` and the positions."""
+    _check(ranvec, (perm_x, perm_y, perm_z), (px, py, pz))
+    return _Turbulence.apply(ranvec, perm_x, perm_y, perm_z, px, py, pz,
+                             depth)

@@ -3,14 +3,18 @@
 PyTorch counterpart of rust_tracing_tpu/renderer.py. ``render`` keeps the
 reference's auto policy (fused kernel for the scenes it supports, sorted
 wavefront for big scenes, deferred shading for image/noise scenes); the
-branches that are not ported yet raise NotImplementedError naming what is
-missing and never route to another path silently.
+branch that is not ported yet (the sorted wavefront) raises
+NotImplementedError naming what is missing and never routes to another path
+silently.
 
 The fused path is the same on both devices: a scene on a CUDA device renders
 through the hand-written CUDA kernel, a scene on the CPU through the kernel's
 plain PyTorch version (ops/megakernel.py). ``use_megakernel=False``, a custom
 ``hit_fn`` or float64 take the tensor integrator (ops/integrator.py) over
 pixel chunks (``render_chunk``), the estimator the gradient differentiates.
+Deferred shading (``render_deferred``) records the winners with the recorder
+kernel and shades them with the differentiable replay (ops/replay.py): the
+same estimator as the tensor integrator, bit for bit.
 """
 
 from __future__ import annotations
@@ -105,10 +109,51 @@ def use_deferred_default(scene) -> bool:
 
 def render_deferred(scene, camera: Camera, seed: int = 0,
                     spp: Optional[int] = None,
-                    max_depth: Optional[int] = None, sample_offset: int = 0):
-    raise NotImplementedError(
-        "deferred shading (path recorder kernel + replay shading, the path "
-        "for image and noise textures) is not ported yet")
+                    max_depth: Optional[int] = None, sample_offset: int = 0
+                    ) -> Tuple[np.ndarray, RenderStats]:
+    """Deferred-shading render: the recorder (ops/megakernel.record_paths,
+    kernel B2 on a GPU) runs the search and writes every bounce's winner,
+    then the replay (grad.radiance_mean_replay_rays) shades the recorded
+    winners at full fidelity: full-resolution image textures and the exact
+    Perlin table turbulence (kernel B7 on a GPU). The image equals the
+    tensor integrator's (``use_megakernel=False``) bit for bit.
+
+    spp is cut into slices whose records stay under
+    ``grad.RECORD_BUDGET_ENTRIES``; slice means are added with weight
+    ``k/spp``. The ray count is an exact int64."""
+    from . import grad as grad_mod
+
+    spp = spp or camera.samples_per_pixel
+    max_depth = max_depth or camera.max_depth
+    w, h = camera.image_width, camera.image_height
+    n_pix = w * h
+    dev = scene.device
+    cam = camera.constants(torch.float32, device=dev)
+    pixel_ids = torch.arange(n_pix, dtype=torch.int32, device=dev)
+    spp_chunk = max(1, min(
+        spp, grad_mod.RECORD_BUDGET_ENTRIES // (max_depth * n_pix)))
+
+    t0 = _time.perf_counter()
+    acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    rays = 0
+    with torch.no_grad():
+        for c0 in range(0, spp, spp_chunk):
+            k = min(spp_chunk, spp - c0)
+            recs = megakernel.record_paths(scene, camera, seed, k, max_depth,
+                                           sample_offset=sample_offset + c0)
+            m, nb = grad_mod.radiance_mean_replay_rays(
+                scene, cam, pixel_ids, seed, recs, k, max_depth,
+                sample_base=sample_offset + c0)
+            del recs
+            acc = acc + m * (k / spp)
+            rays += int(nb)
+    # int(nb) copies each slice's count to the host, which waits for it
+    image = acc.cpu().numpy().astype(np.float64).reshape(h, w, 3)
+    stats = RenderStats(seconds=_time.perf_counter() - t0, rays=rays)
+    metrics.emit("render", path="deferred", device=str(dev), spp=spp,
+                 width=w, height=h, seconds=stats.seconds, rays=stats.rays,
+                 rays_per_sec=stats.rays_per_sec)
+    return image, stats
 
 
 def render(scene, camera: Camera, seed: int = 0, spp: Optional[int] = None,

@@ -28,7 +28,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("render_kernel.cu", "gather_kernel.cu")
+SOURCES = ("render_kernel.cu", "gather_kernel.cu", "perlin_kernel.cu")
 HEADERS = ("hashrng.cuh",)
 LIB_NAME = "librt_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -36,7 +36,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC")
 
 LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "gather_kernel": 0,
-            "gather_cols_kernel": 0, "scatter_sum_kernel": 0}
+            "gather_cols_kernel": 0, "scatter_sum_kernel": 0,
+            "segment_sum_kernel": 0, "perlin_kernel": 0}
 
 _lib = None
 build_seconds = None  # seconds the last build in this process took
@@ -105,8 +106,9 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # 10 scene tables, params (host pointer), out_rgb, out_n, stream
-        lib.rt_render_launch.argtypes = [vp] * 10 + [vp, vp, vp, vp]
+        # 10 scene tables, img_f, params (host pointer), out_rgb, out_n,
+        # stream
+        lib.rt_render_launch.argtypes = [vp] * 10 + [vp, vp, vp, vp, vp]
         lib.rt_render_launch.restype = ci
         # 10 scene tables, params (host pointer), out_rec, stream
         lib.rt_record_launch.argtypes = [vp] * 10 + [vp, vp, vp]
@@ -121,6 +123,14 @@ def load() -> ctypes.CDLL:
         lib.rt_scatter_sum_launch.argtypes = [vp, vp, cll, ci, ci, ci, ci,
                                               cll, vp, vp, vp]
         lib.rt_scatter_sum_launch.restype = ci
+        # ct, sidx, perm, R, n, K, is_double, out, stream
+        lib.rt_segment_sum_launch.argtypes = [vp, vp, vp, cll, ci, ci, ci, vp,
+                                              vp]
+        lib.rt_segment_sum_launch.restype = ci
+        # rv, perm, px, py, pz, R, depth, is_double, out, stream
+        lib.rt_perlin_launch.argtypes = [vp, vp, vp, vp, vp, cll, ci, ci, vp,
+                                         vp]
+        lib.rt_perlin_launch.restype = ci
         lib.rt_error_string.argtypes = [ci]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -22,7 +22,7 @@ from rust_tracing_tpu import grad as jgrad
 from rust_tracing_tpu_torch import cli
 from rust_tracing_tpu_torch import grad as tg
 from rust_tracing_tpu_torch.models.compile import grad_to_numpy
-from torch_port_helpers import both
+from torch_port_helpers import both, texture_builder
 
 W = [1.0, 2.0, 0.5]
 
@@ -141,6 +141,96 @@ def test_autodiff_matches_finite_differences(index):
     _, g = tg.loss_and_grad(scene, cam, loss_fn, seed=3, spp=8, max_depth=4,
                             dtype=torch.float64)
     ad = float(g.tex_rgb[index])
+    assert fd != 0.0 and np.isfinite(ad)
+    assert abs(fd - ad) <= max(0.03 * max(abs(fd), abs(ad)), 1e-7)
+
+
+def test_texture_replay_gradient_equals_direct():
+    """Every texture family (noise, image, checkers with noise and image
+    children): the record/replay gradient (the recorder's plain version, the
+    turbulence Function's backward, the image gather's reduction) equals the
+    direct estimator's, every leaf within 1e-6 of its largest |g| (the
+    replay reduces some broadcasts in another shape, test_torch_replay.py),
+    and the image, Perlin table and noise-scale gradients are non-zero."""
+    b, s = texture_builder(T)
+    s = dataclasses.replace(s, image_width=10, samples_per_pixel=2)
+    scene = T.compile_scene(b, device="cpu")
+    cam = T.Camera.create(s)
+
+    def loss_fn(im, p):
+        return torch.mean(im * torch.tensor(W))
+
+    l1, g1 = tg.loss_and_grad(scene, cam, loss_fn, seed=2)
+    l2, g2 = tg.loss_and_grad(scene, cam, loss_fn, seed=2,
+                              use_recorder=False)
+    np.testing.assert_allclose(float(l1), float(l2), rtol=1e-6)
+    a, r = grad_to_numpy(g1), grad_to_numpy(g2)
+    for f in a:
+        scale = max(np.abs(r[f]).max(), 1e-30)
+        np.testing.assert_allclose(a[f], r[f], rtol=0, atol=1e-6 * scale,
+                                   err_msg=f)
+    for f in ("image", "perlin_ranvec", "tex_noise_scale", "sph_center"):
+        assert np.isfinite(a[f]).all() and np.abs(a[f]).max() > 0, f
+
+
+def _mini_cornell_noise():
+    """tests/test_grad.py::_mini_cornell at a smaller frame: a marble back
+    wall, a checker floor and a marble sphere, where the continuous channel
+    geometry -> hit point -> marble makes geometry gradients non-zero."""
+    b = T.SceneBuilder(background=(0.0, 0.0, 0.0))
+    marble = b.lambertian(b.noise_texture(2.0))
+    checker = b.lambertian(b.checker_texture(0.5, (0.8, 0.8, 0.2),
+                                             (0.1, 0.1, 0.4)))
+    red = b.lambertian((0.65, 0.05, 0.05))
+    b.add_quad((-2, -2, 4), (4, 0, 0), (0, 4, 0), marble)
+    b.add_quad((-2, -2, 0), (0, 0, 4), (0, 4, 0), red)
+    b.add_quad((-2, -2, 0), (4, 0, 0), (0, 0, 4), checker)
+    b.add_quad((-1, 1.9, 1), (2, 0, 0), (0, 0, 2), b.diffuse_light((6, 6, 6)))
+    b.add_sphere((0.3, -1.2, 2.0), 0.8, b.lambertian(b.noise_texture(3.0)))
+    settings = T.RenderSettings(
+        aspect_ratio=1.0, image_width=12, samples_per_pixel=4, max_depth=3,
+        vfov=60.0, look_from=(0.0, 0.0, -3.0), look_at=(0.0, 0.0, 2.0),
+        background=(0.0, 0.0, 0.0))
+    return b, settings
+
+
+@pytest.mark.parametrize("field,index", [("sph_center", (0, 0)),
+                                         ("tex_noise_scale", (0,))],
+                         ids=["sphere_x", "marble_scale"])
+def test_noise_gradient_matches_finite_differences(field, index):
+    """float64 central differences through the marble texture (the
+    turbulence Function's backward into the hit point, and the noise scale),
+    with the jump masking of test_autodiff_matches_finite_differences."""
+    b, s = _mini_cornell_noise()
+    scene = T.compile_scene(b, dtype=torch.float64, device="cpu")
+    cam = T.Camera.create(s)
+    c = cam.constants(torch.float64, device="cpu")
+    n = cam.image_width * cam.image_height
+    pid = torch.arange(n, dtype=torch.int32)
+    eps = 1e-6
+
+    def render(sc):
+        with torch.no_grad():
+            return tg.radiance_mean(sc, c, pid, 3, 4, 3).numpy()
+
+    arr = getattr(scene, field).numpy().copy()
+    up, dn = arr.copy(), arr.copy()
+    up[index] += eps
+    dn[index] -= eps
+    img_p = render(scene.replace(**{field: torch.from_numpy(up)}))
+    img_m = render(scene.replace(**{field: torch.from_numpy(dn)}))
+    jump = np.abs(img_p - img_m).max(-1) > 300 * eps
+    assert (~jump).sum() >= 0.95 * jump.size
+    fd = float(((img_p - img_m) / (2 * eps))[~jump].mean())
+    mask = torch.from_numpy((~jump).astype(np.float64))
+    n_keep = float(mask.sum())
+
+    def loss_fn(img, p):
+        return torch.sum(img * mask[:, None]) / (n_keep * 3)
+
+    _, g = tg.loss_and_grad(scene, cam, loss_fn, seed=3, spp=4, max_depth=3,
+                            dtype=torch.float64)
+    ad = float(getattr(g, field)[index])
     assert fd != 0.0 and np.isfinite(ad)
     assert abs(fd - ad) <= max(0.03 * max(abs(fd), abs(ad)), 1e-7)
 

@@ -136,7 +136,8 @@ def test_params_mirror_kernel_struct_and_validate():
     assert tmk._packed_dev(scene)[1] is tables  # cached per scene
     p = tmk.make_params(cam, packed, -3, 2, 5, sample_offset=9, pixel_base=4,
                         pixel_count=10)
-    assert ctypes.sizeof(p) == 33 * 4  # 21 floats + 12 ints, no padding
+    assert ctypes.sizeof(p) == 37 * 4  # 21 floats + 16 ints, no padding
+    assert (p.has_noise, p.has_image, p.img_h, p.img_w) == (0, 0, 1, 1)
     assert (p.seed, p.spp, p.max_depth, p.sample_offset) == (-3, 2, 5, 9)
     assert (p.n_spheres, p.n_quads, p.n_media) == (0, 6, 2)
     assert tmk.make_params(cam, packed, 0xFFFFFFFD, 1, 1).seed == -3
@@ -148,12 +149,20 @@ def test_params_mirror_kernel_struct_and_validate():
 
 
 @pytest.mark.parametrize("name", ["two_perlin_spheres", "earth"])
-def test_noise_and_image_families_raise(name):
+def test_noise_and_image_families_render(name):
+    """The fused render's own noise and image families (hash-lattice
+    turbulence, the image mip at a polynomial sphere UV) render finite
+    pixels, and every ray is counted."""
     b, s = getattr(tbuilders, name)()
     cam = T.Camera.create(dataclasses.replace(s, image_width=8,
                                               samples_per_pixel=1))
-    with pytest.raises(NotImplementedError, match="noise and image"):
-        tmk.render_fast(T.compile_scene(b, device="cpu"), cam)
+    scene = T.compile_scene(b, device="cpu")
+    packed, _ = tmk._packed_dev(scene)
+    assert packed.has_noise == (name == "two_perlin_spheres")
+    assert packed.has_image == (name == "earth")
+    img, rays = tmk.render_fast(scene, cam, with_stats=True)
+    assert img.shape == (4, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0.05 and rays >= 32
 
 
 def test_bvh_sized_scene_raises():

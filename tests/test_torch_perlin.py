@@ -1,0 +1,131 @@
+"""The port's Perlin noise (ops/perlin.py) and its turbulence Function
+(ops/perlin_fused.py, whose CPU forward is the plain version of the CUDA
+kernel) against the JAX package on the CPU.
+
+Tolerances and their reasons. Values: the JAX functions run unjitted (op by
+op, as the reference's own primitive evaluates on the CPU), so both sides do
+the same f32 operations in the same order and agree bit for bit; the
+float64 oracle of tests/oracles.py to 1e-5 (f32 rounding of a 7-octave
+sum). Gradients: the backward sums of the two frameworks (the transpose of
+each table gather, the octave chain) add in different orders, so each input's
+gradient agrees within 1e-5 of its largest |g|; the float64 gradcheck holds
+the Function's backward against its own finite differences."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import oracles
+from rust_tracing_tpu.ops import perlin as jperlin
+from rust_tracing_tpu.ops import perlin_tpu
+from rust_tracing_tpu_torch.ops import perlin as tperlin
+from rust_tracing_tpu_torch.ops import perlin_fused
+
+N = 512
+
+
+@pytest.fixture(scope="module")
+def tables():
+    rv, px, py, pz = tperlin.make_tables(3)
+    return rv.astype(np.float32), px, py, pz
+
+
+def _points(seed, scale, n=N):
+    rng = np.random.default_rng(seed)
+    return rng.uniform(-scale, scale, (3, n)).astype(np.float32)
+
+
+def _torch_tabs(tables):
+    rv, px, py, pz = tables
+    return (torch.from_numpy(rv),) + tuple(torch.from_numpy(q)
+                                           for q in (px, py, pz))
+
+
+def test_make_tables_equal_reference():
+    for a, b in zip(tperlin.make_tables(7), jperlin.make_tables(7)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("scale", [2.0, 300.0], ids=["cells", "wide"])
+def test_noise_and_turbulence_match_jax(tables, scale):
+    """Negative lattice cells and final_scene's coordinate range: bitwise
+    against the reference's noise_c and its turbulence primitive
+    (perlin_tpu.turbulence, which on the CPU evaluates perlin.turbulence_c
+    op by op)."""
+    p = _points(1, scale)
+    tt, tp = _torch_tabs(tables), [torch.from_numpy(a) for a in p]
+    jt, jp = [jnp.asarray(a) for a in tables], [jnp.asarray(a) for a in p]
+    with jax.disable_jit():
+        ref_n = np.asarray(jperlin.noise_c(*jt, *jp))
+    ref_t = np.asarray(perlin_tpu.turbulence(*jt, *jp))
+    np.testing.assert_array_equal(tperlin.noise_c(*tt, *tp).numpy(), ref_n)
+    got = perlin_fused.turbulence(*tt, *tp)
+    np.testing.assert_array_equal(got.numpy(), ref_t)
+    np.testing.assert_array_equal(
+        tperlin.turbulence(tt[0], *tt[1:], torch.from_numpy(p.T.copy())
+                           ).numpy(), ref_t)
+
+
+def test_turbulence_matches_oracle(tables):
+    rv, px, py, pz = tables
+    p = _points(2, 5.0, 64)
+    got = perlin_fused.turbulence(*_torch_tabs(tables),
+                                  *[torch.from_numpy(a) for a in p]).numpy()
+    ref = [oracles.perlin_turbulence(rv.astype(np.float64), px, py, pz,
+                                     p[:, i].astype(np.float64))
+           for i in range(p.shape[1])]
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_turbulence_gradients_match_jax(tables):
+    """The Function's backward (the plain version's gradient) against
+    jax.vjp of the reference's turbulence_c, w.r.t. the gradient table and
+    the three position components. Three octaves: the octave loop is the
+    same code at every depth, and each octave costs the unjitted reference
+    a few hundred dispatches."""
+    rv, px, py, pz = tables
+    p = _points(4, 3.0)
+    ct = np.random.default_rng(5).normal(size=N).astype(np.float32)
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda r, x, y, z: jperlin.turbulence_c(
+            r, jnp.asarray(px), jnp.asarray(py), jnp.asarray(pz), x, y, z,
+            depth=3), jnp.asarray(rv), *[jnp.asarray(a) for a in p])
+        ref = [np.asarray(g) for g in vjp(jnp.asarray(ct))]
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (rv, p[0], p[1], p[2])]
+    out = perlin_fused.turbulence(leaves[0], torch.from_numpy(px),
+                                  torch.from_numpy(py), torch.from_numpy(pz),
+                                  *leaves[1:], depth=3)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(ct))
+    for name, g, r in zip(("ranvec", "px", "py", "pz"), got, ref):
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+
+
+def test_turbulence_gradcheck_float64(tables):
+    """float64 finite differences of the Function on 16 lanes, w.r.t. the
+    gradient table and the positions (a random projection of the Jacobian,
+    gradcheck's fast mode)."""
+    rv, px, py, pz = tables
+    p = _points(6, 2.0, 16).astype(np.float64)
+    args = [torch.from_numpy(rv.astype(np.float64)).requires_grad_(),
+            torch.from_numpy(px), torch.from_numpy(py), torch.from_numpy(pz)]
+    args += [torch.from_numpy(a).requires_grad_() for a in p]
+    assert torch.autograd.gradcheck(perlin_fused.turbulence, tuple(args),
+                                    fast_mode=True, eps=1e-6, atol=1e-6)
+
+
+def test_turbulence_kernel_refuses_cpu_tensors(tables):
+    """The kernel wrapper launches or raises; a CPU tensor never reaches
+    it through the Function, which runs the plain version."""
+    tt = _torch_tabs(tables)
+    p = [torch.zeros(4) for _ in range(3)]
+    before = dict(perlin_fused.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        perlin_fused.turbulence_kernel(*tt, *p)
+    perlin_fused.turbulence(*tt, *p)
+    assert perlin_fused.LAUNCHES == before
+    with pytest.raises(TypeError, match="f32 or f64"):
+        perlin_fused.turbulence(*tt, *[q.half() for q in p])

@@ -1,6 +1,7 @@
 """The forward render as a whole: ``render`` of the port on the CPU against the JAX
-package's ``render``, the progressive renderer, the CLI, the branches that are
-not ported yet, and the port's independence from JAX."""
+package's ``render``, the progressive renderer, the CLI, deferred shading of
+the noise and image scenes, the branches that are not ported yet, and the
+port's independence from JAX."""
 
 import dataclasses
 import os
@@ -15,7 +16,7 @@ import rust_tracing_tpu as J
 import rust_tracing_tpu_torch as T
 from rust_tracing_tpu_torch import cli, renderer
 from rust_tracing_tpu_torch.models import builders as tbuilders
-from torch_port_helpers import assert_images_agree, both
+from torch_port_helpers import MARBLE_PIX_TOL, assert_images_agree, both
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -108,29 +109,36 @@ def _big_scene():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("use_megakernel_false", "noise textures in the tensor integrator"),
     ("hit_fn", "closest_hit_bvh"),
-    ("float64", "image textures in the tensor integrator"),
-    ("deferred_noise", "deferred shading"),
-    ("deferred_image", "deferred shading"),
-    ("render_deferred", "deferred shading"),
     ("wavefront", "sorted deferred wavefront"),
-    ("fused_noise", "noise and image"),
 ])
 def test_unported_branches_raise(case, match):
     """Every branch that is not ported yet names what is missing; none
-    routes to another path silently. The tensor integrator (use_megakernel
-    False, float64) serves solid and checker textures; noise and image
-    textures wait for their slice, and a BVH scene's default hit function
-    (the one a custom hit_fn replaces) for the BVH slice."""
+    routes to another path silently: a BVH scene's default hit function (the
+    one a custom hit_fn replaces) and the sorted wavefront wait for the BVH
+    slice."""
     scene, cam = _small()
+    kw = {}
+    if case == "hit_fn":
+        b, _ = tbuilders.cornell_box()
+        scene = T.compile_scene(b, use_bvh=True, device="cpu")
+        kw = dict(use_megakernel=False)
+    elif case == "wavefront":
+        scene = _big_scene()
+    with pytest.raises(NotImplementedError, match=match):
+        T.render(scene, cam, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", [
+    "use_megakernel_false", "float64", "deferred_noise", "deferred_image",
+    "render_deferred", "fused_noise"])
+def test_texture_branches_render(case):
+    """The noise and image families render on every path of the port: the
+    tensor integrator (f32 and float64), deferred shading under the auto
+    policy and called directly, and the fused kernel's own noise."""
     kw = {}
     if case == "use_megakernel_false":
         scene, cam = _small("two_perlin_spheres")
-        kw = dict(use_megakernel=False)
-    elif case == "hit_fn":
-        b, _ = tbuilders.cornell_box()
-        scene = T.compile_scene(b, use_bvh=True, device="cpu")
         kw = dict(use_megakernel=False)
     elif case == "float64":
         b, s = tbuilders.earth()
@@ -139,18 +147,83 @@ def test_unported_branches_raise(case, match):
         scene = T.compile_scene(b, dtype=torch.float64, device="cpu")
         cam = T.Camera.create(s)
         kw = dict(dtype=torch.float64)
-    elif case in ("deferred_noise", "fused_noise"):
+    elif case in ("deferred_noise", "fused_noise", "render_deferred"):
         scene, cam = _small("two_perlin_spheres")
         kw = dict(use_megakernel=True) if case == "fused_noise" else {}
     elif case == "deferred_image":
         scene, cam = _small("earth")
-    elif case == "wavefront":
-        scene = _big_scene()
-    with pytest.raises(NotImplementedError, match=match):
-        if case == "render_deferred":
-            renderer.render_deferred(scene, cam)
-        else:
-            T.render(scene, cam, device="cpu", **kw)
+    if case == "render_deferred":
+        img, stats = renderer.render_deferred(scene, cam)
+    else:
+        img, stats = T.render(scene, cam, device="cpu", **kw)
+    assert img.shape == (cam.image_height, cam.image_width, 3)
+    assert np.isfinite(img).all() and img.mean() > 0.05
+    assert stats.rays >= cam.image_width * cam.image_height
+
+
+@pytest.fixture(scope="module")
+def texture_scenes():
+    return {name: _small(name, spp=3)
+            for name in ("two_perlin_spheres", "simple_light", "earth")}
+
+
+@pytest.mark.parametrize("name", ["two_perlin_spheres", "simple_light",
+                                  "earth"])
+def test_deferred_equals_tensor_integrator(texture_scenes, name):
+    """Deferred shading (recorder + replay) is the tensor integrator's
+    estimator: images and ray counts equal bit for bit, as replay equals
+    direct in the reference. The auto policy takes it for these scenes. The
+    tensor render divides its f32 sample sums by spp in float64 on the host,
+    deferred shading in f32, so the two images are equal as f32."""
+    scene, cam = texture_scenes[name]
+    assert renderer.use_deferred_default(scene)
+    img, stats = T.render(scene, cam, seed=4, device="cpu")
+    direct, dstats = T.render(scene, cam, seed=4, device="cpu",
+                              use_megakernel=False)
+    np.testing.assert_array_equal(img.astype(np.float32),
+                                  direct.astype(np.float32))
+    assert stats.rays == dstats.rays
+
+
+def test_deferred_matches_jax_direct_estimator():
+    """Against the reference's direct estimator (its deferred path's
+    contract), on a scene of every texture family: the image on a sphere,
+    the marble on a far ground sphere, checkers with noise and image
+    children. The marble carries XLA's contracted argument
+    (torch_port_helpers.MARBLE_PIX_TOL)."""
+    import jax.numpy as jnp
+
+    from rust_tracing_tpu import grad as jgrad
+
+    jscene, jcam, tscene, tcam = both("textures", image_width=16,
+                                      samples_per_pixel=2, max_depth=3)
+    n_pix = tcam.image_width * tcam.image_height
+    ref, ref_rays = jgrad.radiance_mean_rays(
+        jscene, jcam.constants(jnp.float32),
+        jnp.arange(n_pix, dtype=jnp.int32), jnp.uint32(3), 2, 3)
+    img, stats = T.render(tscene, tcam, seed=3, device="cpu")
+    assert renderer.use_deferred_default(tscene)
+    assert_images_agree(img.reshape(-1, 3), np.asarray(ref), stats.rays,
+                        int(float(ref_rays)), pix_tol=MARBLE_PIX_TOL)
+
+
+def test_progressive_deferred_equals_offline(texture_scenes):
+    """Progressive steps of a noise scene go through deferred shading with
+    a sample offset and accumulate the offline render's sample set."""
+    scene, cam = texture_scenes["simple_light"]
+    st = T.progressive_init(cam, seed=2)
+    for _ in range(3):
+        st = T.progressive_step(scene, cam, st, samples=1, device="cpu")
+    offline, _ = T.render(scene, cam, seed=2, spp=3, device="cpu")
+    np.testing.assert_allclose(st.accum, offline, rtol=3e-6, atol=3e-7)
+
+
+def test_cli_renders_texture_scene_on_cpu(tmp_path, capsys):
+    out = str(tmp_path / "simple_light")
+    rc = cli.main(["-s", "5", "--device", "cpu", "--width", "32", "--spp",
+                   "4", "-o", out])
+    assert rc == 0 and os.path.exists(out + ".png")
+    assert "Mrays/s" in capsys.readouterr().out
 
 
 def test_scene_on_other_device_is_refused():
@@ -198,6 +271,7 @@ def test_port_imports_without_jax():
         "import rust_tracing_tpu_torch as T\n"
         "from rust_tracing_tpu_torch import cli, renderer, camera, grad\n"
         "from rust_tracing_tpu_torch.ops import megakernel, hashrng, perlin\n"
+        "from rust_tracing_tpu_torch.ops import perlin_fused\n"
         "from rust_tracing_tpu_torch.ops import linalg, lanegather, tgather\n"
         "from rust_tracing_tpu_torch.ops import intersect, textures\n"
         "from rust_tracing_tpu_torch.ops import materials, integrator, replay\n"

@@ -134,6 +134,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     col, idx = torch.arange(4.0), torch.tensor([1, 2], dtype=torch.int32)
     for call in (lambda: lg.gather_kernel(col, idx),
                  lambda: lg.gather_cols_kernel(col[None], idx),
-                 lambda: lg.scatter_sum_kernel(col[None, :2], idx, 4)):
+                 lambda: lg.scatter_sum_kernel(col[None, :2], idx, 4),
+                 lambda: lg.segment_sum_kernel(col[None, :2], idx, 4)):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             call()

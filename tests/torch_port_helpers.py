@@ -55,12 +55,36 @@ def mixed_builder(M):
     return b, s
 
 
+def texture_builder(M):
+    """Every texture family: solid, noise, image, and checkers whose
+    children are noise, image and solid; a sphere each (image on a
+    sphere, as the fused kernel requires)."""
+    img = (np.arange(8 * 16 * 3).reshape(8, 16, 3) * 11 % 256).astype(
+        np.uint8)
+    b = M.SceneBuilder(background=(0.5, 0.6, 0.9))
+    noise = b.noise_texture(2.0)
+    image = b.image_texture(img)
+    b.add_sphere((0, 0, 2), 1.0, b.lambertian(image))
+    b.add_sphere((0, -101, 2), 100.0, b.lambertian(noise))
+    b.add_sphere((1.6, 0.2, 2.6), 0.6,
+                 b.lambertian(b.checker_texture(0.4, noise, (0.8, 0.2, 0.1))))
+    b.add_sphere((-1.5, 0.1, 2.4), 0.5,
+                 b.lambertian(b.checker_texture(0.3, (0.1, 0.7, 0.2), image)))
+    b.add_sphere((0.2, 1.4, 2.8), 0.4, b.diffuse_light((4.0, 4.0, 4.0)))
+    s = M.RenderSettings(
+        image_width=16, aspect_ratio=1.0, samples_per_pixel=2, max_depth=3,
+        vfov=70.0, look_from=(0, 0, 0), look_at=(0, 0, 2),
+        background=(0.5, 0.6, 0.9))
+    return b, s
+
+
 def both(name, **overrides):
     """(jax scene, jax camera, torch scene, torch camera) for a named scene
-    ('mixed' or a builder name) at a small size."""
-    if name == "mixed":
-        jb, js = mixed_builder(J)
-        tb, ts = mixed_builder(T)
+    ('mixed', 'textures' or a builder name) at a small size."""
+    if name in ("mixed", "textures"):
+        make = mixed_builder if name == "mixed" else texture_builder
+        jb, js = make(J)
+        tb, ts = make(T)
     else:
         jb, js = getattr(jbuilders, name)()
         tb, ts = getattr(tbuilders, name)()
@@ -82,13 +106,23 @@ PIX_ATOL, PIX_RTOL = 1e-5, 1e-5
 MAX_DIVERGED_SHARE = 0.02
 MAX_MEAN_RATIO_ERR = 1e-3
 
+# Per-pixel tolerance for the noise (marble) texture against JIT-compiled
+# JAX. XLA's CPU compiler contracts the marble's argument scale*z + 10*turb
+# into one fused multiply-add, which the port (like its CUDA kernels) never
+# does. On a far ground sphere |scale*z| reaches ~1e3, where one ulp of the
+# argument is 6e-5: sin carries it into the texture and the throughput.
+# Measured: 1.1e-4 at most on two_perlin_spheres at 16 px; no path diverges.
+MARBLE_PIX_TOL = 1e-3
 
-def assert_images_agree(img, ref, rays=None, ref_rays=None):
+
+def assert_images_agree(img, ref, rays=None, ref_rays=None, pix_tol=None):
     img = np.asarray(img, np.float64)
     ref = np.asarray(ref, np.float64)
     assert img.shape == ref.shape
     assert np.isfinite(img).all()
-    beyond = (np.abs(img - ref) > PIX_ATOL + PIX_RTOL * np.abs(ref)).any(-1)
+    atol, rtol = (PIX_ATOL, PIX_RTOL) if pix_tol is None else (pix_tol,
+                                                                pix_tol)
+    beyond = (np.abs(img - ref) > atol + rtol * np.abs(ref)).any(-1)
     assert beyond.mean() <= MAX_DIVERGED_SHARE, (
         f"{beyond.sum()} of {beyond.size} pixels beyond tolerance")
     assert abs(img.mean() / ref.mean() - 1.0) <= MAX_MEAN_RATIO_ERR
