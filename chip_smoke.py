@@ -40,6 +40,29 @@ Phases:
   profile    device time by kernel of one grad_path run (torch.profiler)
   train      fit_scene() on cornell_box 600x600 @ 16 spp: the loss falls
   grad_check the CLI's --grad-check on the card
+  BVH slice (final_scene):
+  kernels    the render kernel and the recorder with the BVH walk (B4) against
+             their plain versions (which test every primitive) on
+             final_scene at 64 px and 200x200 (depth 40) and on random_balls
+             with a forced tree; the hit kernel (B3) against its plain
+             version on final_scene's 800x800 camera rays (bounce 0) and on
+             the sorted lanes of a wavefront chunk (bounce 1), and on
+             cornell_box's 600x600 camera rays without a tree; B3's time on
+             a whole chunk (4 spp x 800x800 lanes) at bounce 0 and at bounce
+             8, sorted, sorted and cut to its live prefix, and unsorted
+  crossover  the render kernel brute force against the BVH walk at 4 spp:
+             random_balls 600x337 and final_scene 200x200 (depth 40)
+  wavefront_path
+             on final_scene 64 px: render() (auto: the sorted wavefront),
+             render_sorted(sort=False), render_sorted with compaction at
+             every segment, the tensor integrator and render_deferred, all
+             equal bit for bit; then render() of final_scene at 800x800,
+             depth 40, 32 spp, and the fused render (B1+B4+B8) of the same
+             frame with its bound from its walk counters
+  profile    device time by kernel of one chunk of that frame (the
+             wavefront) and the device's busy share
+  grad_final loss_and_grad() of final_scene at 200x200, 4 spp, depth 8
+  cli_final  the CLI renders final_scene (-s 8) at 200x200, 8 spp
 
 Tolerances and their reasons.
 - Render kernel: built without fused multiply-add contraction and without
@@ -76,6 +99,17 @@ Tolerances and their reasons.
   tests/test_megakernel.py) and within 0.01 for earth (its mip gate).
 - grad_textures: the loss equals the deferred render's image mean at the
   same seed to rtol 1e-5 (the same estimator, another summation).
+- BVH walk (B4) in the render kernel, the recorder and the hit kernel: its
+  tie rule returns the brute loop's winner whatever order the tree visits
+  primitives in, and the plain version tests every primitive. So every
+  pixel must be equal bit for bit, every ray count and every record equal;
+  what box pruning could still drop (a hit exactly on its node box's face)
+  is counted in those numbers, not hidden by a tolerance.
+- wavefront_path: the wavefront permutes and cuts lanes and shades with the
+  replay: equal to the tensor integrator and to deferred shading bit for bit
+  (as f32) with equal ray counts. Against the fused render (hash-lattice
+  noise, mipped image) the gamma means' ratio must lie in 0.9-1.1.
+- grad_final: the loss equals the deferred render's image mean to 1e-5.
 """
 
 import contextlib
@@ -99,12 +133,15 @@ if not torch.cuda.is_available():
 import rust_tracing_tpu_torch as rt  # noqa: E402
 from rust_tracing_tpu_torch import cli  # noqa: E402
 from rust_tracing_tpu_torch import grad as tg  # noqa: E402
+from rust_tracing_tpu_torch import renderer  # noqa: E402
 from rust_tracing_tpu_torch.models import builders  # noqa: E402
 from rust_tracing_tpu_torch.ops import lanegather as lg  # noqa: E402
 from rust_tracing_tpu_torch.ops import megakernel as mk  # noqa: E402
 from rust_tracing_tpu_torch.ops import perlin  # noqa: E402
 from rust_tracing_tpu_torch.ops import perlin_fused as pf  # noqa: E402
+from rust_tracing_tpu_torch.ops import wavefront as wf  # noqa: E402
 from rust_tracing_tpu_torch.runtime import kernels  # noqa: E402
+from rust_tracing_tpu_torch.utils import metrics  # noqa: E402
 from rust_tracing_tpu_torch.utils.image_io import write_png  # noqa: E402
 
 DEVICE = "cuda"
@@ -131,6 +168,11 @@ TURB_OPS = 7 * (15 + 8 * 14)
 # gradient's scale; its marble 6 more. The image arm's polynomial UV is ~45.
 FLOP_PER_NOISE_SHADE = 7 * (15 + 8 * (14 + 3 * 11 + 3)) + 6
 FLOP_PER_IMAGE_SHADE = 45
+# The BVH walk's slab test, counted from csrc/render_kernel.cu
+# (closest_surface<MODE, true>): 6 subtractions, 6 multiplies, 12 min/max and
+# one compare a node visited. A visited leaf's primitive tests count
+# FLOP_PER_PRIM_TEST each, from the kernels' own counters.
+OPS_PER_SLAB = 25
 
 PIX_ATOL, PIX_RTOL = 1e-5, 1e-5
 MAX_DIVERGED_SHARE = 0.005
@@ -149,6 +191,10 @@ TEXTURE_SCENES = ("two_perlin_spheres", "simple_light", "earth")
 NOISE_MEAN_TOL, IMAGE_MEAN_TOL = 0.08, 0.01
 GRAD_TEX_WIDTH, GRAD_TEX_SPP = 400, 32
 SEG_ROWS = (3407, 65536, 524288)  # 524288: earth's full-resolution image
+FINAL_SPP = 32          # final_scene's frame: its own 800x800, depth 40
+CROSS_SPP = 4
+GAMMA_RATIO_TOL = 0.1   # wavefront vs the fused render's noise and mip
+DEEP_BOUNCE = 8
 # where to keep the main path's PNG for a look; unset = not kept
 OUT_DIR = os.environ.get("RT_SMOKE_OUT")
 
@@ -227,22 +273,33 @@ def bytes_bound(n_bytes):
     return n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
-def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0)):
+def search_flop(n_rays, p, walk=None):
+    """Operations of the closest-surface search of ``n_rays`` rays: every
+    primitive tested (brute), or, with ``walk`` = the BVH walk's summed
+    counters (node visits, sphere tests, quad tests) of this run, the slab
+    tests and the primitive tests it made."""
+    if walk is None:
+        return n_rays * (p.n_spheres + p.n_quads) * FLOP_PER_PRIM_TEST
+    return walk[0] * OPS_PER_SLAB + (walk[1] + walk[2]) * FLOP_PER_PRIM_TEST
+
+
+def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0), walk=None):
     """Least time the card could take for this trace: the larger of bytes
     moved (each table read once, each output written once) over the memory
     rate and operations over the float32 rate. The render writes 16 bytes a
     pixel and shades every bounce; the recorder (shade=False) writes 4 bytes
     per (pixel, sample, bounce) and shades nothing and reads no image.
     ``shades`` = (bounces shaded by a noise texture, by an image texture)
-    in this run's paths (``texture_shades``)."""
+    in this run's paths (``texture_shades``); ``walk`` as for
+    ``search_flop``."""
     n_bytes = sum(t.numel() * t.element_size() for k, t in tables.items()
                   if shade or k != "img_f")
     if shade:
         n_bytes += p.pixel_count * 16
     else:
         n_bytes += p.pixel_count * p.spp * p.max_depth * 4
-    flop = (n_rays * ((p.n_spheres + p.n_quads) * FLOP_PER_PRIM_TEST
-                      + (FLOP_PER_BOUNCE_SHADE if shade else 0))
+    flop = (search_flop(n_rays, p, walk)
+            + n_rays * (FLOP_PER_BOUNCE_SHADE if shade else 0)
             + p.pixel_count * p.spp * FLOP_PER_CAMERA_RAY
             + shades[0] * FLOP_PER_NOISE_SHADE
             + shades[1] * FLOP_PER_IMAGE_SHADE)
@@ -251,13 +308,14 @@ def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0)):
     return max(t_bytes, t_flop), ("bytes" if t_bytes > t_flop else "operations")
 
 
-def scene_inputs(name, width, spp, depth, seed=0, sample_offset=0):
+def scene_inputs(name, width, spp, depth, seed=0, sample_offset=0,
+                 use_bvh=False):
     b, settings = getattr(builders, name)()
     settings = dataclasses.replace(settings, image_width=width,
                                    samples_per_pixel=spp, max_depth=depth)
     scene = rt.compile_scene(b, device=DEVICE)
     camera = rt.Camera.create(settings)
-    packed, tables = mk._packed_dev(scene)
+    packed, tables = mk._packed_dev(scene, use_bvh)
     p = mk.make_params(camera, packed, seed, spp, depth, sample_offset)
     return scene, camera, tables, p
 
@@ -296,10 +354,20 @@ def texture_shades(tables, p):
     return tuple(counts)
 
 
-def compare(name, width, spp, depth, reps_kernel=3):
-    """Render kernel vs plain version on the card, same inputs."""
-    scene, camera, tables, p = scene_inputs(name, width, spp, depth, seed=11)
-    rgb_k, n_k = mk.render_kernel(tables, p)
+def walk_counts(counters):
+    """Summed (node visits, sphere tests, quad tests) of a counter buffer."""
+    return [int(x) for x in counters.sum(0, dtype=torch.int64).tolist()]
+
+
+def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False):
+    """Render kernel vs plain version on the card, same inputs. With
+    ``use_bvh`` the kernel walks the BVH, its counters give the bound, and
+    every pixel and ray count must be equal."""
+    scene, camera, tables, p = scene_inputs(name, width, spp, depth, seed=11,
+                                            use_bvh=use_bvh)
+    counters = torch.zeros((p.pixel_count, 3), dtype=torch.int32,
+                           device=DEVICE) if use_bvh else None
+    rgb_k, n_k = mk.render_kernel(tables, p, counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rgb_p, n_p = mk.render_fast_plain(tables, p)
@@ -314,9 +382,11 @@ def compare(name, width, spp, depth, reps_kernel=3):
     n_rays = int(n_k.sum(dtype=torch.int64).item())
     shades = texture_shades(tables, p) if (p.has_noise or p.has_image) \
         else (0, 0)
-    b_ms, b_by = bound_ms(tables, p, n_rays, shades=shades)
+    walk = walk_counts(counters) if use_bvh else None
+    b_ms, b_by = bound_ms(tables, p, n_rays, shades=shades, walk=walk)
     res = dict(
         kernel="render_kernel", has_noise=p.has_noise, has_image=p.has_image,
+        use_bvh=p.use_bvh, nodes=p.n_nodes, walk=walk,
         noise_shades=shades[0], image_shades=shades[1],
         scene=name, width=camera.image_width, height=camera.image_height,
         spp=spp, depth=depth, spheres=p.n_spheres, quads=p.n_quads,
@@ -331,6 +401,11 @@ def compare(name, width, spp, depth, reps_kernel=3):
         mean_ratio=float((rgb_k.mean() / rgb_p.mean()).item()),
         kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     say("kernels", **res)
+    if use_bvh and (res["pixels_bitwise_equal"] != p.pixel_count
+                    or res["pixels_ray_count_differs"]):
+        fail(f"{name}: the BVH walk differs from the plain search in "
+             f"{p.pixel_count - res['pixels_bitwise_equal']} pixels, ray "
+             f"counts in {res['pixels_ray_count_differs']}")
     if res["share_beyond_tol"] > MAX_DIVERGED_SHARE:
         fail(f"{name}: {res['share_beyond_tol']:.4f} of pixels beyond "
              f"tolerance (limit {MAX_DIVERGED_SHARE})")
@@ -342,19 +417,22 @@ def compare(name, width, spp, depth, reps_kernel=3):
     return res
 
 
-def compare_records(name, width, spp, depth, sample_offset, timed=False):
+def compare_records(name, width, spp, depth, sample_offset, timed=False,
+                    use_bvh=False):
     """Path recorder vs its plain version on the card: every record equal.
     With ``timed``, also the kernel's time by CUDA events and its bound,
     whose ray count comes from the render kernel's per-pixel count of the
     same paths (both trace them through the same device functions)."""
     scene, camera, tables, p = scene_inputs(name, width, spp, depth, seed=3,
-                                            sample_offset=sample_offset)
+                                            sample_offset=sample_offset,
+                                            use_bvh=use_bvh)
     rec_k = mk.record_kernel(tables, p)
     torch.cuda.synchronize()
     rec_p, plain_ms = once_ms(lambda: mk.record_paths_plain(tables, p))
     differ = int((rec_k != rec_p).sum().item())
     res = dict(kernel="record_kernel", scene=name, width=camera.image_width,
                height=camera.image_height, spp=spp, depth=depth,
+               use_bvh=p.use_bvh,
                sample_offset=sample_offset, records=rec_k.numel(),
                records_differ=differ,
                nonzero=int((rec_k != 0).sum().item()),
@@ -546,6 +624,348 @@ def compare_perlin(reps=10):
     if res["differ"] or not same64 or not res["finite"]:
         fail(f"perlin_kernel: {res['differ']} of {TURB_LANES} lanes differ "
              f"from the plain version (f64 equal: {same64})")
+    return res
+
+
+def hit_args(lanes, n_pix, samp_base=0):
+    """The hit search's ten lane tensors of a wavefront state."""
+    pix, samp = wf.lane_ids(lanes, n_pix, samp_base)
+    return (*lanes[1:8], pix, samp, lanes.alive)
+
+
+def hit_bound_ms(tables, p, n_lanes, rays, walk):
+    """Least time of one hit-kernel launch: the larger of bytes (the tables
+    read once, 33 bytes of lane input and 4 of record a lane) over the
+    memory rate and operations (the search as ``search_flop``, plus 120 a
+    live ray for its set-up and media) over the float32 rate."""
+    n_bytes = sum(t.numel() * t.element_size() for k, t in tables.items()
+                  if k != "img_f") + n_lanes * (7 * 4 + 4 + 4 + 1 + 4)
+    flop = search_flop(rays, p, walk) + rays * FLOP_PER_BOUNCE_SHADE
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_flop = flop / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_flop), ("bytes" if t_bytes > t_flop else "operations")
+
+
+def check_hits(label, tables, p, lanes, n_pix, bounce, compare=True,
+               timed=False):
+    """The hit kernel (B3) on a wavefront state's lanes, with its walk
+    counters. ``compare``: against its plain version on the same lanes
+    (every record equal) and on a random permutation of them (the records
+    permute). ``timed``: its time by CUDA events and the bound from the
+    counters. Returns (result, records)."""
+    args = hit_args(lanes, n_pix)
+    n = args[0].shape[0]
+    counters = torch.zeros((n, 3), dtype=torch.int32, device=DEVICE)
+    rec_k = mk.hit_kernel(tables, p, *args, bounce, counters)
+    rays = int(lanes.alive.sum().item())
+    walk = walk_counts(counters) if p.use_bvh else None
+    res = dict(kernel="hit_kernel", check=label, use_bvh=p.use_bvh,
+               lanes=n, alive=rays, bounce=bounce, walk=walk)
+    if compare:
+        torch.cuda.synchronize()
+        rec_p, plain_ms = once_ms(
+            lambda: mk.hit_records_plain(tables, p, *args, bounce))
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(bounce)
+        perm = torch.randperm(n, device=DEVICE, generator=gen)
+        rec_perm = mk.hit_kernel(tables, p,
+                                 *[a[perm].contiguous() for a in args], bounce)
+        kind = rec_k >> 24
+        res.update(
+            records_differ=int((rec_k != rec_p).sum().item()),
+            permuted_records_differ=int((rec_perm != rec_k[perm])
+                                        .sum().item()),
+            winners={"miss": int((kind == 0).sum().item()),
+                     "sphere": int((kind == 1).sum().item()),
+                     "quad": int((kind == 2).sum().item()),
+                     "medium": int((kind >= 3).sum().item())},
+            max_abs_err=float((rec_k.long() - rec_p.long()).abs().max()
+                              .item()),
+            plain_ms=plain_ms)
+    if timed:
+        res["kernel_ms"] = time_ms(
+            lambda: mk.hit_kernel(tables, p, *args, bounce), 5)
+        res["bound_ms"], res["bound_by"] = hit_bound_ms(tables, p, n, rays,
+                                                        walk)
+    say("kernels", **res)
+    if compare and (res["records_differ"] or res["permuted_records_differ"]):
+        fail(f"hit_kernel ({label}): {res['records_differ']} records differ "
+             f"from the plain version, {res['permuted_records_differ']} "
+             "after a permutation")
+    return res, rec_k
+
+
+def phase_hits():
+    """B3 against its plain version on final_scene's own frame (800x800,
+    with the tree) and cornell_box's (600x600, brute); then its time on the
+    main path's first chunk at bounce 0 and at a deep bounce, on the lanes
+    sorted (as the wavefront runs it), sorted and cut to the live prefix,
+    and unsorted (render_sorted(sort=False)'s lanes): what the sort buys."""
+    seed = 7
+    scene, camera = texture_scene("final_scene")
+    n_pix = camera.image_width * camera.image_height
+    cam = camera.constants(device=DEVICE)
+    packed, tables = mk._packed_dev(scene, True)
+    p = mk.search_params(packed, seed)
+    lo, inv = (tuple(float(x) for x in a) for a in wf._scene_bounds(scene))
+    with torch.no_grad():
+        lanes0 = wf.initial_lanes(cam, seed, n_pix, 0, 1)
+        check_hits("final_scene camera rays, 1 spp", tables, p, lanes0,
+                   n_pix, 0)
+        lanes1 = wf.sort_lanes(wf.step(scene, lanes0, seed, 0, n_pix, 0),
+                               lo, inv)
+        check_hits("final_scene sorted lanes of a wavefront chunk", tables,
+                   p, lanes1, n_pix, 1)
+        del lanes0, lanes1
+
+        cscene, ccam = texture_scene("cornell_box")
+        c_packed, c_tables = mk._packed_dev(cscene)
+        c_npix = ccam.image_width * ccam.image_height
+        check_hits("cornell_box camera rays, 1 spp, brute", c_tables,
+                   mk.search_params(c_packed, seed),
+                   wf.initial_lanes(ccam.constants(device=DEVICE), seed,
+                                    c_npix, 0, 1), c_npix, 0)
+
+        k = wf.chunk_samples(FINAL_SPP, n_pix)
+        chunk = wf.initial_lanes(cam, seed, n_pix, 0, k)
+        at0, _ = check_hits(f"final_scene first chunk ({k} spp), bounce 0",
+                            tables, p, chunk, n_pix, 0, timed=True)
+        ordered, unsorted = chunk, chunk
+        for b in range(DEEP_BOUNCE):
+            if b > 0:
+                ordered = wf.sort_lanes(ordered, lo, inv)
+            ordered = wf.step(scene, ordered, seed, b, n_pix, 0)
+            unsorted = wf.step(scene, unsorted, seed, b, n_pix, 0)
+        ordered = wf.sort_lanes(ordered, lo, inv)
+        na = int(ordered.alive.sum().item())
+        deep, recs = {}, {}
+        for name, ln in (("sorted", ordered),
+                         ("sorted_live_prefix",
+                          wf.Lanes(*[a[:na] for a in ordered])),
+                         ("unsorted", unsorted)):
+            deep[name], recs[name] = check_hits(
+                f"first chunk, bounce {DEEP_BOUNCE}, {name}", tables, p, ln,
+                n_pix, DEEP_BOUNCE, compare=False, timed=True)
+        # the same lanes in two orders: the same records, lane by lane
+        rec_u = recs["unsorted"]
+        by_orig = torch.empty_like(rec_u)
+        by_orig[ordered.orig.long()] = recs["sorted"]
+        differ = int((by_orig[unsorted.orig.long()] != rec_u).sum().item())
+    say("kernels", kernel="hit_kernel", check="sorted vs unsorted records",
+        bounce=DEEP_BOUNCE, lanes=int(rec_u.numel()), alive=na,
+        records_differ=differ,
+        sorted_over_unsorted=deep["sorted"]["kernel_ms"]
+        / deep["unsorted"]["kernel_ms"])
+    if differ:
+        fail(f"hit_kernel: sorted and unsorted lanes give {differ} other "
+             "records")
+    return at0, deep
+
+
+def phase_crossover():
+    """The render kernel's brute loop against its BVH walk at 4 spp on a
+    scene below the threshold and on final_scene: the card's own data for
+    BVH_KERNEL_THRESHOLD. Both give the same image, bit for bit."""
+    out = {}
+    for name, width, depth in (("random_balls", 600, 8),
+                               ("final_scene", 200, 40)):
+        res = {}
+        for use_bvh in (False, True):
+            _, camera, tables, p = scene_inputs(name, width, CROSS_SPP, depth,
+                                                seed=11, use_bvh=use_bvh)
+            rgb, n = mk.render_kernel(tables, p)
+            res["bvh" if use_bvh else "brute"] = (
+                time_ms(lambda: mk.render_kernel(tables, p), 3), rgb, n)
+        (b_ms, b_rgb, b_n), (w_ms, w_rgb, w_n) = res["brute"], res["bvh"]
+        same = bool(torch.equal(b_rgb, w_rgb) and torch.equal(b_n, w_n))
+        out[name] = dict(scene=name, width=camera.image_width,
+                         height=camera.image_height, spp=CROSS_SPP,
+                         depth=p.max_depth, prims=p.n_spheres + p.n_quads,
+                         nodes=p.n_nodes, brute_ms=b_ms, bvh_ms=w_ms,
+                         bvh_over_brute=w_ms / b_ms, images_equal=same,
+                         rays=int(w_n.sum(dtype=torch.int64).item()))
+        say("crossover", **out[name])
+        if not same:
+            fail(f"crossover {name}: brute and BVH renders differ")
+    return out
+
+
+def capture_render_events(fn):
+    """Run ``fn``, returning its result and the ``render`` metrics events
+    it emitted (chunks and compactions of the wavefront)."""
+    events = []
+    emit = metrics.emit
+    metrics.emit = lambda ev, **kw: events.append(kw)
+    try:
+        out = fn()
+    finally:
+        metrics.emit = emit
+    return out, events
+
+
+def phase_wavefront():
+    """render() of final_scene (auto: the sorted wavefront, B3 with B4).
+    On 64 px every other route gives the same image bit for bit; then the
+    scene's own 800x800 frame at depth 40, FINAL_SPP spp, and the fused
+    render (B1+B4+B8) of the same frame."""
+    scene, camera = texture_scene("final_scene", width=64, spp=4, depth=8)
+    ref, ref_st = rt.render(scene, camera, seed=5, use_megakernel=False)
+    ref = ref.astype(np.float32)
+    routes = {"render_auto": lambda: rt.render(scene, camera, seed=5),
+              "unsorted": lambda: wf.render_sorted(scene, camera, seed=5,
+                                                   sort=False),
+              "deferred": lambda: renderer.render_deferred(scene, camera,
+                                                           seed=5)}
+    checks = {}
+    for name, fn in routes.items():
+        img, st = fn()
+        checks[name] = dict(
+            pixels_differ=int((img.astype(np.float32) != ref).any(-1).sum()),
+            rays=st.rays)
+    old = wf.COMPACT_BELOW
+    wf.COMPACT_BELOW = 1.01  # cut the dead tail at every segment
+    try:
+        (img, st), ev = capture_render_events(
+            lambda: wf.render_sorted(scene, camera, seed=5, exact=True))
+    finally:
+        wf.COMPACT_BELOW = old
+    checks["compacting"] = dict(
+        pixels_differ=int((img.astype(np.float32) != ref).any(-1).sum()),
+        rays=st.rays, compactions=ev[-1]["compactions"])
+    say("wavefront_path", check="equals_tensor_integrator", scene=
+        "final_scene", width=64, spp=4, depth=8, rays_tensor=ref_st.rays,
+        routes=checks)
+    for name, r in checks.items():
+        if r["pixels_differ"] or r["rays"] != ref_st.rays:
+            fail(f"final_scene 64 px: {name} differs from the tensor "
+                 f"integrator in {r['pixels_differ']} pixels (rays "
+                 f"{r['rays']} vs {ref_st.rays})")
+
+    scene, camera = texture_scene("final_scene", spp=FINAL_SPP)
+    torch.cuda.reset_peak_memory_stats()
+    (img, stats, launches), ev = capture_render_events(
+        lambda: timed_render(scene, camera))
+    peak = torch.cuda.max_memory_allocated()
+    res = dict(scene="final_scene", width=camera.image_width,
+               height=camera.image_height, spp=FINAL_SPP,
+               depth=camera.max_depth, path=ev[-1]["path"],
+               seconds=stats.seconds, rays=stats.rays,
+               mrays_per_s=stats.rays_per_sec / 1e6,
+               chunks=ev[-1]["chunks"], compactions=ev[-1]["compactions"],
+               launches=launches, peak_mem_gb=peak / 1e9,
+               finite=bool(np.isfinite(img).all()), gamma_mean=gamma_mean(img))
+    if img.shape != (800, 800, 3) or not res["finite"]:
+        fail(f"final_scene image {img.shape} not finite 800x800x3")
+    if res["path"] != "wavefront_sorted" or launches["hit_kernel"] < 1:
+        fail("final_scene render() did not run the wavefront's hit kernel")
+    fused, f_stats, f_launches = timed_render(scene, camera,
+                                              use_megakernel=True)
+    # the fused render's bound from its own walk (one more launch with the
+    # counters, after the timed one) and its shaded noise and image bounces
+    packed, tables = mk._packed_dev(scene, True)
+    p = mk.make_params(camera, packed, 0, FINAL_SPP, camera.max_depth)
+    counters = torch.zeros((p.pixel_count, 3), dtype=torch.int32,
+                           device=DEVICE)
+    mk.render_kernel(tables, p, counters)
+    walk = walk_counts(counters)
+    shades = texture_shades(tables, p)
+    f_bound, f_by = bound_ms(tables, p, f_stats.rays, shades=shades,
+                             walk=walk)
+    res.update(fused_seconds=f_stats.seconds, fused_rays=f_stats.rays,
+               fused_walk=walk, fused_shades=shades, fused_bound_ms=f_bound,
+               fused_bound_by=f_by,
+               fused_roofline_share=f_bound / (f_stats.seconds * 1e3),
+               fused_mrays_per_s=f_stats.rays_per_sec / 1e6,
+               fused_launches=f_launches, fused_gamma_mean=gamma_mean(fused),
+               gamma_mean_ratio=res["gamma_mean"] / gamma_mean(fused),
+               ratio_tol=GAMMA_RATIO_TOL)
+    say("wavefront_path", **res)
+    if f_launches["render_kernel"] < 1 or not np.isfinite(fused).all():
+        fail("the fused final_scene render did not launch render_kernel")
+    if abs(res["gamma_mean_ratio"] - 1.0) > GAMMA_RATIO_TOL:
+        fail(f"final_scene gamma mean {res['gamma_mean']} vs the fused "
+             f"render's {res['fused_gamma_mean']}")
+    if OUT_DIR:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        write_png(os.path.join(OUT_DIR, "final_scene.png"), img)
+    profile_wavefront(scene, camera, res["seconds"] / res["chunks"])
+    return res
+
+
+def profile_wavefront(scene, camera, chunk_s):
+    """Device time by kernel of one chunk of the final_scene frame through
+    the wavefront (torch.profiler), and the device's busy share of that
+    chunk's wall time (one stream: the kernels' summed time is the busy
+    time). ``chunk_s``: an unprofiled chunk's seconds, for the overhead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = wf.chunk_samples(FINAL_SPP, camera.image_width * camera.image_height)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wf.render_sorted(scene, camera, spp=k)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_name = {}
+    for name, us in _kernel_events(prof):
+        t, c = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us / 1e3, c + 1)
+    total = sum(t for t, _ in by_name.values())
+    groups = {g: 0.0 for g in ("hit_kernel", "perlin_kernel", "gather",
+                               "sort", "other")}
+    for name, (t, _) in by_name.items():
+        low = name.lower()
+        g = ("hit_kernel" if "hit_kernel" in name else
+             "perlin_kernel" if "perlin_kernel" in name else
+             "gather" if "gather" in low else
+             "sort" if "sort" in low or "radix" in low else "other")
+        groups[g] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    say("profile", scene="final_scene", path="wavefront_sorted", spp=k,
+        chunk_s_unprofiled=chunk_s, wall_s_profiled=wall,
+        device_ms_total=total, device_busy_share=total / (wall * 1e3),
+        device_busy_share_unprofiled=total / (chunk_s * 1e3),
+        device_ms_by_group=groups, kernel_launches=sum(
+            c for _, c in by_name.values()),
+        top=[dict(kernel=n[:100], ms=t, count=c) for n, (t, c) in top])
+
+
+def phase_grad_final():
+    """loss_and_grad of final_scene (mean loss): records from B2 walking
+    the BVH, replay with B5/B6/B7; the loss equals the deferred render's
+    image mean."""
+    scene, camera = texture_scene("final_scene", width=200, spp=4, depth=8)
+    img, _ = renderer.render_deferred(scene, camera, seed=6)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g, rays = tg.loss_and_grad(scene, camera, lambda im, p: im.mean(),
+                                     seed=6, with_rays=True,
+                                     linear_loss=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    ref = float(img.astype(np.float64).mean())
+    rel = abs(float(loss) - ref) / abs(ref)
+    finite = {f.name: bool(torch.isfinite(getattr(g, f.name)).all())
+              for f in dataclasses.fields(g)
+              if isinstance(getattr(g, f.name), torch.Tensor)
+              and getattr(g, f.name).is_floating_point()}
+    res = dict(scene="final_scene", width=200, height=200, spp=4, depth=8,
+               loss=float(loss), deferred_image_mean=ref, loss_rel_err=rel,
+               rays=rays, seconds=secs, fwdbwd_rays_per_s=rays / secs,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches, all_finite=all(finite.values()),
+               sph_center_grad_absmax=float(g.sph_center.abs().max()))
+    say("grad_final", **res)
+    if not rel <= LOSS_RTOL:
+        fail(f"final_scene: loss {float(loss)} vs deferred mean {ref}")
+    if not res["all_finite"]:
+        fail(f"final_scene: non-finite gradient leaves: {finite}")
+    if launches["record_kernel"] < 1:
+        fail("grad_final did not launch record_kernel")
     return res
 
 
@@ -977,10 +1397,25 @@ def main():
         compare_records(name, 64, 4, 8, 0)
     at_fused = compare("simple_light", 600, 4, 8)
 
+    # the BVH walk (B4) in the render kernel and the recorder against the
+    # plain search: final_scene (past the threshold, with its noise and
+    # image families) at 64 px and at 200x200 to its own depth 40, and
+    # random_balls (spheres) and cornell_box (leaves of thin coplanar quads)
+    # with a forced tree
+    compare("final_scene", 64, 4, 8, use_bvh=True)
+    compare_records("final_scene", 64, 4, 8, 0, use_bvh=True)
+    compare("random_balls", 64, 8, 8, use_bvh=True)
+    compare_records("random_balls", 64, 4, 8, 0, use_bvh=True)
+    compare("cornell_box", 64, 4, 8, use_bvh=True)
+    compare_records("cornell_box", 64, 4, 8, 0, use_bvh=True)
+    at_final = compare("final_scene", 200, 4, 40, use_bvh=True)
+
     gathers = compare_gathers()
     sums = compare_reductions()
     segs = compare_segment_sums()
     turb = compare_perlin()
+    hits0, hits_deep = phase_hits()
+    cross = phase_crossover()
 
     main = phase_main_path(at_main)
 
@@ -1001,7 +1436,21 @@ def main():
     phase_train()
     phase_grad_check()
 
-    say("total", seconds=time.perf_counter() - t_start)
+    final = phase_wavefront()
+    say("crossover", check="wavefront_vs_fused", scene="final_scene",
+        width=800, height=800, spp=FINAL_SPP, depth=40,
+        wavefront_s=final["seconds"], fused_s=final["fused_seconds"],
+        wavefront_over_fused=final["seconds"] / final["fused_seconds"])
+    grad_final = phase_grad_final()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "cli_final")
+        rc = cli.main(["-s", "8", "--width", "200", "--spp", "8", "-o", out])
+        if rc != 0 or not os.path.exists(out + ".png"):
+            fail(f"cli -s 8 returned {rc} or wrote no PNG")
+        say("cli_final", rc=rc, png_bytes=os.path.getsize(out + ".png"))
+
+    say("total", seconds=time.perf_counter() - t_start,
+        grad_final_s=grad_final["seconds"])
     g5 = gathers[("gather", 4, torch.float32)]
     g6 = gathers[("cols", 24, 17, torch.float32)]
     rd = sums[(24, 17)]
@@ -1101,6 +1550,37 @@ def main():
         "main_path_ms": fused_tex["seconds"] * 1e3,
         "main_path_spp": fused_tex["spp"],
         "main_path_bound_ms": fused_tex["bound_ms"],
+    }, {
+        "name": "hit_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/megakernel.py:1037",
+        "launches": final["launches"]["hit_kernel"],
+        "max_abs_err": hits0["max_abs_err"],
+        "ms": hits0["kernel_ms"], "plain_ms": hits0["plain_ms"],
+        "bound_ms": hits0["bound_ms"], "bound_by": hits0["bound_by"],
+        "library_ms": None,
+        "shape": f"hit_kernel<BVH>: final_scene, the main path's first chunk "
+                 f"({hits0['lanes']} lanes, bounce 0); bounce {DEEP_BOUNCE} "
+                 f"sorted {hits_deep['sorted']['kernel_ms']:.4f} ms, "
+                 f"unsorted {hits_deep['unsorted']['kernel_ms']:.4f} ms",
+        "main_path_ms": final["seconds"] * 1e3,
+        "main_path_spp": FINAL_SPP,
+    }, {
+        "name": "render_kernel_bvh", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/megakernel.py:738",
+        "launches": final["fused_launches"]["render_kernel"],
+        "max_abs_err": at_final["max_abs_err"],
+        "ms": at_final["kernel_ms"], "plain_ms": at_final["plain_ms"],
+        "bound_ms": at_final["bound_ms"], "bound_by": at_final["bound_by"],
+        "library_ms": None,
+        "shape": "render_kernel<noise,image,BVH> (B1+B4+B8): final_scene "
+                 "200x200 spp 4 depth 40 (its depth, frame and spp cut for "
+                 "the plain version); launches from the fused 800x800 "
+                 f"render; brute loop at this shape "
+                 f"{cross['final_scene']['brute_ms']:.3f} ms",
+        "main_path_ms": final["fused_seconds"] * 1e3,
+        "main_path_spp": FINAL_SPP,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-// Forward path-tracing render kernel and path recorder for Hopper (sm_90a),
-// written by hand.
+// Forward path-tracing render kernel, path recorder and one-bounce hit kernel
+// for Hopper (sm_90a), written by hand.
 //
 // render_kernel replaces the Pallas kernel of rust_tracing_tpu/ops/
-// megakernel.py (`_make_kernel.kernel`, render mode, brute-force primitive
-// loop): the whole render of a pixel range in one launch. record_kernel
-// replaces the same Pallas kernel's record mode (see its own comment). Camera ray, closest hit over spheres
+// megakernel.py (`_make_kernel.kernel`, render mode): the whole render of a
+// pixel range in one launch. record_kernel replaces the same Pallas kernel's
+// record mode and hit_kernel its hit mode (see their own comments). The
+// kernel's BVH branch (B4, megakernel.py:712-776) is the `BVH` template flag
+// of every kernel here: `closest_surface<MODE, true>` walks the kernel BVH
+// instead of looping over every primitive. Camera ray, closest hit over spheres
 // and quads, constant media, five-material scatter, emission, solid/checker
 // textures, spp accumulation. The noise and image texture families (the
 // reference kernel's `has_noise`/`has_image` arms, megakernel.py:404-503,
@@ -19,11 +22,18 @@
 //    regenerates dead lanes to keep a 1024-lane vector full; per pixel it adds
 //    finished samples in sample order, so this nested loop gives the same sums.
 //  - Scene tables are read from global memory through the read-only path
-//    (`__ldg`, vector loads of whole rows). All threads of a warp read the same
-//    primitive row at the same time, a broadcast served by L1. Nothing is
-//    staged in shared memory, so no table size can overflow it: the tables are
-//    bounded by device memory only (the primitive loop is brute force, and the
-//    host refuses scenes past its BVH threshold).
+//    (`__ldg`, vector loads of whole rows). In the brute loop all threads of a
+//    warp read the same primitive row at the same time, a broadcast served by
+//    L1. Nothing is staged in shared memory, so no table size can overflow it:
+//    the tables are bounded by device memory only.
+//  - BVH (B4): each thread walks the skip-link tree with its own node
+//    pointer. The TPU kernel walks one pointer per 1024-lane tile and descends
+//    wherever any lane's box test passes (its vector unit has no per-lane
+//    control flow); a GPU thread descends only where its own ray hits the box.
+//    The wavefront (ops/wavefront.py) sorts rays before hit_kernel so that a
+//    warp's threads walk the same subtrees. Bound: operations (slab tests and
+//    primitive tests); the tree of final_scene is 511 nodes and 3407 stream
+//    entries, read through L1 and L2.
 //  - Camera, spp, depth, primitive counts, seed, pixel range and sample offset
 //    are runtime arguments: one compiled library serves every scene and camera.
 //  - Bound: operations. The kernel reads a few KB of tables and writes 16 bytes
@@ -64,6 +74,8 @@ struct RenderParams {
     int pixel_base, pixel_count, sample_offset;
     int has_noise, has_image;  // pick the render kernel's instantiation
     int img_h, img_w;          // the mipped image table's shape
+    int use_bvh;               // pick the BVH instantiation (B4)
+    int n_nodes;               // rows of bvh_f / bvh_i
 };
 
 struct SceneTables {
@@ -78,10 +90,13 @@ struct SceneTables {
     const float* tex_f;   // (T,4)  rgb_r rgb_g rgb_b scale
     const int* tex_i;     // (T,3)  type even odd
     const float* img_f;   // (3, IH*IW) mipped image texels r g b; render only
+    const float4* bvh_f;  // (N,8)  min x y z, max x | max y z, 0, 0
+    const int4* bvh_i;    // (N,4)  skip, leaf start, leaf count, sphere count
+    const int2* prim_i;   // (P,2)  kind (0 sphere, 1 quad), index; leaf order
 };
 
 // What a trace computes. RENDER shades and accumulates radiance; RECORD
-// (record_kernel: winner ids per bounce) and HIT (a later kernel: one-bounce
+// (record_kernel: winner ids per bounce) and HIT (hit_kernel: one-bounce
 // search) reuse the same device functions and track which primitive won. The
 // record is taken right after the search, before the emitter and depth
 // short-cuts, so a bounce that ends its path still records its winner.
@@ -106,11 +121,30 @@ struct Hit {
     float nx, ny, nz;
     int mat;
     bool is_med;
-    int kind, idx;  // winner record (1 sphere, 2 quad, 3+m medium); not RENDER
+    int kind, idx;  // winner record (1 sphere, 2 quad, 3+m medium); not
+                    // RENDER, except in the BVH walk, whose ties read them
 };
 
+// Work of the BVH walk of one thread: nodes whose box it tested, spheres and
+// quads it tested. Written out only where the caller asks (the bound).
+struct WalkCount {
+    int visits, spheres, quads;
+};
+
+// The BVH walk's acceptance rule (TIE): a primitive wins when its t is
+// smaller, or equal with a lower (kind, idx). The brute loop visits spheres
+// then quads in index order and accepts only `t < t_best`, so it returns the
+// first minimum in (t, kind, idx) order; with this rule the walk returns the
+// same winner whatever order the tree visits the primitives in. The "no
+// winner" state has kind 0, the lowest key, so a tie never beats it.
+__device__ __forceinline__ bool beats(float t, int kind, int idx,
+                                      const Hit& h) {
+    return t < h.t_best
+           || (t == h.t_best && ((kind << 24) | idx) < ((h.kind << 24) | h.idx));
+}
+
 // sphere.rs:59-89 + moving-centre lerp: strict bounds, near root preferred.
-template <int MODE>
+template <int MODE, bool TIE = false>
 __device__ __forceinline__ void sphere_test(const SceneTables& sc, int i,
                                             const Ray& r, float a_len,
                                             float inv_a, Hit& h) {
@@ -128,8 +162,14 @@ __device__ __forceinline__ void sphere_test(const SceneTables& sc, int i,
     const float sq = sqrtf(fmaxf(disc, 0.0f));
     const float r1 = (-half_b - sq) * inv_a;
     const float rr2 = (-half_b + sq) * inv_a;
-    const bool ok1 = (r1 > T_MIN) && (r1 < h.t_best);
-    const bool ok2 = (rr2 > T_MIN) && (rr2 < h.t_best);
+    bool ok1, ok2;
+    if constexpr (TIE) {
+        ok1 = (r1 > T_MIN) && beats(r1, 1, i, h);
+        ok2 = (rr2 > T_MIN) && beats(rr2, 1, i, h);
+    } else {
+        ok1 = (r1 > T_MIN) && (r1 < h.t_best);
+        ok2 = (rr2 > T_MIN) && (rr2 < h.t_best);
+    }
     if (!(ok1 || ok2)) return;
     const float root = ok1 ? r1 : rr2;
     h.t_best = root;
@@ -138,14 +178,14 @@ __device__ __forceinline__ void sphere_test(const SceneTables& sc, int i,
     h.ny = (r.oy + root * r.dy - ccy) * inv_r;
     h.nz = (r.oz + root * r.dz - ccz) * inv_r;
     h.is_med = false;
-    if (MODE != MODE_RENDER) {
+    if (MODE != MODE_RENDER || TIE) {
         h.kind = 1;
         h.idx = i;
     }
 }
 
 // quad.rs:96-133: inclusive bounds, no back-face culling.
-template <int MODE>
+template <int MODE, bool TIE = false>
 __device__ __forceinline__ void quad_test(const SceneTables& sc, int i,
                                           const Ray& r, Hit& h) {
     const float4 a = __ldg(sc.quad_f + 4 * i);      // qx qy qz ux
@@ -156,7 +196,12 @@ __device__ __forceinline__ void quad_test(const SceneTables& sc, int i,
     const float denom = nx * r.dx + ny * r.dy + nz * r.dz;
     const float safe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
     const float t = (e.w - (nx * r.ox + ny * r.oy + nz * r.oz)) / safe;
-    if (!((fabsf(denom) >= QUAD_DENOM_EPS) && (t >= T_MIN) && (t < h.t_best)))
+    bool closer;
+    if constexpr (TIE)
+        closer = beats(t, 2, i, h);
+    else
+        closer = t < h.t_best;
+    if (!((fabsf(denom) >= QUAD_DENOM_EPS) && (t >= T_MIN) && closer))
         return;
     const float hx = r.ox + t * r.dx - a.x;
     const float hy = r.oy + t * r.dy - a.y;
@@ -177,19 +222,34 @@ __device__ __forceinline__ void quad_test(const SceneTables& sc, int i,
     h.ny = ny;
     h.nz = nz;
     h.is_med = false;
-    if (MODE != MODE_RENDER) {
+    if (MODE != MODE_RENDER || TIE) {
         h.kind = 2;
         h.idx = i;
     }
 }
 
-// Closest surface over all spheres, then all quads. A later equal t never
-// replaces an earlier winner (`t < t_best`).
-template <int MODE>
+// Closest surface. Brute force (BVH false): all spheres, then all quads; a
+// later equal t never replaces an earlier winner (`t < t_best`).
+//
+// BVH (B4, megakernel.py:712-776): a stackless walk of the kernel BVH
+// (ops/megakernel.py::build_kernel_bvh), one node pointer per thread. A node
+// whose box the ray enters before t_best goes on to the next node in
+// preorder (its left child, or the next subtree after a leaf); a missed box
+// jumps to its skip link past the whole subtree. A leaf tests its run of the
+// primitive stream with two typed loops, spheres then quads. The slab test
+// is the reference's (:742-756), with 1/d clamped at 1e-30 (:725-727), but
+// closed (`tmx >= tmn`, as ops/bvh_traverse.py::_slab_hit): a leaf of
+// coplanar quads has a box thinner than one f32 step of t, whose entry and
+// exit round to the same t, and the reference's strict test drops it. The
+// TIE rule makes the winner the brute loop's whatever order the tree visits
+// primitives in, so visiting more boxes never changes it; chip_smoke.py
+// counts any record that still differs from the brute search.
+template <int MODE, bool BVH = false>
 __device__ __forceinline__ void closest_surface(const SceneTables& sc,
                                                 const RenderParams& p,
                                                 const Ray& r, float a_len,
-                                                float inv_a, Hit& h) {
+                                                float inv_a, Hit& h,
+                                                WalkCount& wc) {
     h.t_best = INFINITY;
     h.nx = 0.0f;
     h.ny = 0.0f;
@@ -198,9 +258,47 @@ __device__ __forceinline__ void closest_surface(const SceneTables& sc,
     h.is_med = false;
     h.kind = 0;
     h.idx = 0;
-    for (int i = 0; i < p.n_spheres; ++i)
-        sphere_test<MODE>(sc, i, r, a_len, inv_a, h);
-    for (int i = 0; i < p.n_quads; ++i) quad_test<MODE>(sc, i, r, h);
+    if constexpr (!BVH) {
+        for (int i = 0; i < p.n_spheres; ++i)
+            sphere_test<MODE>(sc, i, r, a_len, inv_a, h);
+        for (int i = 0; i < p.n_quads; ++i) quad_test<MODE>(sc, i, r, h);
+    } else {
+        const float inv_dx = 1.0f / (fabsf(r.dx) < 1e-30f ? 1e-30f : r.dx);
+        const float inv_dy = 1.0f / (fabsf(r.dy) < 1e-30f ? 1e-30f : r.dy);
+        const float inv_dz = 1.0f / (fabsf(r.dz) < 1e-30f ? 1e-30f : r.dz);
+        int ptr = 0;
+        while (ptr < p.n_nodes) {
+            const float4 b0 = __ldg(sc.bvh_f + 2 * ptr);      // min xyz, max x
+            const float4 b1 = __ldg(sc.bvh_f + 2 * ptr + 1);  // max y z
+            const int4 node = __ldg(sc.bvh_i + ptr);  // skip start count scount
+            ++wc.visits;
+            const float t0x = (b0.x - r.ox) * inv_dx;
+            const float t1x = (b0.w - r.ox) * inv_dx;
+            const float t0y = (b0.y - r.oy) * inv_dy;
+            const float t1y = (b1.x - r.oy) * inv_dy;
+            const float t0z = (b0.z - r.oz) * inv_dz;
+            const float t1z = (b1.y - r.oz) * inv_dz;
+            const float tmn =
+                fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                      fmaxf(fminf(t0z, t1z), T_MIN));
+            const float tmx =
+                fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                      fminf(fmaxf(t0z, t1z), h.t_best));
+            if (!(tmx >= tmn)) {
+                ptr = node.x;
+                continue;
+            }
+            const int mid = node.y + node.w, end = node.y + node.z;
+            for (int k = node.y; k < mid; ++k)
+                sphere_test<MODE, true>(sc, __ldg(sc.prim_i + k).y, r, a_len,
+                                        inv_a, h);
+            for (int k = mid; k < end; ++k)
+                quad_test<MODE, true>(sc, __ldg(sc.prim_i + k).y, r, h);
+            wc.spheres += node.w;
+            wc.quads += node.z - node.w;
+            ++ptr;
+        }
+    }
 }
 
 // Constant media (constant_medium.rs:34-71): boundary entry/exit in closed
@@ -427,16 +525,17 @@ struct Path {
 // One bounce of a live path: closest hit, media, emission, scatter, advance.
 // Returns true if the path scattered and goes on. `rec` receives the packed
 // winner record `kind<<24 | idx` (0 on a miss) outside RENDER mode.
-template <int MODE, bool NOISE = false, bool IMAGE = false>
+template <int MODE, bool NOISE = false, bool IMAGE = false, bool BVH = false>
 __device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
                                              const RenderParams& p, Path& s,
                                              bool depth_left_ok,
-                                             const CounterRng& rngb, int& rec) {
+                                             const CounterRng& rngb, int& rec,
+                                             WalkCount& wc) {
     const Ray& r = s.ray;
     const float a_len = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
     const float inv_a = 1.0f / fmaxf(a_len, 1e-30f);
     Hit h;
-    closest_surface<MODE>(sc, p, r, a_len, inv_a, h);
+    closest_surface<MODE, BVH>(sc, p, r, a_len, inv_a, h, wc);
     media_test<MODE>(sc, p, r, a_len, inv_a, rngb, h);
 
     rec = 0;
@@ -611,12 +710,27 @@ __device__ __forceinline__ void camera_ray(const RenderParams& p, uint32_t pid,
 
 constexpr int BLOCK_X = 8, BLOCK_Y = 8;
 
+// Write a thread's walk counts to row `i` of `counters` ((rows, 3) int32)
+// when the caller passed one; only BVH instantiations count.
+template <bool BVH>
+__device__ __forceinline__ void put_counts(int* counters, size_t i,
+                                           const WalkCount& wc) {
+    if constexpr (BVH) {
+        if (counters != nullptr) {
+            counters[3 * i] = wc.visits;
+            counters[3 * i + 1] = wc.spheres;
+            counters[3 * i + 2] = wc.quads;
+        }
+    }
+}
+
 // out_rgb (pixel_count,3): mean radiance over spp samples, f32 sum in sample
 // order times f32(1/spp). out_n (pixel_count,): scene queries traced.
-template <bool NOISE, bool IMAGE>
+template <bool NOISE, bool IMAGE, bool BVH>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     render_kernel(SceneTables sc, RenderParams p, int row0,
-                  float* __restrict__ out_rgb, int* __restrict__ out_n) {
+                  float* __restrict__ out_rgb, int* __restrict__ out_n,
+                  int* __restrict__ counters) {
     const int i = blockIdx.x * BLOCK_X + threadIdx.x;
     const int j = row0 + blockIdx.y * BLOCK_Y + threadIdx.y;
     if (i >= p.width || j >= p.height) return;
@@ -627,6 +741,7 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
 
     float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
     int n = 0;
+    WalkCount wc = {0, 0, 0};
     for (int si = 0; si < p.spp; ++si) {
         const uint32_t s_glob = (uint32_t)(si + p.sample_offset);
         Path s;
@@ -638,8 +753,8 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
             const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
                                   (uint32_t)d);
             int rec;
-            if (!trace_bounce<MODE_RENDER, NOISE, IMAGE>(
-                    sc, p, s, d + 1 < p.max_depth, rngb, rec))
+            if (!trace_bounce<MODE_RENDER, NOISE, IMAGE, BVH>(
+                    sc, p, s, d + 1 < p.max_depth, rngb, rec, wc))
                 break;
         }
         acc_r = acc_r + s.rad_r;
@@ -651,6 +766,7 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     out_rgb[3 * local + 1] = acc_g * inv;
     out_rgb[3 * local + 2] = acc_b * inv;
     out_n[local] = n;
+    put_counts<BVH>(counters, local, wc);
 }
 
 // Path recorder (replaces the Pallas kernel's record mode,
@@ -668,9 +784,10 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
 // each store instruction fills four whole 32-byte sectors.
 // Bound: operations (the same primitive tests as render_kernel without the
 // shading); it writes 4 bytes per (pixel, sample, bounce).
+template <bool BVH>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     record_kernel(SceneTables sc, RenderParams p, int row0,
-                  int* __restrict__ out) {
+                  int* __restrict__ out, int* __restrict__ counters) {
     const int i = blockIdx.x * BLOCK_X + threadIdx.x;
     const int j = row0 + blockIdx.y * BLOCK_Y + threadIdx.y;
     if (i >= p.width || j >= p.height) return;
@@ -679,6 +796,7 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
     if (local < 0 || local >= p.pixel_count) return;
     const float pi = (float)i, pj = (float)j;
     const size_t plane = (size_t)p.pixel_count;
+    WalkCount wc = {0, 0, 0};
 
     for (int si = 0; si < p.spp; ++si) {
         const uint32_t s_glob = (uint32_t)(si + p.sample_offset);
@@ -692,24 +810,80 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
             if (alive) {
                 const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
                                       (uint32_t)d);
-                alive = trace_bounce<MODE_RECORD>(sc, p, s, d + 1 < p.max_depth,
-                                                  rngb, rec);
+                alive = trace_bounce<MODE_RECORD, false, false, BVH>(
+                    sc, p, s, d + 1 < p.max_depth, rngb, rec, wc);
             }
             out[((size_t)d * p.spp + si) * plane + local] = rec;
         }
     }
+    put_counts<BVH>(counters, local, wc);
+}
+
+// One-bounce closest hit over supplied rays (B3; replaces the Pallas
+// kernel's hit mode, rust_tracing_tpu/ops/megakernel.py:1037-1048, host side
+// `hit_kernel_call` :1533-1561): the search half of trace_bounce<MODE_HIT>,
+// surfaces (brute or the BVH walk) then media, for the sorted deferred
+// wavefront (ops/wavefront.py), which shades the winners in tensor code.
+// One thread per lane over the structure-of-arrays inputs, in lane order:
+// the wavefront sorted the lanes so that a warp holds rays that walk the same
+// subtrees. The medium draws come from the counter RNG addressed by (seed,
+// pix[lane], samp[lane], bounce): launch geometry never enters it, so a
+// permutation of the lanes permutes the output and changes nothing else.
+// out[lane] = alive && hit ? kind<<24 | idx : 0 (:1027-1031).
+// Bound: operations (slab and primitive tests); it reads 37 bytes a lane and
+// writes 4.
+constexpr int HIT_BLOCK = 128;
+
+template <bool BVH>
+__global__ void __launch_bounds__(HIT_BLOCK)
+    hit_kernel(SceneTables sc, RenderParams p, const float* __restrict__ ox,
+               const float* __restrict__ oy, const float* __restrict__ oz,
+               const float* __restrict__ dx, const float* __restrict__ dy,
+               const float* __restrict__ dz, const float* __restrict__ time,
+               const int* __restrict__ pix, const int* __restrict__ samp,
+               const bool* __restrict__ alive, long long n, int bounce,
+               int* __restrict__ out, int* __restrict__ counters) {
+    const long long i = (long long)blockIdx.x * HIT_BLOCK + threadIdx.x;
+    if (i >= n) return;
+    WalkCount wc = {0, 0, 0};
+    int rec = 0;
+    if (alive[i]) {
+        Ray r;
+        r.ox = ox[i];
+        r.oy = oy[i];
+        r.oz = oz[i];
+        r.dx = dx[i];
+        r.dy = dy[i];
+        r.dz = dz[i];
+        r.time = time[i];
+        const float a_len = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+        const float inv_a = 1.0f / fmaxf(a_len, 1e-30f);
+        Hit h;
+        closest_surface<MODE_HIT, BVH>(sc, p, r, a_len, inv_a, h, wc);
+        const CounterRng rngb((uint32_t)p.seed, (uint32_t)pix[i],
+                              (uint32_t)samp[i], (uint32_t)bounce);
+        media_test<MODE_HIT>(sc, p, r, a_len, inv_a, rngb, h);
+        if (isfinite(h.t_best)) rec = (h.kind << 24) | h.idx;
+    }
+    out[i] = rec;
+    put_counts<BVH>(counters, (size_t)i, wc);
 }
 
 }  // namespace rt
 
 namespace {
 
-rt::SceneTables make_tables(const void* sph_f, const void* sph_m,
-                            const void* quad_f, const void* quad_m,
-                            const void* med_f, const void* med_i,
-                            const void* mat_f, const void* mat_i,
-                            const void* tex_f, const void* tex_i,
-                            const void* img_f) {
+// The 13 scene tables of ops/megakernel.py::PackedScene.TABLES, in order.
+#define RT_TABLE_ARGS                                                        \
+    const void *sph_f, const void *sph_m, const void *quad_f,                \
+        const void *quad_m, const void *med_f, const void *med_i,            \
+        const void *mat_f, const void *mat_i, const void *tex_f,             \
+        const void *tex_i, const void *bvh_f, const void *bvh_i,             \
+        const void *prim_i
+#define RT_TABLES sph_f, sph_m, quad_f, quad_m, med_f, med_i, mat_f, mat_i,  \
+                  tex_f, tex_i, bvh_f, bvh_i, prim_i
+
+rt::SceneTables make_tables(RT_TABLE_ARGS, const void* img_f) {
     rt::SceneTables sc;
     sc.sph_f = static_cast<const float4*>(sph_f);
     sc.sph_m = static_cast<const int*>(sph_m);
@@ -722,6 +896,9 @@ rt::SceneTables make_tables(const void* sph_f, const void* sph_m,
     sc.tex_f = static_cast<const float*>(tex_f);
     sc.tex_i = static_cast<const int*>(tex_i);
     sc.img_f = static_cast<const float*>(img_f);
+    sc.bvh_f = static_cast<const float4*>(bvh_f);
+    sc.bvh_i = static_cast<const int4*>(bvh_i);
+    sc.prim_i = static_cast<const int2*>(prim_i);
     return sc;
 }
 
@@ -742,71 +919,118 @@ bool pixel_grid(const rt::RenderParams& p, int& row0, dim3& grid) {
 
 }  // namespace
 
+template <bool NOISE, bool IMAGE, bool BVH>
+void launch_render(const rt::SceneTables& sc, const rt::RenderParams& p,
+                   int row0, dim3 grid, void* out_rgb, void* out_n,
+                   void* counters, void* stream) {
+    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
+    rt::render_kernel<NOISE, IMAGE, BVH>
+        <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+            sc, p, row0, static_cast<float*>(out_rgb),
+            static_cast<int*>(out_n), static_cast<int*>(counters));
+}
+
 template <bool NOISE, bool IMAGE>
 void launch_render(const rt::SceneTables& sc, const rt::RenderParams& p,
                    int row0, dim3 grid, void* out_rgb, void* out_n,
-                   void* stream) {
-    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
-    rt::render_kernel<NOISE, IMAGE>
-        <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-            sc, p, row0, static_cast<float*>(out_rgb),
-            static_cast<int*>(out_n));
+                   void* counters, void* stream) {
+    if (p.use_bvh)
+        launch_render<NOISE, IMAGE, true>(sc, p, row0, grid, out_rgb, out_n,
+                                          counters, stream);
+    else
+        launch_render<NOISE, IMAGE, false>(sc, p, row0, grid, out_rgb, out_n,
+                                           counters, stream);
 }
 
 // Launch the render kernel on `stream` over pixels
 // [params->pixel_base, params->pixel_base + params->pixel_count). `params`
-// is a host pointer; its has_noise/has_image flags pick the instantiation
-// and `img_f` is the (3, img_h * img_w) image table. Does not synchronise.
-// Returns cudaGetLastError().
-extern "C" int rt_render_launch(const void* sph_f, const void* sph_m,
-                                const void* quad_f, const void* quad_m,
-                                const void* med_f, const void* med_i,
-                                const void* mat_f, const void* mat_i,
-                                const void* tex_f, const void* tex_i,
-                                const void* img_f, const void* params,
-                                void* out_rgb, void* out_n, void* stream) {
+// is a host pointer; its has_noise/has_image/use_bvh flags pick the
+// instantiation and `img_f` is the (3, img_h * img_w) image table.
+// `counters` is null, or (pixel_count, 3) int32 that a BVH instantiation
+// fills with each pixel's walk counts. Does not synchronise. Returns
+// cudaGetLastError().
+extern "C" int rt_render_launch(RT_TABLE_ARGS, const void* img_f,
+                                const void* params, void* out_rgb, void* out_n,
+                                void* counters, void* stream) {
     const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
-    const rt::SceneTables sc =
-        make_tables(sph_f, sph_m, quad_f, quad_m, med_f, med_i, mat_f, mat_i,
-                    tex_f, tex_i, img_f);
+    const rt::SceneTables sc = make_tables(RT_TABLES, img_f);
     int row0;
     dim3 grid;
-    if (!pixel_grid(p, row0, grid) || p.img_h < 1 || p.img_w < 1)
+    if (!pixel_grid(p, row0, grid) || p.img_h < 1 || p.img_w < 1
+        || p.n_nodes < 1)
         return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();  // clear a stale error of an earlier call
     if (p.has_noise && p.has_image)
-        launch_render<true, true>(sc, p, row0, grid, out_rgb, out_n, stream);
+        launch_render<true, true>(sc, p, row0, grid, out_rgb, out_n, counters,
+                                  stream);
     else if (p.has_noise)
-        launch_render<true, false>(sc, p, row0, grid, out_rgb, out_n, stream);
+        launch_render<true, false>(sc, p, row0, grid, out_rgb, out_n, counters,
+                                   stream);
     else if (p.has_image)
-        launch_render<false, true>(sc, p, row0, grid, out_rgb, out_n, stream);
+        launch_render<false, true>(sc, p, row0, grid, out_rgb, out_n, counters,
+                                   stream);
     else
-        launch_render<false, false>(sc, p, row0, grid, out_rgb, out_n, stream);
+        launch_render<false, false>(sc, p, row0, grid, out_rgb, out_n,
+                                    counters, stream);
     return (int)cudaGetLastError();
 }
 
 // Launch the path recorder on `stream` over the same pixel range; `out_rec`
-// holds max_depth * spp * pixel_count int32. Does not synchronise. Returns
-// cudaGetLastError().
-extern "C" int rt_record_launch(const void* sph_f, const void* sph_m,
-                                const void* quad_f, const void* quad_m,
-                                const void* med_f, const void* med_i,
-                                const void* mat_f, const void* mat_i,
-                                const void* tex_f, const void* tex_i,
-                                const void* params, void* out_rec,
-                                void* stream) {
+// holds max_depth * spp * pixel_count int32; `counters` as for the render.
+// Does not synchronise. Returns cudaGetLastError().
+extern "C" int rt_record_launch(RT_TABLE_ARGS, const void* params,
+                                void* out_rec, void* counters, void* stream) {
     const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
-    const rt::SceneTables sc = make_tables(sph_f, sph_m, quad_f, quad_m, med_f,
-                                           med_i, mat_f, mat_i, tex_f, tex_i,
-                                           nullptr);
+    const rt::SceneTables sc = make_tables(RT_TABLES, nullptr);
     int row0;
     dim3 grid;
-    if (!pixel_grid(p, row0, grid) || p.max_depth < 1)
+    if (!pixel_grid(p, row0, grid) || p.max_depth < 1 || p.n_nodes < 1)
         return (int)cudaErrorInvalidValue;
     const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     (void)cudaGetLastError();
-    rt::record_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        sc, p, row0, static_cast<int*>(out_rec));
+    if (p.use_bvh)
+        rt::record_kernel<true><<<grid, block, 0, st>>>(
+            sc, p, row0, static_cast<int*>(out_rec),
+            static_cast<int*>(counters));
+    else
+        rt::record_kernel<false><<<grid, block, 0, st>>>(
+            sc, p, row0, static_cast<int*>(out_rec),
+            static_cast<int*>(counters));
+    return (int)cudaGetLastError();
+}
+
+// Launch the one-bounce hit kernel on `stream` over `n` lanes: ox..time f32,
+// pix and samp int32, alive bool, each (n,); `out` (n,) int32 records;
+// `counters` null or (n, 3) int32 as for the render. Only `params`' counts,
+// seed and BVH fields are read. Does not synchronise. Returns
+// cudaGetLastError().
+extern "C" int rt_hit_launch(RT_TABLE_ARGS, const void* params,
+                             const void* ox, const void* oy, const void* oz,
+                             const void* dx, const void* dy, const void* dz,
+                             const void* time, const void* pix,
+                             const void* samp, const void* alive, long long n,
+                             int bounce, void* out, void* counters,
+                             void* stream) {
+    const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
+    const rt::SceneTables sc = make_tables(RT_TABLES, nullptr);
+    if (n < 1 || p.n_nodes < 1) return (int)cudaErrorInvalidValue;
+    const long long blocks = (n + rt::HIT_BLOCK - 1) / rt::HIT_BLOCK;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const auto f = [](const void* q) { return static_cast<const float*>(q); };
+    const auto i = [](const void* q) { return static_cast<const int*>(q); };
+    (void)cudaGetLastError();
+    if (p.use_bvh)
+        rt::hit_kernel<true><<<(unsigned)blocks, rt::HIT_BLOCK, 0, st>>>(
+            sc, p, f(ox), f(oy), f(oz), f(dx), f(dy), f(dz), f(time), i(pix),
+            i(samp), static_cast<const bool*>(alive), n, bounce,
+            static_cast<int*>(out), static_cast<int*>(counters));
+    else
+        rt::hit_kernel<false><<<(unsigned)blocks, rt::HIT_BLOCK, 0, st>>>(
+            sc, p, f(ox), f(oy), f(oz), f(dx), f(dy), f(dz), f(time), i(pix),
+            i(samp), static_cast<const bool*>(alive), n, bounce,
+            static_cast<int*>(out), static_cast<int*>(counters));
     return (int)cudaGetLastError();
 }
 

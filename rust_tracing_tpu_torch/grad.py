@@ -44,6 +44,7 @@ from .camera import Camera, CameraConstants, get_rays
 from .ops import integrator
 from .ops import megakernel as mk
 from .ops import replay as replay_mod
+from .ops.bvh_traverse import auto_closest_hit
 from .utils import metrics
 
 # Flattened (sample x pixel) wavefront budget: the largest ray batch one
@@ -258,10 +259,8 @@ def loss_and_grad(scene, camera: Camera, loss_fn: Callable, seed: int = 0,
     spp = spp or camera.samples_per_pixel
     max_depth = max_depth or camera.max_depth
     custom_hit = hit_fn is not None
-    if scene.has_bvh and not custom_hit:
-        raise NotImplementedError(
-            "scene has a BVH: its closest-hit search (closest_hit_bvh of "
-            "ops/bvh_traverse.py in the reference) is not ported yet")
+    if hit_fn is None:  # a scene compiled with a BVH searches it
+        hit_fn = auto_closest_hit(scene)
     dev = scene.device
     cam = camera.constants(dtype, device=dev)
     if pixel_ids is None:

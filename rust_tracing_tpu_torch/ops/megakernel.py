@@ -15,20 +15,29 @@ is the path that shades them at full fidelity.
 The same file holds the path recorder (``record_kernel``, the reference
 kernel's record mode): the same trace, writing the winner record
 ``kind<<24 | idx`` of every (pixel, sample, bounce) for the replay pipeline
-(ops/replay.py, grad.py).
+(ops/replay.py, grad.py); and the one-bounce hit kernel (``hit_kernel``, the
+reference kernel's hit mode), the search of the sorted deferred wavefront
+(ops/wavefront.py). Past ``BVH_KERNEL_THRESHOLD`` primitives (or with
+``use_bvh``) all three walk the kernel BVH (``build_kernel_bvh``, the
+reference kernel's BVH branch) instead of testing every primitive.
 
 Three layers live here:
 
 - ``pack_scene``: a CompiledScene's valid primitives as plain row-major
   ``(N, F)`` tables (f64 host arithmetic rounded once to f32, the same
-  arithmetic as the reference pack), cached per scene on the device;
-- ``render_kernel`` and ``record_kernel``: the wrappers that launch the CUDA
-  kernels on CUDA tensors (or raise) and count their launches in
-  ``LAUNCHES``;
-- ``render_fast_plain`` and ``record_paths_plain``: the same functions as
-  tensor code over all pixels at once, with the kernel's arithmetic in the
-  kernel's order (one shared trace, ``_trace_plain``). They are what runs for
-  tensors on the CPU and what the kernels are held against on the card.
+  arithmetic as the reference pack) and, with a tree, its node and primitive
+  stream tables; cached per (scene, use_bvh) on the device;
+- ``render_kernel``, ``record_kernel`` and ``hit_kernel``: the wrappers that
+  launch the CUDA kernels on CUDA tensors (or raise) and count their launches
+  in ``LAUNCHES``;
+- ``render_fast_plain``, ``record_paths_plain`` and ``hit_records_plain``:
+  the same functions as tensor code over all lanes at once, with the
+  kernel's arithmetic in the kernel's order (one shared search,
+  ``_closest_surface`` and ``_media``). They are what runs for tensors on the
+  CPU and what the kernels are held against on the card. The plain search
+  tests every primitive whatever ``use_bvh`` says and returns the first
+  minimum in (t, kind, idx) order, the brute loop's winner, which the BVH
+  walk's tie rule returns too: an answer that does not depend on the tree.
 
 Camera, spp, depth, primitive counts, seed, pixel range and sample offset
 are runtime arguments of the kernel, so one compiled library serves every
@@ -58,11 +67,17 @@ from ..runtime.kernels import LAUNCHES
 from . import hashrng
 from .hashrng import CounterRng
 
-# Primitive count past which the reference switches its fused kernel from the
-# brute-force loop to an in-kernel BVH walk. Copied as a policy constant: it
-# was measured on a TPU and awaits its own measurement on the GPU. The BVH
-# branch of the kernel is not ported yet, so scenes at or past it raise.
+# Primitive count from which the kernels walk the kernel BVH instead of the
+# brute-force loop (the default of every entry's ``use_bvh``). Copied as a
+# policy constant: it was measured on a TPU; the card's own crossover is in
+# PERF.md (chip_smoke.py, phase crossover).
 BVH_KERNEL_THRESHOLD = 1024
+
+# Leaf runs of the kernel BVH hold up to this many primitives.
+BVH_LEAF_SIZE = 16
+
+# Lanes x primitives per step of the plain search: bounds its temporaries.
+SEARCH_CHUNK = 1 << 23
 
 # f32 origin offset along the normal after a surface scatter.
 ORIGIN_EPS_ABS = 1e-4
@@ -103,6 +118,9 @@ class PackedScene:
     tex_f: np.ndarray   # (T,4) f32: rgb_r rgb_g rgb_b scale (inv or noise)
     tex_i: np.ndarray   # (T,3) i32: type even odd
     img_f: np.ndarray   # (3,IH,IW) f32: mipped image texels r g b
+    bvh_f: np.ndarray   # (N,6) f32: node min xyz, max xyz
+    bvh_i: np.ndarray   # (N,4) i32: skip start count scount (count 0: inner)
+    prim_i: np.ndarray  # (P,2) i32: kind (0 sphere, 1 quad) idx, leaf order
     n_spheres: int = 0
     n_quads: int = 0
     n_media: int = 0
@@ -111,11 +129,14 @@ class PackedScene:
     has_image: bool = False
     img_h: int = 1
     img_w: int = 1
+    use_bvh: bool = False  # the tables hold a tree
+    n_nodes: int = 1
 
-    # the kernel's pointer arguments, in order (the render kernel also takes
-    # ``img_f``)
+    # the kernels' pointer arguments, in order (the render kernel also takes
+    # ``img_f``). On the device ``bvh_f`` is padded to (N,8): two 16-byte
+    # loads a node.
     TABLES = ("sph_f", "sph_m", "quad_f", "quad_m", "med_f", "med_i",
-              "mat_f", "mat_i", "tex_f", "tex_i")
+              "mat_f", "mat_i", "tex_f", "tex_i", "bvh_f", "bvh_i", "prim_i")
 
 
 def _np(t) -> np.ndarray:
@@ -123,10 +144,11 @@ def _np(t) -> np.ndarray:
         else np.asarray(t)
 
 
-def pack_scene(scene) -> PackedScene:
-    """Pack a CompiledScene into the kernel's tables. Derived quantities
-    (r^2, 1/r, quad normal, w, d) are computed in float64 from the scene's
-    f32 leaves and rounded once, exactly as the reference pack does."""
+def pack_scene(scene, bvh=None) -> PackedScene:
+    """Pack a CompiledScene (and a ``KernelBVH`` of it, if given) into the
+    kernel's tables. Derived quantities (r^2, 1/r, quad normal, w, d) are
+    computed in float64 from the scene's f32 leaves and rounded once, exactly
+    as the reference pack does."""
     f64 = lambda a: _np(a).astype(np.float64)
     sv = _np(scene.sph_valid)
     qv = _np(scene.quad_valid)
@@ -206,15 +228,129 @@ def pack_scene(scene) -> PackedScene:
     img_f = np.ascontiguousarray(
         img.reshape(-1, 3).T.astype(np.float32).reshape(3, ih, iw))
 
+    # the kernel BVH (megakernel.py:204-213); one zero row each without it
+    if bvh is not None:
+        bvh_f = np.concatenate([bvh.node_min, bvh.node_max],
+                               -1).astype(np.float32)
+        bvh_i = np.stack([bvh.skip, bvh.leaf_start, bvh.leaf_count,
+                          bvh.leaf_scount], -1).astype(np.int32)
+        prim_i = bvh.prim_stream.astype(np.int32)
+    else:
+        bvh_f = np.zeros((1, 6), np.float32)
+        bvh_i = np.zeros((1, 4), np.int32)
+        prim_i = np.zeros((1, 2), np.int32)
+
     return PackedScene(
         sph_f=sph_f, sph_m=sph_m, quad_f=quad_f, quad_m=quad_m,
         med_f=med_f, med_i=med_i, mat_f=mat_f, mat_i=mat_i,
         tex_f=tex_f, tex_i=tex_i, img_f=img_f,
+        bvh_f=bvh_f, bvh_i=bvh_i, prim_i=prim_i,
         n_spheres=S, n_quads=Q, n_media=M,
         has_checker=bool((tex_types == TEX_CHECKER).any()),
         has_noise=bool((tex_types == TEX_NOISE).any()),
         has_image=has_image, img_h=ih, img_w=iw,
+        use_bvh=bvh is not None, n_nodes=bvh_i.shape[0],
     )
+
+
+@dataclasses.dataclass
+class KernelBVH:
+    """Flat skip-link tree with contiguous leaf runs over a reordered
+    primitive stream: models/bvh.py's layout specialised for the kernels."""
+
+    node_min: np.ndarray     # (N,3) f64
+    node_max: np.ndarray     # (N,3) f64
+    skip: np.ndarray         # (N,) i32: next node when the box is missed
+    leaf_start: np.ndarray   # (N,) i32
+    leaf_count: np.ndarray   # (N,) i32, 0 for an inner node
+    leaf_scount: np.ndarray  # (N,) i32: leading sphere count of the leaf run
+    prim_stream: np.ndarray  # (P,2) i32: kind idx, leaf order, spheres first
+
+
+def build_kernel_bvh(scene,
+                     leaf_size: int = BVH_LEAF_SIZE) -> Optional[KernelBVH]:
+    """Median-split BVH over the scene's valid primitives, flattened in
+    preorder with skip links, whose leaves hold runs of up to ``leaf_size``
+    primitives stored contiguously in a reordered stream, spheres first: the
+    kernel tests a leaf with two typed loops (megakernel.py:255-349).
+
+    The split axis is the box's largest extent. The tree decides which
+    primitives a ray tests, never which one wins. None for a scene without
+    primitives."""
+    from ..models import bvh as bvh_mod
+
+    sv = _np(scene.sph_valid)
+    qv = _np(scene.quad_valid)
+
+    class _B:  # bvh_mod.primitive_boxes over the valid primitives only
+        sph_center = _np(scene.sph_center)[sv]
+        sph_radius = _np(scene.sph_radius)[sv]
+        sph_cvec = _np(scene.sph_cvec)[sv]
+        quad_q = _np(scene.quad_q)[qv]
+        quad_u = _np(scene.quad_u)[qv]
+        quad_v = _np(scene.quad_v)[qv]
+        num_spheres = int(sv.sum())
+        num_quads = int(qv.sum())
+
+    box_min, box_max, ptype, pidx = bvh_mod.primitive_boxes(_B)
+    n = len(pidx)
+    if n == 0:
+        return None
+    node_min, node_max, skip, lstart, lcount, lscount = [], [], [], [], [], []
+    stream = []
+
+    def emit(lo, hi, start, count, scount=0):
+        node_min.append(lo)
+        node_max.append(hi)
+        skip.append(-1)
+        lstart.append(start)
+        lcount.append(count)
+        lscount.append(scount)
+        return len(skip) - 1
+
+    def rec(order):
+        lo = box_min[order].min(0)
+        hi = box_max[order].max(0)
+        if len(order) <= leaf_size:
+            start = len(stream)
+            sph = [q for q in order if ptype[q] == 0]
+            qds = [q for q in order if ptype[q] != 0]
+            stream.extend((0, int(pidx[q])) for q in sph)
+            stream.extend((1, int(pidx[q])) for q in qds)
+            return emit(lo, hi, start, len(order), len(sph))
+        me = emit(lo, hi, 0, 0)
+        axis = int(np.argmax(hi - lo))
+        ordered = order[np.argsort(box_min[order][:, axis], kind="stable")]
+        half = len(order) // 2
+        rec(ordered[:half])
+        rec(ordered[half:])
+        skip[me] = len(skip)  # past the whole subtree
+        return me
+
+    rec(np.arange(n))  # depth ~log2(n / leaf_size): no recursion limit
+    N = len(skip)
+    skip_arr = np.asarray(skip, np.int64)
+    unset = skip_arr < 0  # leaves fall through to the next node
+    skip_arr[unset] = np.arange(N)[unset] + 1
+    return KernelBVH(
+        node_min=np.asarray(node_min, np.float64).reshape(N, 3),
+        node_max=np.asarray(node_max, np.float64).reshape(N, 3),
+        skip=skip_arr.astype(np.int32),
+        leaf_start=np.asarray(lstart, np.int32),
+        leaf_count=np.asarray(lcount, np.int32),
+        leaf_scount=np.asarray(lscount, np.int32),
+        prim_stream=np.asarray(stream, np.int32).reshape(-1, 2),
+    )
+
+
+def n_prims(scene) -> int:
+    """Valid spheres plus valid quads."""
+    return int(_np(scene.sph_valid).sum() + _np(scene.quad_valid).sum())
+
+
+def _use_bvh(scene, use_bvh: Optional[bool]) -> bool:
+    return n_prims(scene) >= BVH_KERNEL_THRESHOLD if use_bvh is None \
+        else bool(use_bvh)
 
 
 def _tex_reaches_image(scene, tex_ids) -> bool:
@@ -258,13 +394,15 @@ def supports(scene) -> bool:
 # oldest entry evicted, so a loop that compiles a scene per step cannot leak
 # device memory.
 _pack_cache: "collections.OrderedDict" = collections.OrderedDict()
-_PACK_CACHE_MAX = 8  # id(scene) -> (weakref, packed, device tables)
+_PACK_CACHE_MAX = 8  # (id(scene), use_bvh) -> (weakref, packed, tables)
 
 
-def _packed_dev(scene) -> Tuple[PackedScene, dict]:
-    """(packed, tables) for a scene: the host pack and its tables as
-    contiguous tensors on the scene's device."""
-    key = id(scene)
+def _packed_dev(scene, use_bvh: bool = False) -> Tuple[PackedScene, dict]:
+    """(packed, tables) for a scene: the host pack (with the kernel BVH when
+    ``use_bvh``) and its tables as contiguous tensors on the scene's device.
+    ``packed.use_bvh`` says whether a tree exists (a scene without
+    primitives has none)."""
+    key = (id(scene), bool(use_bvh))
     ent = _pack_cache.get(key)
     if ent is not None and ent[0]() is scene:
         _pack_cache.move_to_end(key)
@@ -273,10 +411,13 @@ def _packed_dev(scene) -> Tuple[PackedScene, dict]:
         del _pack_cache[k]
     while len(_pack_cache) >= _PACK_CACHE_MAX:
         _pack_cache.popitem(last=False)
-    packed = pack_scene(scene)
+    packed = pack_scene(scene, build_kernel_bvh(scene) if use_bvh else None)
     dev = scene.device
-    tables = {name: torch.from_numpy(getattr(packed, name)).to(dev).contiguous()
-              for name in PackedScene.TABLES + ("img_f",)}
+    host = {name: getattr(packed, name)
+            for name in PackedScene.TABLES + ("img_f",)}
+    host["bvh_f"] = np.pad(packed.bvh_f, ((0, 0), (0, 2)))
+    tables = {name: torch.from_numpy(a).to(dev).contiguous()
+              for name, a in host.items()}
     _pack_cache[key] = (weakref.ref(scene), packed, tables)
     return packed, tables
 
@@ -310,6 +451,8 @@ class RenderParams(ctypes.Structure):
         ("has_image", ctypes.c_int),
         ("img_h", ctypes.c_int),
         ("img_w", ctypes.c_int),
+        ("use_bvh", ctypes.c_int),
+        ("n_nodes", ctypes.c_int),
     ]
 
 
@@ -340,7 +483,20 @@ def make_params(camera, packed: PackedScene, seed: int, spp: int,
         pixel_base=int(pixel_base), pixel_count=int(pixel_count),
         sample_offset=int(sample_offset), has_noise=int(packed.has_noise),
         has_image=int(packed.has_image), img_h=packed.img_h,
-        img_w=packed.img_w)
+        img_w=packed.img_w, use_bvh=int(packed.use_bvh),
+        n_nodes=packed.n_nodes)
+
+
+def search_params(packed: PackedScene, seed: int) -> RenderParams:
+    """The runtime arguments the hit kernel reads: primitive counts, the
+    seed (low 32 bits, as int32) and the tree's. Camera and frame fields are
+    unused there and hold a 1x1 frame."""
+    return RenderParams(
+        width=1, height=1, spp=1, max_depth=1, pixel_count=1,
+        n_spheres=packed.n_spheres, n_quads=packed.n_quads,
+        n_media=packed.n_media, seed=hashrng._i32(int(seed)),
+        img_h=packed.img_h, img_w=packed.img_w,
+        use_bvh=int(packed.use_bvh), n_nodes=packed.n_nodes)
 
 
 # table -> (dtype, trailing shape, the count in RenderParams it must cover)
@@ -355,6 +511,9 @@ _TABLE_SPEC = {
     "mat_i": (torch.int32, (2,), None),
     "tex_f": (torch.float32, (4,), None),
     "tex_i": (torch.int32, (3,), None),
+    "bvh_f": (torch.float32, (8,), "n_nodes"),
+    "bvh_i": (torch.int32, (4,), "n_nodes"),
+    "prim_i": (torch.int32, (2,), None),
 }
 
 
@@ -390,13 +549,29 @@ def _check_image(tables: dict, p: RenderParams, dev) -> torch.Tensor:
     return img
 
 
-def render_kernel(tables: dict, p: RenderParams):
+def _counter_ptr(counters: Optional[torch.Tensor], rows: int, dev) -> int:
+    """Pointer of a walk-counter buffer ((rows, 3) int32 on ``dev``), or 0."""
+    if counters is None:
+        return 0
+    if (counters.device != dev or counters.dtype != torch.int32
+            or not counters.is_contiguous()
+            or tuple(counters.shape) != (rows, 3)):
+        raise ValueError(f"counters are {tuple(counters.shape)} "
+                         f"{counters.dtype} on {counters.device}, expected "
+                         f"contiguous int32 ({rows}, 3) on {dev}")
+    return counters.data_ptr()
+
+
+def render_kernel(tables: dict, p: RenderParams,
+                  counters: Optional[torch.Tensor] = None):
     """One launch of the CUDA render kernel over pixels
     ``[p.pixel_base, p.pixel_base + p.pixel_count)``.
 
     ``tables`` are the packed scene tables (and the image table ``img_f``)
-    as contiguous CUDA tensors; ``p.has_noise`` and ``p.has_image`` select
-    the kernel's instantiation with the noise and image arms.
+    as contiguous CUDA tensors; ``p.has_noise``, ``p.has_image`` and
+    ``p.use_bvh`` select the kernel's instantiation. With ``p.use_bvh``,
+    ``counters`` ((pixel_count, 3) int32, optional) receives each pixel's
+    BVH node visits, sphere tests and quad tests; it changes no result.
     Returns ``(rgb (count,3) f32, n (count,) i32)``: the per-pixel mean
     radiance over ``p.spp`` samples and the number of scene queries traced.
     Launches on the current stream and does not synchronise. Tensors that
@@ -406,6 +581,7 @@ def render_kernel(tables: dict, p: RenderParams):
     if dev.type != "cuda":
         raise ValueError(f"render_kernel needs CUDA tensors, got {dev}")
     img = _check_image(tables, p, dev)
+    cnt = _counter_ptr(counters, p.pixel_count, dev)
     from ..runtime import kernels
 
     lib = kernels.load()
@@ -415,14 +591,17 @@ def render_kernel(tables: dict, p: RenderParams):
         err = lib.rt_render_launch(
             *[tables[name].data_ptr() for name in PackedScene.TABLES],
             img.data_ptr(), ctypes.byref(p), rgb.data_ptr(), n.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            cnt, torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["render_kernel"] += 1
     kernels.check(err, "render kernel")
     return rgb, n
 
 
-def record_kernel(tables: dict, p: RenderParams) -> torch.Tensor:
-    """One launch of the CUDA path recorder over the pixel range of ``p``.
+def record_kernel(tables: dict, p: RenderParams,
+                  counters: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the CUDA path recorder over the pixel range of ``p``
+    (``p.use_bvh`` picks the BVH walk; ``counters`` as for
+    ``render_kernel``).
 
     Returns ``(p.max_depth, p.spp, p.pixel_count)`` int32 packed winner
     records (``kind<<24 | idx``; 0 for a miss or a dead path), depth-major.
@@ -433,6 +612,7 @@ def record_kernel(tables: dict, p: RenderParams) -> torch.Tensor:
         raise ValueError(f"record_kernel needs CUDA tensors, got {dev}")
     if p.max_depth < 1:
         raise ValueError(f"max_depth must be >= 1, got {p.max_depth}")
+    cnt = _counter_ptr(counters, p.pixel_count, dev)
     from ..runtime import kernels
 
     lib = kernels.load()
@@ -441,11 +621,64 @@ def record_kernel(tables: dict, p: RenderParams) -> torch.Tensor:
                           dtype=torch.int32, device=dev)
         err = lib.rt_record_launch(
             *[tables[name].data_ptr() for name in PackedScene.TABLES],
-            ctypes.byref(p), rec.data_ptr(),
+            ctypes.byref(p), rec.data_ptr(), cnt,
             torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["record_kernel"] += 1
     kernels.check(err, "record kernel")
     return rec
+
+
+_LANE_DTYPES = (torch.float32,) * 7 + (torch.int32, torch.int32, torch.bool)
+_LANE_NAMES = ("ox", "oy", "oz", "dx", "dy", "dz", "time", "pix", "samp",
+               "alive")
+
+
+def _check_lanes(lanes, dev) -> int:
+    """The hit search's ten (n,) lane tensors: f32 ray, int32 pixel and
+    sample ids, bool alive, contiguous, on ``dev``. Returns n."""
+    n = lanes[0].shape[0] if lanes[0].dim() == 1 else -1
+    for name, t, dt in zip(_LANE_NAMES, lanes, _LANE_DTYPES):
+        if (t.device != dev or t.dtype != dt or t.dim() != 1
+                or t.shape[0] != n or not t.is_contiguous()):
+            raise ValueError(f"lane {name} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, expected contiguous {dt} ({n},) "
+                             f"on {dev}")
+    return n
+
+
+def hit_kernel(tables: dict, p: RenderParams, ox, oy, oz, dx, dy, dz, time,
+               pix, samp, alive, bounce: int,
+               counters: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the CUDA hit kernel (one bounce's closest hit over
+    supplied rays, media included; ``p.use_bvh`` picks the BVH walk).
+
+    The lanes are (n,) tensors: ray origin, direction and time f32, pixel
+    and sample ids int32 (they address the medium draws with ``p.seed`` and
+    ``bounce``), ``alive`` bool. Returns (n,) int32 winner records
+    ``kind<<24 | idx``, 0 for a miss or a dead lane. ``counters`` as for
+    ``render_kernel``, one row a lane. Launches on the current stream and
+    does not synchronise. Tensors that are not on a CUDA device are
+    refused."""
+    dev = _check_tables(tables, p)
+    if dev.type != "cuda":
+        raise ValueError(f"hit_kernel needs CUDA tensors, got {dev}")
+    lanes = (ox, oy, oz, dx, dy, dz, time, pix, samp, alive)
+    n = _check_lanes(lanes, dev)
+    if n < 1:
+        raise ValueError("hit_kernel needs at least one lane")
+    cnt = _counter_ptr(counters, n, dev)
+    from ..runtime import kernels
+
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        out = torch.empty((n,), dtype=torch.int32, device=dev)
+        err = lib.rt_hit_launch(
+            *[tables[name].data_ptr() for name in PackedScene.TABLES],
+            ctypes.byref(p), *[t.data_ptr() for t in lanes], n, int(bounce),
+            out.data_ptr(), cnt, torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["hit_kernel"] += 1
+    kernels.check(err, "hit kernel")
+    return out
 
 
 # ----------------------------------------------------------- plain version
@@ -538,11 +771,11 @@ def _arccos(x):
 def render_fast_plain(tables: dict, p: RenderParams):
     """Plain PyTorch version of ``render_kernel``: same inputs, same two
     outputs, as tensor code over all pixels of the range at once. A Python
-    loop over samples and bounces; a Python loop over the packed primitive
-    rows applying the sphere and quad tests as masked updates in the kernel's
-    order; the same media, scatter and texture arithmetic, written with the
-    same operations in the same order (explicit multiply-adds, no matmul, no
-    pow, no fused multiply-add)."""
+    loop over samples and bounces; every primitive tested for every lane
+    (``_closest_surface``, whatever ``p.use_bvh`` says); the same media,
+    scatter and texture arithmetic, written with the same operations in the
+    same order (explicit multiply-adds, no matmul, no pow, no fused
+    multiply-add)."""
     return _trace_plain(tables, p, record=False)
 
 
@@ -556,20 +789,200 @@ def record_paths_plain(tables: dict, p: RenderParams) -> torch.Tensor:
     return _trace_plain(tables, p, record=True)
 
 
+def _sphere_t(sph, ox, oy, oz, dx, dy, dz, rtime, a_len, inv_a):
+    """t of every (lane, sphere) pair, inf where the ray misses (sphere.rs:
+    59-89 + the moving-centre lerp; strict bounds, near root first): the
+    kernel's sphere test, broadcast over ``sph`` rows (S,8) and (L,1) lanes.
+    A root counts against an open window (T_MIN, inf), so each sphere's t
+    does not depend on the primitives tested before it."""
+    col = lambda k: sph[:, k]
+    ccx = col(0) + col(5) * rtime
+    ccy = col(1) + col(6) * rtime
+    ccz = col(2) + col(7) * rtime
+    ocx, ocy, ocz = ox - ccx, oy - ccy, oz - ccz
+    half_b = ocx * dx + ocy * dy + ocz * dz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - col(3)
+    disc = half_b * half_b - a_len * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    r1 = (-half_b - sq) * inv_a
+    rr2 = (-half_b + sq) * inv_a
+    ok1 = (r1 > T_MIN) & (r1 < math.inf)
+    ok2 = (rr2 > T_MIN) & (rr2 < math.inf)
+    root = torch.where(ok1, r1, rr2)
+    return torch.where((disc > 0.0) & (ok1 | ok2), root, math.inf)
+
+
+def _quad_t(quad, ox, oy, oz, dx, dy, dz):
+    """t of every (lane, quad) pair, inf where the ray misses (quad.rs:
+    96-133: inclusive bounds, no back-face culling), as the kernel's quad
+    test computes it."""
+    col = lambda k: quad[:, k]
+    nx, ny, nz = col(9), col(10), col(11)
+    denom = nx * dx + ny * dy + nz * dz
+    safe = torch.where(denom.abs() < 1e-30, 1e-30, denom)
+    t = (col(15) - (nx * ox + ny * oy + nz * oz)) / safe
+    hx = ox + t * dx - col(0)
+    hy = oy + t * dy - col(1)
+    hz = oz + t * dz - col(2)
+    ux, uy, uz = col(3), col(4), col(5)
+    vx, vy, vz = col(6), col(7), col(8)
+    wx, wy, wz = col(12), col(13), col(14)
+    alpha = (wx * (hy * vz - hz * vy) + wy * (hz * vx - hx * vz)
+             + wz * (hx * vy - hy * vx))
+    beta = (wx * (uy * hz - uz * hy) + wy * (uz * hx - ux * hz)
+            + wz * (ux * hy - uy * hx))
+    hit = ((denom.abs() >= QUAD_DENOM_EPS)
+           & (t >= T_MIN) & (t < math.inf)
+           & (alpha >= 0.0) & (alpha <= 1.0)
+           & (beta >= 0.0) & (beta <= 1.0))
+    return torch.where(hit, t, math.inf)
+
+
+def _closest_surface(tables: dict, p: RenderParams, ox, oy, oz, dx, dy, dz,
+                     rtime, alive):
+    """Closest sphere or quad of every lane, testing every primitive: the
+    plain version of the kernels' search, brute loop and BVH walk alike.
+
+    The winner is the first minimum in (t, kind, idx) order, spheres before
+    quads, index order inside each kind. That is the brute loop's winner
+    (spheres then quads, accepting only ``t < t_best``: each primitive's t
+    comes from the same f32 operations whatever was tested before it) and
+    the BVH walk's (its tie rule). Lanes go in chunks of ``SEARCH_CHUNK``
+    lanes x primitives.
+
+    Returns (t_best, mat, nx, ny, nz, rec, a_len, inv_a): t_best is inf on a
+    miss and T_MIN on a dead lane (the media test then finds nothing); mat
+    and rec (kind<<24 | idx) are int64; the normal is outward, (0, 0, 1) on
+    a miss."""
+    a_len = dx * dx + dy * dy + dz * dz
+    inv_a = 1.0 / torch.clamp(a_len, min=1e-30)
+    R, dev = ox.shape[0], ox.device
+    S, Q = p.n_spheres, p.n_quads
+    sph, quad = tables["sph_f"], tables["quad_f"]
+    t_win = torch.full((R,), math.inf, dtype=torch.float32, device=dev)
+    j_win = torch.zeros(R, dtype=torch.int64, device=dev)
+    step = max(1, SEARCH_CHUNK // max(S + Q, 1))
+    for l0 in range(0, R if S + Q else 0, step):
+        sl = slice(l0, l0 + step)
+        lane = [v[sl, None] for v in (ox, oy, oz, dx, dy, dz)]
+        parts = []
+        if S:
+            parts.append(_sphere_t(sph[:S], *lane, rtime[sl, None],
+                                   a_len[sl, None], inv_a[sl, None]))
+        if Q:
+            parts.append(_quad_t(quad[:Q], *lane))
+        t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        j = torch.argmin(t, dim=1)  # the first minimum
+        t_win[sl] = t.gather(1, j[:, None])[:, 0]
+        j_win[sl] = j
+    hit = torch.isfinite(t_win) & alive
+    t_best = torch.where(hit, t_win,
+                         torch.where(alive, math.inf, T_MIN).to(torch.float32))
+    is_sph = hit & (j_win < S)
+    is_quad = hit & (j_win >= S)
+    # the winner's normal and material, from its own row with the kernel's
+    # operations
+    si = torch.where(is_sph, j_win, 0)
+    qi = torch.where(is_quad, j_win - S, 0)
+    srow, qrow = sph[si], quad[qi]
+    root = torch.where(is_sph, t_win, 0.0)
+    ccx = srow[:, 0] + srow[:, 5] * rtime
+    ccy = srow[:, 1] + srow[:, 6] * rtime
+    ccz = srow[:, 2] + srow[:, 7] * rtime
+    zero = torch.zeros_like(ox)
+    nx = torch.where(is_sph, (ox + root * dx - ccx) * srow[:, 4],
+                     torch.where(is_quad, qrow[:, 9], zero))
+    ny = torch.where(is_sph, (oy + root * dy - ccy) * srow[:, 4],
+                     torch.where(is_quad, qrow[:, 10], zero))
+    nz = torch.where(is_sph, (oz + root * dz - ccz) * srow[:, 4],
+                     torch.where(is_quad, qrow[:, 11], zero + 1.0))
+    mat = torch.where(is_sph, tables["sph_m"][si].long(),
+                      torch.where(is_quad, tables["quad_m"][qi].long(), 0))
+    rec = torch.where(is_sph, (1 << 24) | si,
+                      torch.where(is_quad, (2 << 24) | qi, 0))
+    return t_best, mat, nx, ny, nz, rec, a_len, inv_a
+
+
+def _media_rows(tables: dict, p: RenderParams):
+    """(row as floats, type, material) of every packed medium, on the
+    host."""
+    med_f = tables["med_f"].detach().cpu().numpy()
+    med_i = tables["med_i"].detach().cpu().numpy()
+    return [([float(x) for x in med_f[i]], int(med_i[i, 0]), int(med_i[i, 1]))
+            for i in range(p.n_media)]
+
+
+def _media(media, ox, oy, oz, dx, dy, dz, a_len, inv_a, rngb, t_best, w_mat,
+           w_rec):
+    """Constant media (constant_medium.rs:34-71) after the surface search:
+    boundary entry and exit in closed form, exponential free flight from
+    draw ``SITE_MEDIUM + i``. A medium wins only where its scatter point is
+    nearer than the winner so far. Returns (t_best, mat, rec, is_med)."""
+    w_is_med = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
+    fzero = torch.zeros_like(ox)
+    for i, (m, kind, mat) in enumerate(media):
+        if kind == MED_BOX:
+            rx, ry, rz = ox - m[9], oy - m[10], oz - m[11]
+            lo_ = (m[0] * rx + m[1] * ry + m[2] * rz,
+                   m[3] * rx + m[4] * ry + m[5] * rz,
+                   m[6] * rx + m[7] * ry + m[8] * rz)
+            ld_ = (m[0] * dx + m[1] * dy + m[2] * dz,
+                   m[3] * dx + m[4] * dy + m[5] * dz,
+                   m[6] * dx + m[7] * dy + m[8] * dz)
+            entry = fzero - float("inf")
+            exit_ = fzero + float("inf")
+            for ax in range(3):
+                oo, dd2 = lo_[ax], ld_[ax]
+                invd = 1.0 / torch.where(dd2.abs() < 1e-30, 1e-30, dd2)
+                t0 = (m[12 + ax] - oo) * invd
+                t1 = (m[15 + ax] - oo) * invd
+                entry = torch.maximum(entry, torch.minimum(t0, t1))
+                exit_ = torch.minimum(exit_, torch.maximum(t0, t1))
+            okb = entry < exit_
+        else:
+            ocx, ocy, ocz = ox - m[18], oy - m[19], oz - m[20]
+            half_b = ocx * dx + ocy * dy + ocz * dz
+            c = ocx * ocx + ocy * ocy + ocz * ocz - m[21]
+            disc = half_b * half_b - a_len * c
+            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            entry = (-half_b - sq) * inv_a
+            exit_ = (-half_b + sq) * inv_a
+            okb = disc > 0.0
+        entry = torch.clamp(entry, min=T_MIN)
+        exit_ = torch.minimum(exit_, t_best)
+        okb = okb & (entry < exit_)
+        ray_len = torch.sqrt(a_len)
+        dist_in = (exit_ - entry) * ray_len
+        u = torch.clamp(rngb.uniform(hashrng.SITE_MEDIUM + i), min=1e-12)
+        hd = m[22] * torch.log(u)
+        okb = okb & (hd <= dist_in)
+        t_m = entry + hd / ray_len
+        hit = okb & (t_m < t_best)
+        t_best = torch.where(hit, t_m, t_best)
+        w_mat = torch.where(hit, mat, w_mat)
+        w_rec = torch.where(hit, (3 + i) << 24, w_rec)
+        w_is_med = w_is_med | hit
+    return t_best, w_mat, w_rec, w_is_med
+
+
+def hit_records_plain(tables: dict, p: RenderParams, ox, oy, oz, dx, dy, dz,
+                      time, pix, samp, alive, bounce: int) -> torch.Tensor:
+    """Plain PyTorch version of ``hit_kernel``: one bounce of the plain
+    trace in record mode over the given lanes. Returns (n,) int32 records,
+    0 for a miss or a dead lane."""
+    _check_tables(tables, p)
+    rngb = CounterRng(p.seed, pix, samp, int(bounce))
+    t_best, w_mat, _, _, _, w_rec, a_len, inv_a = _closest_surface(
+        tables, p, ox, oy, oz, dx, dy, dz, time, alive)
+    t_best, _, w_rec, _ = _media(_media_rows(tables, p), ox, oy, oz, dx, dy,
+                                 dz, a_len, inv_a, rngb, t_best, w_mat, w_rec)
+    return torch.where(torch.isfinite(t_best) & alive, w_rec,
+                       0).to(torch.int32)
+
+
 def _trace_plain(tables: dict, p: RenderParams, record: bool):
     dev = _check_tables(tables, p)
-    host = {k: tables[k].detach().cpu().numpy() for k in
-            ("sph_f", "sph_m", "quad_f", "quad_m", "med_f", "med_i")}
-    sph_rows = [[float(x) for x in host["sph_f"][i]]
-                for i in range(p.n_spheres)]
-    sph_mats = [int(host["sph_m"][i]) for i in range(p.n_spheres)]
-    quad_rows = [[float(x) for x in host["quad_f"][i]]
-                 for i in range(p.n_quads)]
-    quad_mats = [int(host["quad_m"][i]) for i in range(p.n_quads)]
-    med_rows = [[float(x) for x in host["med_f"][i]]
-                for i in range(p.n_media)]
-    med_kinds = [(int(host["med_i"][i, 0]), int(host["med_i"][i, 1]))
-                 for i in range(p.n_media)]
+    media = _media_rows(tables, p)
     mat_f, tex_f = tables["mat_f"], tables["tex_f"]
     mat_i, tex_i = tables["mat_i"].long(), tables["tex_i"].long()
     has_checker = bool((tex_i[:, 0] == TEX_CHECKER).any())
@@ -596,7 +1009,6 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
     pi = (pid % p.width).to(torch.float32)
     pj = torch.div(pid, p.width, rounding_mode="floor").to(torch.float32)
     fzero = torch.zeros(P, dtype=torch.float32, device=dev)
-    izero = torch.zeros(P, dtype=torch.int64, device=dev)
 
     def tex_value(tid, hpx, hpy, hpz, tex_u, tex_v):
         turb = []  # the hash turbulence at p, computed once per bounce
@@ -645,62 +1057,6 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
             b = torch.where(is_chk, cb, b)
         return r, g, b
 
-    def closest_surface(ox, oy, oz, dx, dy, dz, rtime, alive):
-        a_len = dx * dx + dy * dy + dz * dz
-        inv_a = 1.0 / torch.clamp(a_len, min=1e-30)
-        t_best = torch.where(alive, float("inf"), T_MIN).to(torch.float32)
-        w_mat, w_nx, w_ny, w_nz = izero, fzero, fzero, fzero + 1.0
-        w_rec = izero  # winner record kind<<24 | idx
-        for i, (s, m) in enumerate(zip(sph_rows, sph_mats)):
-            # sphere.rs:59-89 + moving-centre lerp; strict bounds, near root
-            ccx = s[0] + s[5] * rtime
-            ccy = s[1] + s[6] * rtime
-            ccz = s[2] + s[7] * rtime
-            ocx, ocy, ocz = ox - ccx, oy - ccy, oz - ccz
-            half_b = ocx * dx + ocy * dy + ocz * dz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - s[3]
-            disc = half_b * half_b - a_len * c
-            sq = torch.sqrt(torch.clamp(disc, min=0.0))
-            r1 = (-half_b - sq) * inv_a
-            rr2 = (-half_b + sq) * inv_a
-            ok1 = (r1 > T_MIN) & (r1 < t_best)
-            ok2 = (rr2 > T_MIN) & (rr2 < t_best)
-            root = torch.where(ok1, r1, rr2)
-            hit = (disc > 0.0) & (ok1 | ok2)
-            t_best = torch.where(hit, root, t_best)
-            w_mat = torch.where(hit, m, w_mat)
-            w_nx = torch.where(hit, (ox + root * dx - ccx) * s[4], w_nx)
-            w_ny = torch.where(hit, (oy + root * dy - ccy) * s[4], w_ny)
-            w_nz = torch.where(hit, (oz + root * dz - ccz) * s[4], w_nz)
-            w_rec = torch.where(hit, (1 << 24) | i, w_rec)
-        for i, (q, m) in enumerate(zip(quad_rows, quad_mats)):
-            # quad.rs:96-133: inclusive bounds, no back-face culling
-            nx, ny, nz = q[9], q[10], q[11]
-            denom = nx * dx + ny * dy + nz * dz
-            safe = torch.where(denom.abs() < 1e-30, 1e-30, denom)
-            t = (q[15] - (nx * ox + ny * oy + nz * oz)) / safe
-            hx = ox + t * dx - q[0]
-            hy = oy + t * dy - q[1]
-            hz = oz + t * dz - q[2]
-            ux, uy, uz = q[3], q[4], q[5]
-            vx, vy, vz = q[6], q[7], q[8]
-            wx, wy, wz = q[12], q[13], q[14]
-            alpha = (wx * (hy * vz - hz * vy) + wy * (hz * vx - hx * vz)
-                     + wz * (hx * vy - hy * vx))
-            beta = (wx * (uy * hz - uz * hy) + wy * (uz * hx - ux * hz)
-                    + wz * (ux * hy - uy * hx))
-            hit = ((denom.abs() >= QUAD_DENOM_EPS)
-                   & (t >= T_MIN) & (t < t_best)
-                   & (alpha >= 0.0) & (alpha <= 1.0)
-                   & (beta >= 0.0) & (beta <= 1.0))
-            t_best = torch.where(hit, t, t_best)
-            w_mat = torch.where(hit, m, w_mat)
-            w_nx = torch.where(hit, nx, w_nx)
-            w_ny = torch.where(hit, ny, w_ny)
-            w_nz = torch.where(hit, nz, w_nz)
-            w_rec = torch.where(hit, (2 << 24) | i, w_rec)
-        return t_best, w_mat, w_nx, w_ny, w_nz, w_rec, a_len, inv_a
-
     def camera_ray(s_glob):
         rng = CounterRng(seed, pid, s_glob)
         jx = rng.uniform(hashrng.SITE_PIXEL_JX) - 0.5
@@ -723,52 +1079,10 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
         ox, oy, oz = o
         dx, dy, dz = d
         t_best, w_mat, w_nx, w_ny, w_nz, w_rec, a_len, inv_a = \
-            closest_surface(ox, oy, oz, dx, dy, dz, rtime, alive)
-        w_is_med = torch.zeros(P, dtype=torch.bool, device=dev)
-
-        # constant media (constant_medium.rs:34-71)
-        for i, (m, (kind, mat)) in enumerate(zip(med_rows, med_kinds)):
-            if kind == MED_BOX:
-                rx, ry, rz = ox - m[9], oy - m[10], oz - m[11]
-                lo_ = (m[0] * rx + m[1] * ry + m[2] * rz,
-                       m[3] * rx + m[4] * ry + m[5] * rz,
-                       m[6] * rx + m[7] * ry + m[8] * rz)
-                ld_ = (m[0] * dx + m[1] * dy + m[2] * dz,
-                       m[3] * dx + m[4] * dy + m[5] * dz,
-                       m[6] * dx + m[7] * dy + m[8] * dz)
-                entry = fzero - float("inf")
-                exit_ = fzero + float("inf")
-                for ax in range(3):
-                    oo, dd2 = lo_[ax], ld_[ax]
-                    invd = 1.0 / torch.where(dd2.abs() < 1e-30, 1e-30, dd2)
-                    t0 = (m[12 + ax] - oo) * invd
-                    t1 = (m[15 + ax] - oo) * invd
-                    entry = torch.maximum(entry, torch.minimum(t0, t1))
-                    exit_ = torch.minimum(exit_, torch.maximum(t0, t1))
-                okb = entry < exit_
-            else:
-                ocx, ocy, ocz = ox - m[18], oy - m[19], oz - m[20]
-                half_b = ocx * dx + ocy * dy + ocz * dz
-                c = ocx * ocx + ocy * ocy + ocz * ocz - m[21]
-                disc = half_b * half_b - a_len * c
-                sq = torch.sqrt(torch.clamp(disc, min=0.0))
-                entry = (-half_b - sq) * inv_a
-                exit_ = (-half_b + sq) * inv_a
-                okb = disc > 0.0
-            entry = torch.clamp(entry, min=T_MIN)
-            exit_ = torch.minimum(exit_, t_best)
-            okb = okb & (entry < exit_)
-            ray_len = torch.sqrt(a_len)
-            dist_in = (exit_ - entry) * ray_len
-            u = torch.clamp(rngb.uniform(hashrng.SITE_MEDIUM + i), min=1e-12)
-            hd = m[22] * torch.log(u)
-            okb = okb & (hd <= dist_in)
-            t_m = entry + hd / ray_len
-            hit = okb & (t_m < t_best)
-            t_best = torch.where(hit, t_m, t_best)
-            w_mat = torch.where(hit, mat, w_mat)
-            w_rec = torch.where(hit, (3 + i) << 24, w_rec)
-            w_is_med = w_is_med | hit
+            _closest_surface(tables, p, ox, oy, oz, dx, dy, dz, rtime, alive)
+        t_best, w_mat, w_rec, w_is_med = _media(
+            media, ox, oy, oz, dx, dy, dz, a_len, inv_a, rngb, t_best, w_mat,
+            w_rec)
 
         hit_any = torch.isfinite(t_best) & alive
         # the record is taken before the emitter and depth short-cuts
@@ -945,23 +1259,20 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
 # ------------------------------------------------------------ entry points
 def render_pixels(scene, camera, seed: int = 0, spp: Optional[int] = None,
                   max_depth: Optional[int] = None, sample_offset: int = 0,
-                  pixel_base: int = 0, pixel_count: Optional[int] = None):
+                  pixel_base: int = 0, pixel_count: Optional[int] = None,
+                  use_bvh: Optional[bool] = None):
     """Fused render of a contiguous range of flat pixel ids (``j*w + i``)
     over samples ``sample_offset .. sample_offset + spp``, on the scene's
     device: one launch of the CUDA kernel for a scene on a CUDA device, the
-    plain version for a scene on the CPU.
+    plain version for a scene on the CPU. ``use_bvh`` (default: from
+    ``BVH_KERNEL_THRESHOLD`` primitives on) makes the kernel walk the kernel
+    BVH; the result is the same.
 
     Returns tensors ``(rgb (count,3) f32 mean radiance, n (count,) i32 scene
     queries)`` on that device."""
     spp = spp or camera.samples_per_pixel
     max_depth = max_depth or camera.max_depth
-    n_prims = int(_np(scene.sph_valid).sum() + _np(scene.quad_valid).sum())
-    if n_prims >= BVH_KERNEL_THRESHOLD:
-        raise NotImplementedError(
-            f"scene has {n_prims} primitives: the in-kernel BVH walk that "
-            f"replaces the brute-force loop from {BVH_KERNEL_THRESHOLD} "
-            "primitives on is not ported yet")
-    packed, tables = _packed_dev(scene)
+    packed, tables = _packed_dev(scene, _use_bvh(scene, use_bvh))
     p = make_params(camera, packed, seed, spp, max_depth, sample_offset,
                     pixel_base, pixel_count)
     if scene.device.type == "cpu":
@@ -978,12 +1289,10 @@ def render_fast(scene, camera, seed: int = 0, spp: Optional[int] = None,
     the exact number of scene queries, summed in int64 on the device.
 
     Requires supports(scene)."""
-    if use_bvh:
-        raise NotImplementedError(
-            "use_bvh=True: the in-kernel BVH walk is not ported yet")
     w, h = camera.image_width, camera.image_height
     rgb, n = render_pixels(scene, camera, seed=seed, spp=spp,
-                           max_depth=max_depth, sample_offset=sample_offset)
+                           max_depth=max_depth, sample_offset=sample_offset,
+                           use_bvh=use_bvh)
     nrays = n.sum(dtype=torch.int64)
     image = rgb.reshape(h, w, 3).cpu().numpy()
     if with_stats:
@@ -992,22 +1301,32 @@ def render_fast(scene, camera, seed: int = 0, spp: Optional[int] = None,
 
 
 def record_paths(scene, camera, seed: int, spp: int, max_depth: int,
-                 sample_offset: int = 0) -> torch.Tensor:
+                 sample_offset: int = 0,
+                 use_bvh: Optional[bool] = None) -> torch.Tensor:
     """Winner records of every (pixel, sample, bounce) over global samples
     ``sample_offset .. sample_offset + spp``: the search half of the
     record/replay gradient (ops/replay.py). Returns ``(max_depth, spp, H*W)``
     int32 on the scene's device, depth-major (replay reads bounce rows): one
     launch of the CUDA recorder for a scene on a CUDA device, its plain
     version for a scene on the CPU. Records carry no texture work, so every
-    texture family is served."""
-    n_prims = int(_np(scene.sph_valid).sum() + _np(scene.quad_valid).sum())
-    if n_prims >= BVH_KERNEL_THRESHOLD:
-        raise NotImplementedError(
-            f"scene has {n_prims} primitives: the in-kernel BVH walk that "
-            f"replaces the brute-force loop from {BVH_KERNEL_THRESHOLD} "
-            "primitives on is not ported yet")
-    packed, tables = _packed_dev(scene)
+    texture family is served. ``use_bvh`` as for ``render_pixels``."""
+    packed, tables = _packed_dev(scene, _use_bvh(scene, use_bvh))
     p = make_params(camera, packed, seed, spp, max_depth, sample_offset)
     if scene.device.type == "cpu":
         return record_paths_plain(tables, p)
     return record_kernel(tables, p)
+
+
+def hit_records(scene, seed: int, ox, oy, oz, dx, dy, dz, time, pix, samp,
+                alive, bounce: int,
+                use_bvh: Optional[bool] = None) -> torch.Tensor:
+    """One bounce's winner records over the given lanes (see
+    ``hit_kernel``): one launch of the CUDA hit kernel for a scene on a CUDA
+    device, its plain version for a scene on the CPU. ``use_bvh`` as for
+    ``render_pixels``."""
+    packed, tables = _packed_dev(scene, _use_bvh(scene, use_bvh))
+    p = search_params(packed, seed)
+    lanes = (ox, oy, oz, dx, dy, dz, time, pix, samp, alive)
+    if scene.device.type == "cpu":
+        return hit_records_plain(tables, p, *lanes, bounce)
+    return hit_kernel(tables, p, *lanes, bounce)

@@ -1,17 +1,16 @@
 """Offline and progressive render entry points.
 
 PyTorch counterpart of rust_tracing_tpu/renderer.py. ``render`` keeps the
-reference's auto policy (fused kernel for the scenes it supports, sorted
-wavefront for big scenes, deferred shading for image/noise scenes); the
-branch that is not ported yet (the sorted wavefront) raises
-NotImplementedError naming what is missing and never routes to another path
-silently.
+reference's auto policy: the sorted deferred wavefront for big scenes
+(ops/wavefront.py, from ``WAVEFRONT_PRIM_THRESHOLD`` primitives on), deferred
+shading for image/noise scenes, the fused kernel for the rest.
 
 The fused path is the same on both devices: a scene on a CUDA device renders
 through the hand-written CUDA kernel, a scene on the CPU through the kernel's
 plain PyTorch version (ops/megakernel.py). ``use_megakernel=False``, a custom
 ``hit_fn`` or float64 take the tensor integrator (ops/integrator.py) over
-pixel chunks (``render_chunk``), the estimator the gradient differentiates.
+pixel chunks (``render_chunk``), the estimator the gradient differentiates;
+a scene compiled with a BVH searches it there (ops/bvh_traverse.py).
 Deferred shading (``render_deferred``) records the winners with the recorder
 kernel and shades them with the differentiable replay (ops/replay.py): the
 same estimator as the tensor integrator, bit for bit.
@@ -28,13 +27,10 @@ import torch
 
 from .camera import Camera, CameraConstants, get_rays
 from .config import resolve_device
-from .ops import integrator, megakernel
+from .ops import integrator, megakernel, wavefront
+from .ops.bvh_traverse import auto_closest_hit
+from .ops.wavefront import WAVEFRONT_PRIM_THRESHOLD
 from .utils import metrics
-
-# Primitive count from which the reference renders through its sorted
-# deferred wavefront instead of the fused kernel. Copied as a policy constant:
-# it was measured on a TPU and awaits its own measurement on the GPU.
-WAVEFRONT_PRIM_THRESHOLD = 1024
 
 
 @dataclasses.dataclass
@@ -92,13 +88,9 @@ def use_megakernel_default(scene, dtype, hit_fn) -> bool:
             and megakernel.supports(scene))
 
 
-def _n_prims(scene) -> int:
-    return int(scene.sph_valid.sum().item() + scene.quad_valid.sum().item())
-
-
 def use_wavefront_default(scene) -> bool:
     """Big scenes (final_scene) take the sorted deferred wavefront."""
-    return _n_prims(scene) >= WAVEFRONT_PRIM_THRESHOLD
+    return megakernel.n_prims(scene) >= WAVEFRONT_PRIM_THRESHOLD
 
 
 def use_deferred_default(scene) -> bool:
@@ -181,10 +173,11 @@ def render(scene, camera: Camera, seed: int = 0, spp: Optional[int] = None,
     if use_megakernel is None:
         use_megakernel = use_megakernel_default(scene, dtype, hit_fn)
         if use_megakernel and use_wavefront_default(scene):
-            raise NotImplementedError(
-                f"scene has {_n_prims(scene)} primitives (>= "
-                f"{WAVEFRONT_PRIM_THRESHOLD}): the sorted deferred wavefront "
-                "(wavefront.render_sorted) is not ported yet")
+            # big scenes: per-bounce coherence sort, hit kernel (B3 walking
+            # the BVH, B4), shading by the replay
+            return wavefront.render_sorted(scene, camera, seed=seed, spp=spp,
+                                           max_depth=max_depth,
+                                           sample_offset=sample_offset)
         if use_megakernel and use_deferred_default(scene):
             return render_deferred(scene, camera, seed=seed, spp=spp,
                                    max_depth=max_depth,
@@ -214,10 +207,8 @@ def _render_tensor(scene, camera, seed, spp, max_depth, hit_fn, dtype,
                    progress, sample_offset, pixel_chunk):
     """The tensor-integrator render over pixel chunks (the tail chunk padded
     with the last pixel)."""
-    if hit_fn is None and scene.has_bvh:
-        raise NotImplementedError(
-            "scene has a BVH: its closest-hit search (closest_hit_bvh of "
-            "ops/bvh_traverse.py in the reference) is not ported yet")
+    if hit_fn is None:
+        hit_fn = auto_closest_hit(scene)
     w, h = camera.image_width, camera.image_height
     dev = scene.device
     cam = camera.constants(dtype, device=dev)

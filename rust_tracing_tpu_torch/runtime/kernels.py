@@ -35,9 +35,10 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
               "-fPIC")
 
-LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "gather_kernel": 0,
-            "gather_cols_kernel": 0, "scatter_sum_kernel": 0,
-            "segment_sum_kernel": 0, "perlin_kernel": 0}
+LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "hit_kernel": 0,
+            "gather_kernel": 0, "gather_cols_kernel": 0,
+            "scatter_sum_kernel": 0, "segment_sum_kernel": 0,
+            "perlin_kernel": 0}
 
 _lib = None
 build_seconds = None  # seconds the last build in this process took
@@ -106,13 +107,18 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # 10 scene tables, img_f, params (host pointer), out_rgb, out_n,
-        # stream
-        lib.rt_render_launch.argtypes = [vp] * 10 + [vp, vp, vp, vp, vp]
+        # 13 scene tables, img_f, params (host pointer), out_rgb, out_n,
+        # counters, stream
+        lib.rt_render_launch.argtypes = [vp] * 13 + [vp] * 6
         lib.rt_render_launch.restype = ci
-        # 10 scene tables, params (host pointer), out_rec, stream
-        lib.rt_record_launch.argtypes = [vp] * 10 + [vp, vp, vp]
+        # 13 scene tables, params (host pointer), out_rec, counters, stream
+        lib.rt_record_launch.argtypes = [vp] * 13 + [vp] * 4
         lib.rt_record_launch.restype = ci
+        # 13 scene tables, params, ox oy oz dx dy dz time pix samp alive, n,
+        # bounce, out, counters, stream
+        lib.rt_hit_launch.argtypes = [vp] * 13 + [vp] * 11 + [cll, ci, vp,
+                                                              vp, vp]
+        lib.rt_hit_launch.restype = ci
         # col, n, idx, R, elem, out, stream
         lib.rt_gather_launch.argtypes = [vp, ci, vp, cll, ci, vp, vp]
         lib.rt_gather_launch.restype = ci

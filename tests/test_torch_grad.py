@@ -33,26 +33,39 @@ def cornell():
                 max_depth=4)
 
 
-def test_loss_and_grad_matches_jax(cornell):
-    jscene, jcam, tscene, tcam = cornell
-    jl, jg = jgrad.loss_and_grad(
+@pytest.fixture(scope="module")
+def jax_grad(cornell):
+    """The reference's (loss, gradient) of the cornell fixture, seed 5."""
+    jscene, jcam, _, _ = cornell
+    return jgrad.loss_and_grad(
         jscene, jcam, lambda im, p: jnp.mean(im * jnp.asarray(W)), seed=5)
-    tl, g, rays = tg.loss_and_grad(
-        tscene, tcam, lambda im, p: torch.mean(im * torch.tensor(W)), seed=5,
-        with_rays=True)
-    assert isinstance(rays, int) and rays > 0
+
+
+def _assert_matches_jax(tl, g, jax_grad, no_grad=()):
+    """Loss to 1e-6 relative, each float leaf within 1e-5 of its largest
+    |g|; int/bool fields and the fields of ``no_grad`` hold zeros."""
+    jl, jg = jax_grad
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-6)
     got = grad_to_numpy(g)
     for f in got:
         ref = np.asarray(getattr(jg, f))
-        if not np.issubdtype(ref.dtype, np.floating):
-            assert not got[f].any(), f  # int/bool fields hold zeros
+        if f in no_grad or not np.issubdtype(ref.dtype, np.floating):
+            assert not got[f].any(), f
             continue
         scale = max(np.abs(ref).max(), 1e-30)
         np.testing.assert_allclose(got[f], ref, rtol=0, atol=1e-5 * scale,
                                    err_msg=f)
     assert np.abs(got["tex_rgb"]).max() > 0
     assert np.abs(got["tex_rgb"][3]).max() > 0  # the light's emission row
+
+
+def test_loss_and_grad_matches_jax(cornell, jax_grad):
+    _, _, tscene, tcam = cornell
+    tl, g, rays = tg.loss_and_grad(
+        tscene, tcam, lambda im, p: torch.mean(im * torch.tensor(W)), seed=5,
+        with_rays=True)
+    assert isinstance(rays, int) and rays > 0
+    _assert_matches_jax(tl, g, jax_grad)
 
 
 def test_sliced_accumulation_equals_single_shot(cornell, monkeypatch):
@@ -263,10 +276,18 @@ def test_fit_scene_lowers_the_loss():
     assert err < (wrong[1] - scene0.tex_rgb[1]).abs().max()
 
 
-def test_bvh_scene_raises():
+def test_bvh_scene_gradient_matches_jax(cornell, jax_grad):
+    """loss_and_grad of cornell_box compiled with a BVH, by the direct
+    estimator, which searches the tree (closest_hit_bvh), against the
+    reference's gradient of the same scene. The reference's side searches
+    by brute force: its own closest_hit_bvh drops cornell's thin wall quads
+    in f32 (test_torch_bvh.py::test_closest_hit_bvh_keeps_thin_quads); the
+    port's finds the brute search's winners."""
+    _, _, _, tcam = cornell
     b, _ = T.models.builders.cornell_box()
-    scene = T.compile_scene(b, use_bvh=True, device="cpu")
-    cam = T.Camera.create(T.RenderSettings(image_width=8, aspect_ratio=1.0))
-    with pytest.raises(NotImplementedError, match="closest_hit_bvh"):
-        tg.loss_and_grad(scene, cam, lambda im, p: im.mean(), spp=1,
-                         max_depth=1)
+    tscene = T.compile_scene(b, use_bvh=True, device="cpu")
+    assert tscene.has_bvh
+    tl, g = tg.loss_and_grad(
+        tscene, tcam, lambda im, p: torch.mean(im * torch.tensor(W)), seed=5,
+        use_recorder=False)
+    _assert_matches_jax(tl, g, jax_grad, no_grad=("bvh_min", "bvh_max"))

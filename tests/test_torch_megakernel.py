@@ -136,8 +136,9 @@ def test_params_mirror_kernel_struct_and_validate():
     assert tmk._packed_dev(scene)[1] is tables  # cached per scene
     p = tmk.make_params(cam, packed, -3, 2, 5, sample_offset=9, pixel_base=4,
                         pixel_count=10)
-    assert ctypes.sizeof(p) == 37 * 4  # 21 floats + 16 ints, no padding
+    assert ctypes.sizeof(p) == 39 * 4  # 21 floats + 18 ints, no padding
     assert (p.has_noise, p.has_image, p.img_h, p.img_w) == (0, 0, 1, 1)
+    assert (p.use_bvh, p.n_nodes) == (0, 1)
     assert (p.seed, p.spp, p.max_depth, p.sample_offset) == (-3, 2, 5, 9)
     assert (p.n_spheres, p.n_quads, p.n_media) == (0, 6, 2)
     assert tmk.make_params(cam, packed, 0xFFFFFFFD, 1, 1).seed == -3
@@ -165,14 +166,24 @@ def test_noise_and_image_families_render(name):
     assert img.mean() > 0.05 and rays >= 32
 
 
-def test_bvh_sized_scene_raises():
+def test_bvh_sized_scene_renders():
+    """A scene at BVH_KERNEL_THRESHOLD primitives renders with the tree by
+    default, and cornell with a forced tree: both equal the brute render
+    (the plain search does not depend on the tree; the tree is packed)."""
     b = T.SceneBuilder(background=(0.5, 0.5, 0.5))
     mat = b.lambertian((0.5, 0.5, 0.5))
     for i in range(tmk.BVH_KERNEL_THRESHOLD):
-        b.add_sphere((i % 32, i // 32, -40.0), 0.4, mat)
-    cam = T.Camera.create(T.RenderSettings(image_width=8, samples_per_pixel=1))
-    scene = T.compile_scene(b, device="cpu")
-    with pytest.raises(NotImplementedError, match="BVH"):
-        tmk.render_fast(scene, cam)
-    with pytest.raises(NotImplementedError, match="BVH"):
-        tmk.render_fast(_cornell()[0], cam, use_bvh=True)
+        b.add_sphere((i % 32 - 16, i // 32 - 16, -40.0), 0.4, mat)
+    cam = T.Camera.create(T.RenderSettings(image_width=8, samples_per_pixel=1,
+                                           max_depth=3))
+    for scene, forced in ((T.compile_scene(b, device="cpu"), None),
+                          (_cornell()[0], True)):
+        img, rays = tmk.render_fast(scene, cam, use_bvh=forced,
+                                    with_stats=True)
+        packed, _ = tmk._packed_dev(scene, True)
+        assert packed.use_bvh
+        assert packed.prim_i.shape[0] == tmk.n_prims(scene)
+        ref, ref_rays = tmk.render_fast(scene, cam, use_bvh=False,
+                                        with_stats=True)
+        np.testing.assert_array_equal(img, ref)
+        assert rays == ref_rays and np.isfinite(img).all()

@@ -1,6 +1,6 @@
 """The forward render as a whole: ``render`` of the port on the CPU against the JAX
 package's ``render``, the progressive renderer, the CLI, deferred shading of
-the noise and image scenes, the branches that are not ported yet, and the
+the noise and image scenes, the BVH and sorted-wavefront branches, and the
 port's independence from JAX."""
 
 import dataclasses
@@ -108,25 +108,32 @@ def _big_scene():
     return T.compile_scene(b, device="cpu")
 
 
-@pytest.mark.parametrize("case,match", [
-    ("hit_fn", "closest_hit_bvh"),
-    ("wavefront", "sorted deferred wavefront"),
-])
-def test_unported_branches_raise(case, match):
-    """Every branch that is not ported yet names what is missing; none
-    routes to another path silently: a BVH scene's default hit function (the
-    one a custom hit_fn replaces) and the sorted wavefront wait for the BVH
-    slice."""
-    scene, cam = _small()
-    kw = {}
+@pytest.mark.parametrize("case", ["hit_fn", "wavefront"])
+def test_bvh_and_wavefront_branches_render(case):
+    """The tensor render of a scene compiled with a BVH (its default hit
+    function is closest_hit_bvh) equals the brute render; a scene of
+    WAVEFRONT_PRIM_THRESHOLD spheres takes the sorted wavefront under the
+    auto policy and equals the tensor integrator. Both bit for bit as f32,
+    with equal ray counts."""
+    _, cam = _small(width=12, spp=2, depth=3)
     if case == "hit_fn":
         b, _ = tbuilders.cornell_box()
         scene = T.compile_scene(b, use_bvh=True, device="cpu")
-        kw = dict(use_megakernel=False)
-    elif case == "wavefront":
-        scene = _big_scene()
-    with pytest.raises(NotImplementedError, match=match):
-        T.render(scene, cam, device="cpu", **kw)
+        ref_scene = T.compile_scene(b, device="cpu")
+        img, st = T.render(scene, cam, device="cpu", use_megakernel=False)
+    else:
+        scene = ref_scene = _big_scene()
+        assert renderer.use_wavefront_default(scene)
+        events = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(renderer.wavefront.metrics, "emit",
+                       lambda ev, **kw: events.append(kw))
+            img, st = T.render(scene, cam, device="cpu")
+        assert events[-1]["path"] == "wavefront_sorted"
+    ref, ref_st = T.render(ref_scene, cam, device="cpu", use_megakernel=False)
+    np.testing.assert_array_equal(img.astype(np.float32),
+                                  ref.astype(np.float32))
+    assert st.rays == ref_st.rays and img.mean() > 0.01
 
 
 @pytest.mark.parametrize("case", [
@@ -275,6 +282,7 @@ def test_port_imports_without_jax():
         "from rust_tracing_tpu_torch.ops import linalg, lanegather, tgather\n"
         "from rust_tracing_tpu_torch.ops import intersect, textures\n"
         "from rust_tracing_tpu_torch.ops import materials, integrator, replay\n"
+        "from rust_tracing_tpu_torch.ops import wavefront, bvh_traverse\n"
         "from rust_tracing_tpu_torch.models import builders, bvh, compile\n"
         "from rust_tracing_tpu_torch.runtime import kernels\n"
         "b, s = builders.build_scene(6)\n"

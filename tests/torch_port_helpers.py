@@ -55,6 +55,29 @@ def mixed_builder(M):
     return b, s
 
 
+def bvh_builder(M):
+    """tests/test_wavefront.py::_bvh_scene: 31 spheres, a cube (6 quads)
+    and a box medium; enough for a real BVH walk."""
+    rng = np.random.default_rng(0)
+    b = M.SceneBuilder(background=(0.6, 0.7, 1.0))
+    b.add_sphere((0, -100.5, -2), 100.0, b.lambertian((0.5, 0.5, 0.5)))
+    for i in range(30):
+        p = rng.uniform(-2, 2, 3)
+        p[1] = rng.uniform(-0.4, 0.8)
+        p[2] = -2 + rng.uniform(-1.5, 1.5)
+        m = [b.lambertian(tuple(rng.uniform(0.1, 0.9, 3))),
+             b.metal((0.8, 0.7, 0.6), 0.2), b.dielectric(1.5)][i % 3]
+        b.add_sphere(tuple(p), 0.25, m)
+    b.add_cube((-0.5, -0.5, -3.2), (0.5, 0.5, -2.6),
+               b.lambertian((0.7, 0.3, 0.2)))
+    b.add_box_medium((1.0, -0.5, -2.0), (1.8, 0.5, -1.2), 0.6, (1, 1, 1))
+    s = M.RenderSettings(
+        image_width=24, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=60.0, look_from=(0, 0, 1), look_at=(0, 0, -2),
+        background=(0.6, 0.7, 1.0))
+    return b, s
+
+
 def texture_builder(M):
     """Every texture family: solid, noise, image, and checkers whose
     children are noise, image and solid; a sphere each (image on a
