@@ -63,6 +63,28 @@ Phases:
              wavefront) and the device's busy share
   grad_final loss_and_grad() of final_scene at 200x200, 4 spp, depth 8
   cli_final  the CLI renders final_scene (-s 8) at 200x200, 8 spp
+  Multi-GPU slice (ranks are processes started by parallel.launch.run_ranks
+  after the kernels are built here; a rank that fails or outlasts
+  DIST_TIMEOUT_S fails the run):
+  distributed
+             (a) NCCL, world size 1 (a 1x1 mesh): render_distributed of
+             cornell_box 600x600 at the main path's spp, depth 8, against
+             render_fast, and the sharded route's render kernel against its
+             plain version at 16 spp; (b) two ranks under gloo sharing the
+             one card (mesh 2x1), the frame at DIST_CUT_SPP against
+             render_fast, and each rank's kernel against its plain version
+             over its pixel range at 64 px; (d) on those two ranks,
+             replay_loss_and_grad of cornell_box 600x600 @ 200 spp depth 8
+             (an SSE) against one rank's loss_and_grad; (c) four ranks under
+             gloo sharing the card (mesh 2x2), the frame against
+             render_fast; (e) the CLI with --distributed under torchrun
+             (one process, NCCL) against the CLI alone (which also reports
+             the occupancy and writes a profiler trace). Ranks sharing one
+             card check correctness: they are no faster than one rank, and
+             no scaling is measured here.
+  live       the CLI's --live --checkpoint at 200 px, 1024 spp, killed once
+             its checkpoint holds 32 samples, resumed in this process, and
+             an uninterrupted live render
 
 Tolerances and their reasons.
 - Render kernel: built without fused multiply-add contraction and without
@@ -110,6 +132,16 @@ Tolerances and their reasons.
   (as f32) with equal ray counts. Against the fused render (hash-lattice
   noise, mipped image) the gamma means' ratio must lie in 0.9-1.1.
 - grad_final: the loss equals the deferred render's image mean to 1e-5.
+- distributed: the RNG never sees the rank, and a rays-only mesh gives each
+  pixel its whole sample range on one rank, where the all-reduce adds zeros:
+  bit for bit equal to render_fast, ray counts equal. A split sample axis
+  (2x2) adds two f32 means, as the reference's psum does: rtol 3e-6, atol
+  3e-7 (tests/test_parallel.py). The distributed gradient partitions the
+  samples into other slices than one rank does: loss rtol 2e-5, each float
+  leaf rtol 5e-4 and atol 2e-5 of its largest |g| (tests/test_parallel.py),
+  ray counts equal. The CLI's PNG under torchrun equals the CLI's alone.
+- live: a resumed render repeats the same float64 updates on the same
+  samples: its buffer and PNG equal the uninterrupted render's bit for bit.
 """
 
 import contextlib
@@ -140,7 +172,14 @@ from rust_tracing_tpu_torch.ops import megakernel as mk  # noqa: E402
 from rust_tracing_tpu_torch.ops import perlin  # noqa: E402
 from rust_tracing_tpu_torch.ops import perlin_fused as pf  # noqa: E402
 from rust_tracing_tpu_torch.ops import wavefront as wf  # noqa: E402
+from rust_tracing_tpu_torch.models.compile import grad_to_numpy  # noqa: E402
+from rust_tracing_tpu_torch.parallel import grad_dist  # noqa: E402
+from rust_tracing_tpu_torch.parallel import render_dist  # noqa: E402
+from rust_tracing_tpu_torch.parallel.launch import run_ranks  # noqa: E402
+from rust_tracing_tpu_torch.parallel.mesh import (make_mesh,  # noqa: E402
+                                                  shard_range)
 from rust_tracing_tpu_torch.runtime import kernels  # noqa: E402
+from rust_tracing_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from rust_tracing_tpu_torch.utils import metrics  # noqa: E402
 from rust_tracing_tpu_torch.utils.image_io import write_png  # noqa: E402
 
@@ -195,6 +234,17 @@ FINAL_SPP = 32          # final_scene's frame: its own 800x800, depth 40
 CROSS_SPP = 4
 GAMMA_RATIO_TOL = 0.1   # wavefront vs the fused render's noise and mip
 DEEP_BOUNCE = 8
+# distributed phase: ranks are processes; a rank that fails or outlasts its
+# time limit fails the phase
+DIST_TIMEOUT_S = 300.0
+DIST_CUT_SPP = 64       # 2x1 and 2x2 on one shared card: correctness runs
+DIST_B1_SPP = 16        # the sharded B1 row: kernel against plain version
+SPLIT_RTOL, SPLIT_ATOL = 3e-6, 3e-7   # the sample axis: sum of f32 means
+DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_GRAD_ATOL = 2e-5, 5e-4, 2e-5
+# live phase: cornell at 200 px, killed once its checkpoint holds this many
+# samples, then resumed
+LIVE_WIDTH, LIVE_SPP, LIVE_KILL_AT, LIVE_CKPT_EVERY = 200, 1024, 32, 16
+REPO = os.path.dirname(os.path.abspath(__file__))
 # where to keep the main path's PNG for a look; unset = not kept
 OUT_DIR = os.environ.get("RT_SMOKE_OUT")
 
@@ -1356,6 +1406,330 @@ def phase_grad_check():
         fail("cli --grad-check did not pass on the card")
 
 
+# ----------------------------------------------------------- distributed
+def cornell(width, spp, device=DEVICE):
+    b, settings = builders.cornell_box()
+    settings = dataclasses.replace(settings, image_width=width,
+                                   samples_per_pixel=spp)
+    return rt.compile_scene(b, device=device), rt.Camera.create(settings)
+
+
+def float_leaves(g):
+    return {k: v for k, v in grad_to_numpy(g).items()
+            if np.issubdtype(v.dtype, np.floating)}
+
+
+def rank_world1(device, spp):
+    """(a) NCCL, world size 1 (a 1x1 mesh, the card to itself):
+    render_distributed of the main path's frame, its metrics line, and the
+    sharded route's B1 against its plain version at DIST_B1_SPP."""
+    scene, camera = cornell(600, spp, device)
+    mesh = make_mesh(device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        mpath = os.path.join(tmp, "metrics.jsonl")
+        metrics.enable(mpath)
+        render_dist.render_distributed(scene, camera, mesh, seed=2, spp=16)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_dist.render_distributed(scene, camera, mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        with open(mpath) as f:
+            events = [json.loads(ln) for ln in f]
+    ev = [e for e in events if e["event"] == "render_distributed"][-1]
+    ref, ref_rays = mk.render_fast(scene, camera, with_stats=True)
+    packed, tables = mk._packed_dev(scene)
+    p = mk.make_params(camera, packed, 0, spp, camera.max_depth)
+    b_ms, b_by = bound_ms(tables, p, ev["rays"])
+
+    # the route's kernel on this rank's share (the whole frame on 1x1)
+    p16 = mk.make_params(camera, packed, 11, DIST_B1_SPP, camera.max_depth)
+    img16, rays16 = mk.render_fast_sharded(scene, camera, mesh, seed=11,
+                                           spp=DIST_B1_SPP, with_stats=True)
+    ms16 = time_ms(lambda: mk.render_fast_sharded(
+        scene, camera, mesh, seed=11, spp=DIST_B1_SPP), 3)
+    (rgb_p, n_p), plain_ms = once_ms(lambda: mk.render_fast_plain(tables,
+                                                                  p16))
+    rgb_p = rgb_p.reshape(img16.shape).cpu().numpy()
+    b16, b16_by = bound_ms(tables, p16, rays16)
+    return dict(
+        seconds=secs, spp=spp, pixels=camera.image_width * camera.image_height,
+        rays=ev["rays"], metrics_path=ev["path"],
+        metrics_mesh=ev["mesh"], launches=launches,
+        bitwise_equal=bool(np.array_equal(img, ref.astype(np.float64))),
+        rays_equal=ev["rays"] == ref_rays, bound_ms=b_ms, bound_by=b_by,
+        b1=dict(spp=DIST_B1_SPP, ms=ms16, plain_ms=plain_ms, rays=rays16,
+                rays_plain=int(n_p.sum(dtype=torch.int64).item()),
+                max_abs_err=float(np.abs(img16 - rgb_p).max()),
+                pixels_bitwise_equal=int((img16 == rgb_p).all(-1).sum()),
+                bound_ms=b16, bound_by=b16_by))
+
+
+def rank_two(device, cut_spp, target):
+    """(b) and (d): two ranks under gloo on one shared card, mesh 2x1."""
+    mesh = make_mesh(device=device)
+    scene, camera = cornell(600, cut_spp, device)
+    reset_launches()
+    img, rays = mk.render_fast_sharded(scene, camera, mesh, with_stats=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+
+    # this rank's B1 against its plain version over the same range, 64 px
+    s64, c64 = cornell(64, 16, device)
+    packed, tables = mk._packed_dev(s64)
+    base, count = shard_range(c64.image_width * c64.image_height, mesh)
+    p = mk.make_params(c64, packed, 11, 16, c64.max_depth, 0, base, count)
+    rgb_k, n_k = mk.render_kernel(tables, p)
+    rgb_p, n_p = mk.render_fast_plain(tables, p)
+    b1 = dict(pixel_base=base, pixel_count=count,
+              max_abs_err=float((rgb_k - rgb_p).abs().max().item()),
+              pixels_bitwise_equal=int((rgb_k == rgb_p).all(-1).sum()
+                                       .item()),
+              ray_counts_differ=int((n_k != n_p).sum().item()))
+
+    # (d) the distributed record/replay gradient, after a small warm-up
+    gscene, gcam = cornell(600, GRAD_SPP, device)
+    grad_dist.replay_loss_and_grad(gscene, gcam, mesh, target, seed=1,
+                                   spp=2, max_depth=GRAD_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, g, grays = grad_dist.replay_loss_and_grad(
+        gscene, gcam, mesh, target, seed=1, spp=GRAD_SPP,
+        max_depth=GRAD_DEPTH)
+    torch.cuda.synchronize()
+    gsecs = time.perf_counter() - t0
+    return dict(rank=mesh.rank, img=img, rays=rays, launches=launches,
+                b1=b1, grad=dict(loss=float(loss), leaves=float_leaves(g),
+                                 rays=grays, seconds=gsecs,
+                                 peak_mem_gb=torch.cuda.max_memory_allocated()
+                                 / 1e9, launches=dict(kernels.LAUNCHES)))
+
+
+def rank_four(device, cut_spp):
+    """(c) four ranks under gloo on one shared card, mesh 2x2."""
+    mesh = make_mesh(2, device=device)
+    scene, camera = cornell(600, cut_spp, device)
+    reset_launches()
+    img, rays = mk.render_fast_sharded(scene, camera, mesh, with_stats=True)
+    torch.cuda.synchronize()
+    return dict(rank=mesh.rank, mesh=mesh.shape, img=img, rays=rays,
+                launches=dict(kernels.LAUNCHES))
+
+
+def phase_distributed(main):
+    """The sharded render and the distributed gradient over
+    torch.distributed. Several ranks on the one card check correctness;
+    they are no faster than one rank, and no scaling is claimed."""
+    # (a) NCCL, world 1, the main path's frame
+    a = run_ranks(rank_world1, 1, backend="nccl", timeout_s=DIST_TIMEOUT_S,
+                  args=(main["spp"],))[0]
+    say("distributed", check="nccl_world1_render_distributed",
+        scene="cornell_box", width=600, height=600, spp=a["spp"], depth=8,
+        mesh=a["metrics_mesh"], path=a["metrics_path"], seconds=a["seconds"],
+        main_path_seconds=main["seconds"],
+        over_main_path=a["seconds"] / main["seconds"], rays=a["rays"],
+        bitwise_equal=a["bitwise_equal"], rays_equal=a["rays_equal"],
+        launches=a["launches"], bound_ms=a["bound_ms"], b1=a["b1"])
+    if not (a["bitwise_equal"] and a["rays_equal"]):
+        fail("render_distributed (NCCL, world 1) differs from render_fast")
+    if a["launches"]["render_kernel"] != 1:
+        fail(f"render_distributed launched render_kernel "
+             f"{a['launches']['render_kernel']} times, expected 1")
+    if a["b1"]["pixels_bitwise_equal"] != a["pixels"] or \
+            a["b1"]["rays"] != a["b1"]["rays_plain"]:
+        fail("the sharded route's B1 differs from its plain version")
+
+    scene, camera = cornell(600, DIST_CUT_SPP)
+    ref, ref_rays = mk.render_fast(scene, camera, with_stats=True)
+    target = mk.render_fast(scene, camera, seed=99, spp=16)
+
+    # (b) + (d): two ranks sharing the card under gloo, mesh 2x1
+    two = run_ranks(rank_two, 2, backend="gloo", device="cuda:0",
+                    timeout_s=DIST_TIMEOUT_S, args=(DIST_CUT_SPP, target))
+    for r in two:
+        eq = bool(np.array_equal(r["img"], ref))
+        say("distributed", check="gloo_2x1_render", rank=r["rank"],
+            spp=DIST_CUT_SPP, bitwise_equal=eq, rays=r["rays"],
+            rays_single=ref_rays, launches=r["launches"], b1_64px=r["b1"])
+        if not eq or r["rays"] != ref_rays:
+            fail(f"2x1 rank {r['rank']}: image or rays differ from "
+                 "render_fast")
+        if r["launches"]["render_kernel"] != 1:
+            fail(f"2x1 rank {r['rank']} launched render_kernel "
+                 f"{r['launches']['render_kernel']} times")
+        if (r["b1"]["pixels_bitwise_equal"] != r["b1"]["pixel_count"]
+                or r["b1"]["ray_counts_differ"]):
+            fail(f"2x1 rank {r['rank']}: B1 differs from its plain version")
+
+    gscene, gcam = cornell(600, GRAD_SPP)
+    t_flat = torch.from_numpy(target.reshape(-1, 3)).to(DEVICE)
+
+    def sse(img, pid):
+        d = img - t_flat
+        return torch.sum(d * d)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss1, g1, rays1 = tg.loss_and_grad(gscene, gcam, sse, seed=1,
+                                        spp=GRAD_SPP, max_depth=GRAD_DEPTH,
+                                        with_rays=True)
+    torch.cuda.synchronize()
+    secs1 = time.perf_counter() - t0
+    ref_leaves = float_leaves(g1)
+    for r in two:
+        d = r["grad"]
+        errs = {}
+        for f, b in ref_leaves.items():
+            scale = float(np.abs(b).max())
+            err = np.abs(d["leaves"][f].astype(np.float64) - b)
+            lim = DIST_GRAD_RTOL * np.abs(b) + DIST_GRAD_ATOL * scale
+            errs[f] = dict(max_abs_err=float(err.max()), max_abs=scale,
+                           within=bool((err <= lim).all()))
+        loss_rel = abs(d["loss"] - float(loss1)) / abs(float(loss1))
+        say("distributed", check="gloo_2x1_replay_loss_and_grad",
+            rank=r["rank"], scene="cornell_box", width=600, height=600,
+            spp=GRAD_SPP, depth=GRAD_DEPTH, loss=d["loss"],
+            loss_single=float(loss1), loss_rel_err=loss_rel,
+            rays=d["rays"], rays_single=rays1, seconds=d["seconds"],
+            single_rank_seconds=secs1, peak_mem_gb=d["peak_mem_gb"],
+            launches=d["launches"], leaves=errs)
+        if not loss_rel <= DIST_LOSS_RTOL:
+            fail(f"distributed loss {d['loss']} vs one rank {float(loss1)}")
+        bad = [f for f, e in errs.items() if not e["within"]]
+        if bad:
+            fail(f"distributed gradient differs from one rank's in {bad}")
+        if d["rays"] != rays1:
+            fail(f"distributed gradient rays {d['rays']} vs {rays1}")
+        if d["launches"]["record_kernel"] < 1:
+            fail("the distributed gradient did not launch record_kernel")
+
+    # (c) four ranks sharing the card under gloo, mesh 2x2
+    four = run_ranks(rank_four, 4, backend="gloo", device="cuda:0",
+                     timeout_s=DIST_TIMEOUT_S, args=(DIST_CUT_SPP,))
+    for r in four:
+        err = np.abs(r["img"].astype(np.float64) - ref)
+        ok = bool((err <= SPLIT_ATOL + SPLIT_RTOL * np.abs(ref)).all())
+        say("distributed", check="gloo_2x2_render", rank=r["rank"],
+            mesh=r["mesh"], spp=DIST_CUT_SPP, max_abs_err=float(err.max()),
+            bitwise_equal=bool(np.array_equal(r["img"], ref)),
+            within_tol=ok, rays=r["rays"], rays_single=ref_rays,
+            launches=r["launches"])
+        if not ok or r["rays"] != ref_rays:
+            fail(f"2x2 rank {r['rank']}: image or rays beyond tolerance")
+        if r["launches"]["render_kernel"] != 1:
+            fail(f"2x2 rank {r['rank']} launched render_kernel "
+                 f"{r['launches']['render_kernel']} times")
+
+    # (e) the CLI under torchrun, one process, against the CLI alone
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["-s", "6", "--width", "200", "--spp", "64"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [REPO] + [p for p in os.environ.get("PYTHONPATH", "")
+                      .split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "rust_tracing_tpu_torch",
+             "--distributed", *args, "-o", os.path.join(tmp, "tr")],
+            env=env, capture_output=True, text=True,
+            timeout=DIST_TIMEOUT_S)
+        tr_s = time.perf_counter() - t0
+        # the CLI alone, with the occupancy report and a profiler trace
+        buf = io.StringIO()
+        prof_dir = os.path.join(tmp, "prof")
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args + ["--report-occupancy", "--profile",
+                                  prof_dir, "-o", os.path.join(tmp, "plain")])
+        tr_png = os.path.join(tmp, "tr.png")
+        same = (res.returncode == 0 and rc == 0 and os.path.exists(tr_png)
+                and open(tr_png, "rb").read()
+                == open(os.path.join(tmp, "plain.png"), "rb").read())
+        trace = os.path.join(prof_dir, "trace_rank0.json")
+        traced = (os.path.exists(trace)
+                  and "render_kernel" in open(trace).read())
+        occ = [ln for ln in buf.getvalue().splitlines()
+               if ln.startswith("occupancy per bounce")]
+        say("distributed", check="cli_torchrun", rc=res.returncode,
+            seconds=tr_s, png_equals_cli=same,
+            mesh_line=[ln for ln in res.stdout.splitlines()
+                       if ln.startswith(("Mesh", "distributed"))],
+            profile_has_render_kernel=traced, occupancy=occ)
+        if not same:
+            fail(f"torchrun --distributed CLI: rc {res.returncode}, PNG "
+                 f"equal {same}\n{res.stdout[-2000:]}{res.stderr[-2000:]}")
+        if not (traced and occ):
+            fail("the CLI's --profile trace holds no render_kernel, or "
+                 "--report-occupancy printed nothing")
+    return dict(a=a, two=two, four=four, single_grad_s=secs1)
+
+
+def phase_live():
+    """--live --checkpoint: a CLI process killed once its checkpoint holds
+    LIVE_KILL_AT samples, resumed to LIVE_SPP; equal bit for bit to an
+    uninterrupted live render."""
+    args = ["-s", "6", "--width", str(LIVE_WIDTH), "--spp", str(LIVE_SPP),
+            "--live", "--checkpoint-every", str(LIVE_CKPT_EVERY),
+            "--preview-every", "64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.npz")
+        env = dict(os.environ, PYTHONPATH=REPO)
+        with open(os.path.join(tmp, "log"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "rust_tracing_tpu_torch", *args,
+                 "--checkpoint", ck, "-o", os.path.join(tmp, "a")],
+                env=env, stdout=log, stderr=log)
+            deadline = time.monotonic() + DIST_TIMEOUT_S
+            killed_at = None
+            try:
+                while time.monotonic() < deadline and proc.poll() is None:
+                    if os.path.exists(ck) and \
+                            ckpt.load(ck).num_samples >= LIVE_KILL_AT:
+                        proc.kill()
+                        killed_at = ckpt.load(ck).num_samples
+                        break
+                    time.sleep(0.02)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        if killed_at is None or killed_at >= LIVE_SPP:
+            with open(os.path.join(tmp, "log")) as f:
+                tail = f.read()[-2000:]
+            fail(f"live: the render was not killed mid-way (checkpoint at "
+                 f"{killed_at}, rc {proc.returncode})\n{tail}")
+        quiet = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(quiet), \
+                contextlib.redirect_stderr(quiet):
+            rc_resume = cli.main(args + ["--checkpoint", ck, "-o",
+                                         os.path.join(tmp, "a")])
+            t1 = time.perf_counter()
+            rc_full = cli.main(args + ["--checkpoint",
+                                       os.path.join(tmp, "full.npz"),
+                                       "-o", os.path.join(tmp, "b")])
+        t2 = time.perf_counter()
+        resumed = ckpt.load(ck)
+        full = ckpt.load(os.path.join(tmp, "full.npz"))
+        equal = bool(np.array_equal(resumed.accum, full.accum))
+        png_equal = (open(os.path.join(tmp, "a.png"), "rb").read()
+                     == open(os.path.join(tmp, "b.png"), "rb").read())
+        gm = gamma_mean(full.accum)
+        say("live", scene="cornell_box", width=LIVE_WIDTH, spp=LIVE_SPP,
+            killed_at_spp=killed_at, kill_rc=proc.returncode,
+            resumed_spp=resumed.num_samples, rc_resume=rc_resume,
+            rc_full=rc_full, bitwise_equal=equal, png_equal=png_equal,
+            resume_seconds=t1 - t0, uninterrupted_seconds=t2 - t1,
+            gamma_mean=gm)
+        if not (rc_resume == 0 and rc_full == 0 and equal and png_equal
+                and resumed.num_samples == LIVE_SPP):
+            fail("live: the resumed render differs from the uninterrupted "
+                 "one")
+
+
 def main():
     t_start = time.perf_counter()
     card = gpu_line()
@@ -1448,6 +1822,9 @@ def main():
         if rc != 0 or not os.path.exists(out + ".png"):
             fail(f"cli -s 8 returned {rc} or wrote no PNG")
         say("cli_final", rc=rc, png_bytes=os.path.getsize(out + ".png"))
+
+    dist_res = phase_distributed(main)
+    phase_live()
 
     say("total", seconds=time.perf_counter() - t_start,
         grad_final_s=grad_final["seconds"])
@@ -1581,6 +1958,30 @@ def main():
                  f"{cross['final_scene']['brute_ms']:.3f} ms",
         "main_path_ms": final["fused_seconds"] * 1e3,
         "main_path_spp": FINAL_SPP,
+    }, {
+        "name": "render_kernel_sharded", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/megakernel.py:1382",
+        "launches": dist_res["a"]["launches"]["render_kernel"],
+        "max_abs_err": dist_res["a"]["b1"]["max_abs_err"],
+        "ms": dist_res["a"]["b1"]["ms"],
+        "plain_ms": dist_res["a"]["b1"]["plain_ms"],
+        "bound_ms": dist_res["a"]["b1"]["bound_ms"],
+        "bound_by": dist_res["a"]["b1"]["bound_by"],
+        "library_ms": None,
+        "shape": f"megakernel.render_fast_sharded on a 1x1 mesh (NCCL, "
+                 f"world 1): cornell_box 600x600 depth 8 spp {DIST_B1_SPP}, "
+                 "the rank's share = the frame; ms includes the all-reduce "
+                 "and the copy to the host; launches from render_distributed "
+                 f"at {dist_res['a']['spp']} spp; 2x1 and 2x2 on one shared "
+                 "card launched 1 a rank (correctness runs, no scaling)",
+        "main_path_ms": dist_res["a"]["seconds"] * 1e3,
+        "main_path_spp": dist_res["a"]["spp"],
+        "main_path_bound_ms": dist_res["a"]["bound_ms"],
+        "launches_by_rank_2x1": [r["launches"]["render_kernel"]
+                                 for r in dist_res["two"]],
+        "launches_by_rank_2x2": [r["launches"]["render_kernel"]
+                                 for r in dist_res["four"]],
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

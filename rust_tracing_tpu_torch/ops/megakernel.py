@@ -1301,20 +1301,80 @@ def render_fast(scene, camera, seed: int = 0, spp: Optional[int] = None,
 
 
 def record_paths(scene, camera, seed: int, spp: int, max_depth: int,
-                 sample_offset: int = 0,
-                 use_bvh: Optional[bool] = None) -> torch.Tensor:
+                 sample_offset: int = 0, use_bvh: Optional[bool] = None,
+                 pixel_base: int = 0,
+                 pixel_count: Optional[int] = None) -> torch.Tensor:
     """Winner records of every (pixel, sample, bounce) over global samples
-    ``sample_offset .. sample_offset + spp``: the search half of the
-    record/replay gradient (ops/replay.py). Returns ``(max_depth, spp, H*W)``
-    int32 on the scene's device, depth-major (replay reads bounce rows): one
-    launch of the CUDA recorder for a scene on a CUDA device, its plain
-    version for a scene on the CPU. Records carry no texture work, so every
-    texture family is served. ``use_bvh`` as for ``render_pixels``."""
+    ``sample_offset .. sample_offset + spp`` and flat pixel ids
+    ``pixel_base .. pixel_base + pixel_count`` (default: the whole frame):
+    the search half of the record/replay gradient (ops/replay.py). Returns
+    ``(max_depth, spp, pixel_count)`` int32 on the scene's device,
+    depth-major (replay reads bounce rows): one launch of the CUDA recorder
+    for a scene on a CUDA device, its plain version for a scene on the CPU.
+    Records carry no texture work, so every texture family is served.
+    ``use_bvh`` as for ``render_pixels``."""
     packed, tables = _packed_dev(scene, _use_bvh(scene, use_bvh))
-    p = make_params(camera, packed, seed, spp, max_depth, sample_offset)
+    p = make_params(camera, packed, seed, spp, max_depth, sample_offset,
+                    pixel_base, pixel_count)
     if scene.device.type == "cpu":
         return record_paths_plain(tables, p)
     return record_kernel(tables, p)
+
+
+def render_fast_sharded(scene, camera, mesh, seed: int = 0,
+                        spp: Optional[int] = None,
+                        max_depth: Optional[int] = None,
+                        use_bvh: Optional[bool] = None,
+                        with_stats: bool = False):
+    """Fused render over a (rays, sample) mesh of ranks
+    (parallel/mesh.py): the reference's SPMD megakernel
+    (``render_fast_sharded``, ``_get_sharded_call``, ``_reassemble``).
+
+    Each rank launches the render kernel once, on its rays-shard's pixel
+    range and its sample range ``sample_idx * spp/n_sample`` onwards; the
+    pixel range and the sample offset are runtime arguments, so one compiled
+    kernel serves every rank. Each rank writes its per-pixel means into a
+    zero full frame, and one all-reduce (sum) over every rank assembles the
+    image, divided by ``n_sample``: the reference's psum of the means over
+    the sample axis, fused with its reassembly. The ray count is one int64
+    all-reduce. The RNG is addressed by (seed, pixel, sample), never by the
+    rank, so a rays-only mesh gives ``render_fast``'s image bit for bit
+    (``x + 0 = x``) and a split sample axis agrees to the rounding of the
+    means' sum.
+
+    Every rank returns the (H,W,3) float32 image (numpy), and with
+    ``with_stats`` the exact int64 ray count of the whole mesh. Requires
+    supports(scene) and ``spp % n_sample == 0``."""
+    from ..parallel.mesh import shard_range
+
+    spp = spp or camera.samples_per_pixel
+    max_depth = max_depth or camera.max_depth
+    if spp % mesh.n_sample:
+        raise ValueError(f"spp={spp} not divisible by sample axis "
+                         f"{mesh.n_sample}")
+    if scene.device.type != mesh.device.type:
+        raise ValueError(f"scene is on {scene.device}, the mesh's rank on "
+                         f"{mesh.device}")
+    spp_local = spp // mesh.n_sample
+    w, h = camera.image_width, camera.image_height
+    base, count = shard_range(w * h, mesh)
+    rgb = torch.zeros((0, 3), dtype=torch.float32, device=scene.device)
+    nrays = torch.zeros((1,), dtype=torch.int64, device=scene.device)
+    if count:
+        rgb, n = render_pixels(scene, camera, seed=seed, spp=spp_local,
+                               max_depth=max_depth,
+                               sample_offset=mesh.sample_idx * spp_local,
+                               pixel_base=base, pixel_count=count,
+                               use_bvh=use_bvh)
+        nrays += n.sum(dtype=torch.int64)
+    frame = mesh.assemble(rgb, base, w * h)
+    mesh.all_reduce(nrays)
+    if mesh.n_sample > 1:
+        frame = frame / mesh.n_sample
+    image = frame.reshape(h, w, 3).cpu().numpy()
+    if with_stats:
+        return image, int(nrays.item())
+    return image
 
 
 def hit_records(scene, seed: int, ox, oy, oz, dx, dy, dz, time, pix, samp,

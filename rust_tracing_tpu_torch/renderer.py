@@ -80,6 +80,37 @@ def render_chunk(scene, cam: CameraConstants, pixel_ids, seed: int,
     return acc, nrays
 
 
+def measure_occupancy(scene, camera: Camera, n_pixels: int = 8192,
+                      spp: int = 8, max_depth: Optional[int] = None,
+                      seed: int = 0, hit_fn=None) -> np.ndarray:
+    """Per-bounce live-ray fraction on a strided sample of at most
+    ``n_pixels`` pixels, through the tensor integrator: ``fraction[d]`` is
+    the share of lanes still tracing when bounce d begins. The area under
+    the curve is the occupancy a dense depth loop achieves, the signal for
+    compaction and sample-major batching. ``hit_fn`` replaces the
+    brute-force search. Runs on the scene's device."""
+    max_depth = max_depth or camera.max_depth
+    total = camera.image_width * camera.image_height
+    n = min(n_pixels, total)
+    stride = max(1, total // n)
+    dev = scene.device
+    ids = torch.arange(0, n * stride, stride, dtype=torch.int32,
+                       device=dev) % total
+    cam = camera.constants(scene.background.dtype, device=dev)
+    occ = torch.zeros((max_depth,), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for s in range(spp):
+            o, d, t = get_rays(cam, seed, ids, s)
+            _, _, occ_s = integrator.trace(scene, o, d, t, (seed, ids, s),
+                                           max_depth, closest_hit_fn=hit_fn,
+                                           with_occupancy=True)
+            occ = occ + occ_s
+    frac = occ.cpu().numpy().astype(np.float64) / (n * spp)
+    metrics.emit("occupancy", per_bounce=[round(float(x), 4) for x in frac],
+                 mean=float(frac.mean()))
+    return frac
+
+
 def use_megakernel_default(scene, dtype, hit_fn) -> bool:
     """Fast-path policy: the fused render serves every scene it supports in
     f32 with no custom hit function, on the GPU (CUDA kernel) and on the CPU
@@ -256,16 +287,19 @@ def progressive_init(camera: Camera, seed: int = 0) -> ProgressiveState:
 
 def progressive_step(scene, camera: Camera, state: ProgressiveState,
                      samples: int = 1, max_depth: Optional[int] = None,
+                     pixel_chunk: Optional[int] = None, hit_fn=None,
                      dtype=torch.float32, device=None) -> ProgressiveState:
     """Add ``samples`` new samples per pixel with incremental-mean update
-    (renderer.rs:114: avg += (new - avg) / n).
+    (renderer.rs:114: avg += (new - avg) / n). ``pixel_chunk`` and
+    ``hit_fn`` are passed to ``render``.
 
-    Samples are addressed globally by index, so a progressive render
-    accumulates the same sample set as a single offline render of the same
-    total spp."""
+    Samples are addressed globally by index, so a progressive render (and
+    one resumed from a checkpoint) accumulates the same sample set as a
+    single offline render of the same total spp."""
     img, _ = render(scene, camera, seed=state.seed, spp=samples,
-                    max_depth=max_depth, dtype=dtype,
-                    sample_offset=state.num_samples, device=device)
+                    max_depth=max_depth, hit_fn=hit_fn, dtype=dtype,
+                    sample_offset=state.num_samples, device=device,
+                    pixel_chunk=pixel_chunk)
     n1 = state.num_samples + samples
     accum = state.accum + (img - state.accum) * (samples / n1)
     return ProgressiveState(accum=accum, num_samples=n1, seed=state.seed)
