@@ -85,6 +85,20 @@ Phases:
   live       the CLI's --live --checkpoint at 200 px, 1024 spp, killed once
              its checkpoint holds 32 samples, resumed in this process, and
              an uninterrupted live render
+  Probe slice (scripts/tpu_probe.py's P1-P7 as H100 probes):
+  probes     the probes' entry point (probes.sweep, what `python -m
+             rust_tracing_tpu_torch.probes` runs): every variant (memory
+             space, lane stride, compiled sphere count, f32 or TF32 products)
+             at the reference shape against its plain version, then at
+             1024 tiles (P3/P4 64 gathers a thread) tile by tile against the
+             plain version of one tile, and timed; each kernels-line entry
+             is its variant's sweep row, with the plain version's and the
+             library call's times
+  torch_func torch.func.jacfwd and jacrev of the replay image's row mean
+             w.r.t. tex_rgb (24 px noise scene, float64) on the card,
+             through the batching rules of the gathers (gather_cols_kernel
+             for jacfwd's batched tables, scatter_sum_kernel for jacrev's
+             batched cotangents), against each other and the CPU's
 
 Tolerances and their reasons.
 - Render kernel: built without fused multiply-add contraction and without
@@ -142,6 +156,19 @@ Tolerances and their reasons.
   ray counts equal. The CLI's PNG under torchrun equals the CLI's alone.
 - live: a resumed render repeats the same float64 updates on the same
   samples: its buffer and PNG equal the uninterrupted render's bit for bit.
+- probes: P1-P6 and P7's f32 variant do the plain version's f32 operations
+  in its order (sums in index order, IEEE sqrt and division, no
+  contraction; the min over spheres is exact): bit for bit at the
+  reference shape and in every tile of the timed shape. P7's TF32 variant:
+  each product within probes.TF32_PROD_RTOL of its terms' absolute sum
+  (operands rounded to TF32, 2^-11 each, plus the f32 sums), and every ray
+  whose t moved by more than 1e-3 relative among the rays that this product
+  bound, carried through the epilogue, allows to move (probes.tf32_gate).
+- torch_func: the card's and the CPU's Jacobians replay the same records
+  with the same float64 operations in other summation orders (the
+  reductions' partial sums): rtol 1e-10, atol 1e-12, the tolerance of
+  tests/test_grad.py::test_jacfwd_through_textured_scene; jacfwd against
+  jacrev on the card to the same tolerance.
 """
 
 import contextlib
@@ -165,6 +192,7 @@ if not torch.cuda.is_available():
 import rust_tracing_tpu_torch as rt  # noqa: E402
 from rust_tracing_tpu_torch import cli  # noqa: E402
 from rust_tracing_tpu_torch import grad as tg  # noqa: E402
+from rust_tracing_tpu_torch import probes  # noqa: E402
 from rust_tracing_tpu_torch import renderer  # noqa: E402
 from rust_tracing_tpu_torch.models import builders  # noqa: E402
 from rust_tracing_tpu_torch.ops import lanegather as lg  # noqa: E402
@@ -1730,6 +1758,208 @@ def phase_live():
                  "one")
 
 
+# probes phase: each kernels-line entry of the H100 probes (csrc/
+# probe_kernel.cu, scripts/tpu_probe.py P1-P7): (probe, kernel, the line of
+# its pallas_call, the variant it reports, size). The variant is the memory
+# space that stands for the TPU probe's own (SMEM scalars -> __constant__,
+# VMEM -> shared memory); P1 at the largest size every space holds.
+PROBE_ENTRIES = (
+    ("P1", "smem_scalar_kernel", 50, "constant", 16384),
+    ("P2", "row_broadcast_kernel", 69, "shared", probes.ROW_N),
+    ("P3", "gather_probe_kernel", 86, "shared/stride13", probes.GATHER_N),
+    ("P4", "gather_2d_kernel", 104, "shared", probes.GATHER_N),
+    ("P5", "sphere_loop_kernel", 148, "constant", probes.SPHERES),
+    ("P6", "sphere_immediate_kernel", 184, "immediate", probes.SPHERES),
+    ("P7", "sphere_mxu_kernel", 223, "f32", probes.SPHERES),
+)
+
+
+def probe_library_ms(probe, variant, size, tiles, gathers):
+    """One PyTorch call computing the probe's function at the timed shape,
+    timed; None where no call does (P5-P7). P1/P2: torch.sum of the table
+    (its order differs: time only). P3/P4: embedding_bag's sum of the
+    gathers at the timed index offsets, whose integer sums are exact in any
+    order: it must equal the kernel's tile."""
+    if probe == "P1":
+        tab = torch.arange(size, dtype=torch.float32, device=DEVICE)
+        return probes.time_ms(lambda: tab.sum(), 10)
+    if probe == "P2":
+        tab = torch.arange(size, dtype=torch.float32,
+                           device=DEVICE)[:, None].repeat(1, probes.LANES)
+        return probes.time_ms(lambda: tab[:, 0].sum(), 10)
+    if probe not in ("P3", "P4"):
+        return None
+    idx = probes.gather_index(probes.GATHER_STRIDE, DEVICE)
+    bags = (idx[..., None] + torch.arange(gathers, device=DEVICE)) \
+        % probes.GATHER_N
+    if probe == "P3":
+        weight = probes.gather_table(DEVICE)[:, :1].contiguous()
+    else:
+        weight = probes.gather_2d_table(DEVICE).reshape(-1, 1)
+        bags = bags * probes.LANES + torch.arange(
+            probes.LANES, device=DEVICE)[:, None]
+    bags = bags.expand(tiles, *bags.shape).reshape(-1, gathers)
+    lib = lambda: torch.nn.functional.embedding_bag(bags, weight, mode="sum")
+    want = probes.case(probe, variant, size, 0, 1, DEVICE, gathers)[1]()
+    if not torch.equal(lib()[:probes.TILE].reshape(want.shape), want):
+        fail(f"probes: embedding_bag does not compute {probe}'s function")
+    return probes.time_ms(lib, 10)
+
+
+def phase_probes():
+    """The H100 probes: their entry point's sweep (probes.sweep: every
+    variant at the reference shape against its plain version, then the
+    timed call at FILL_TILES tiles tile by tile against the plain version
+    of one tile), with the launch counts reset just before and read just
+    after. Each kernels-line entry is its variant's sweep row, with the
+    plain version's time at the timed shape and the library call's."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("probes: TF32 matmuls are on; the port never turns them on")
+    reset_launches()
+    t0 = time.perf_counter()
+    rows = probes.sweep(seed=0)
+    sweep_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for r in rows:
+        say("probes", **r)
+    bad = [f"{r['probe']} {r['variant']} {r['size']}" for r in rows
+           if r["fits"] and not r["equal"]]
+    if bad:
+        fail(f"probes: kernel differs from its plain version: {bad}")
+    names = [e[1] for e in PROBE_ENTRIES] + ["sphere_mxu_tc_kernel"]
+    idle = [k for k in names if launches[k] < 1]
+    if idle:
+        fail(f"probes: the sweep never launched {idle}")
+    by = {(r["probe"], r["variant"], r["size"]): r for r in rows if r["fits"]}
+    T = probes.FILL_TILES
+    entries = []
+    for probe, name, line, variant, size in PROBE_ENTRIES:
+        r = by[(probe, variant, size)]
+        gathers = probes.timed_gathers(probe)
+        _, plain_ms = once_ms(probes.case(probe, variant, size, 0, T, DEVICE,
+                                          gathers)[1])
+        torch.cuda.empty_cache()
+        entry = dict(
+            name=name, route="cuda",
+            source="rust_tracing_tpu_torch/csrc/probe_kernel.cu",
+            replaces=f"scripts/tpu_probe.py:{line}",
+            launches=launches[name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=plain_ms, bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"],
+            library_ms=probe_library_ms(probe, variant, size, T, gathers),
+            shape=f"{probe} {r['function']} {variant} size {size}, {T} tiles"
+                  + (f", {gathers} gathers a thread" if gathers > 1 else ""),
+            rate=r["rate"], rate_unit=r["rate_unit"])
+        if probe in ("P1", "P5"):
+            entry["ms_by_space"] = {
+                sp: by[(probe, sp, size)]["ms"] for sp in probes.SPACES}
+        if probe == "P7":
+            entry.update(probe_tf32(launches, by[("P7", "tf32", size)]))
+        say("probes", check="entry", **entry)
+        entries.append(entry)
+    say("probes", check="phase", sweep_seconds=sweep_s,
+        seconds=time.perf_counter() - t0)
+    return entries
+
+
+def probe_tf32(launches, row):
+    """P7's tensor-core variant from its sweep row (time, bound, gate), and
+    the two products by torch.matmul (TF32 off) beside."""
+    cm, r2, o, d = probes.mxu_inputs(0, probes.SPHERES, probes.FILL_TILES,
+                                     DEVICE)
+    return dict(
+        tf32_kernel="sphere_mxu_tc_kernel",
+        tf32_launches=launches["sphere_mxu_tc_kernel"], tf32_ms=row["ms"],
+        tf32_bound_ms=row["bound_ms"], tf32_bound_by=row["bound_by"],
+        **{f"tf32_{k}": v for k, v in row.items() if k.startswith("gate_")},
+        library_products_ms=probes.time_ms(
+            lambda: (torch.matmul(d, cm), torch.matmul(o, cm)), 3))
+
+
+# torch_func phase: the noise scene of tests/test_grad.py's jacfwd test at
+# 24 px, seed 3, 4 spp, depth 3, float64; the middle row's pixels
+JAC_WIDTH, JAC_SEED, JAC_SPP, JAC_DEPTH = 24, 3, 4, 3
+JAC_RTOL, JAC_ATOL = 1e-10, 1e-12
+
+
+def jac_scene():
+    """A marble back wall, a red wall, a checker floor, a light and a
+    marble sphere (tests/test_grad.py::_mini_cornell)."""
+    b = rt.SceneBuilder(background=(0.0, 0.0, 0.0))
+    marble = b.lambertian(b.noise_texture(2.0))
+    checker = b.lambertian(b.checker_texture(0.5, (0.8, 0.8, 0.2),
+                                             (0.1, 0.1, 0.4)))
+    b.add_quad((-2, -2, 4), (4, 0, 0), (0, 4, 0), marble)
+    b.add_quad((-2, -2, 0), (0, 0, 4), (0, 4, 0),
+               b.lambertian((0.65, 0.05, 0.05)))
+    b.add_quad((-2, -2, 0), (4, 0, 0), (0, 0, 4), checker)
+    b.add_quad((-1, 1.9, 1), (2, 0, 0), (0, 0, 2), b.diffuse_light((6, 6, 6)))
+    b.add_sphere((0.3, -1.2, 2.0), 0.8, b.lambertian(b.noise_texture(3.0)))
+    settings = rt.RenderSettings(
+        aspect_ratio=1.0, image_width=JAC_WIDTH,
+        samples_per_pixel=JAC_SPP, max_depth=JAC_DEPTH, vfov=60.0,
+        look_from=(0.0, 0.0, -3.0), look_at=(0.0, 0.0, 2.0),
+        background=(0.0, 0.0, 0.0))
+    return b, settings
+
+
+def phase_torch_func():
+    """jacfwd and jacrev through the replay on the card (launch counts
+    reset just before, read just after: the batching rules' kernels must
+    have run) against each other and against the same on the CPU; both
+    devices replay the CPU recorder's records."""
+    b, settings = jac_scene()
+    cam = rt.Camera.create(settings)
+    pid = JAC_WIDTH * (JAC_WIDTH // 2) + torch.arange(JAC_WIDTH,
+                                                      dtype=torch.int32)
+    recs = None
+    jac = {}
+    for dev in ("cpu", DEVICE):
+        scene = rt.compile_scene(b, dtype=torch.float64, device=dev)
+        c = cam.constants(torch.float64, device=dev)
+        if recs is None:
+            recs = tg.get_records(scene, cam, JAC_SEED, JAC_SPP, JAC_DEPTH,
+                                  pixel_ids=pid, dtype=torch.float64)
+        p, r = pid.to(dev), recs.to(dev)
+
+        def f(tex_rgb):
+            img, _ = tg.radiance_mean_replay_rays(
+                scene.replace(tex_rgb=tex_rgb), c, p, JAC_SEED, r, JAC_SPP,
+                JAC_DEPTH)
+            return img.mean(-1)
+
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            reset_launches()
+        t0 = time.perf_counter()
+        fwd = torch.func.jacfwd(f)(scene.tex_rgb)
+        rev = torch.func.jacrev(f)(scene.tex_rgb)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        jac[dev] = (fwd.cpu(), rev.cpu(), time.perf_counter() - t0)
+    (fc, rc, cpu_s), (fg, rg, gpu_s) = jac["cpu"], jac[DEVICE]
+
+    def err(a, b):
+        return float((a - b).abs().max())
+
+    ok = (bool(torch.isfinite(fg).all()) and float(fg.abs().max()) > 0
+          and all(torch.allclose(a, b, rtol=JAC_RTOL, atol=JAC_ATOL)
+                  for a, b in ((fg, rg), (fg, fc), (rg, rc))))
+    say("torch_func", shape=tuple(fg.shape), launches=launches,
+        fwd_rev_max_abs_err=err(fg, rg), fwd_cpu_max_abs_err=err(fg, fc),
+        rev_cpu_max_abs_err=err(rg, rc), max_abs_jacobian=float(
+            fg.abs().max()), rtol=JAC_RTOL, atol=JAC_ATOL, ok=ok,
+        cuda_seconds=gpu_s, cpu_seconds=cpu_s)
+    if not ok:
+        fail("torch_func: the card's jacfwd/jacrev disagree with each other "
+             "or with the CPU's")
+    idle = [k for k in ("gather_cols_kernel", "scatter_sum_kernel")
+            if not launches.get(k)]
+    if idle:
+        fail(f"torch_func: the batching rules never launched {idle}")
+
+
 def main():
     t_start = time.perf_counter()
     card = gpu_line()
@@ -1825,6 +2055,8 @@ def main():
 
     dist_res = phase_distributed(main)
     phase_live()
+    probe_entries = phase_probes()
+    phase_torch_func()
 
     say("total", seconds=time.perf_counter() - t_start,
         grad_final_s=grad_final["seconds"])
@@ -1982,7 +2214,7 @@ def main():
                                  for r in dist_res["two"]],
         "launches_by_rank_2x2": [r["launches"]["render_kernel"]
                                  for r in dist_res["four"]],
-    }]}), flush=True)
+    }] + probe_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,655 @@
+// Hardware probes for Hopper (sm_90a), written by hand: the counterparts of
+// the seven Pallas probes of scripts/tpu_probe.py (P1-P7), which ask where a
+// scene table should live and what a sphere test costs. Host side and plain
+// versions: rust_tracing_tpu_torch/probes.py.
+//
+// On the TPU the question was SMEM scalars vs VMEM rows vs immediates vs the
+// MXU. On this card a table that every thread of a warp reads at the same
+// index can live in
+//   - __constant__ memory (64 KB, c_tab below): one broadcast a warp from
+//     the constant cache;
+//   - shared memory (up to 227 KB a block), staged by each block first;
+//   - global memory through the read-only path (__ldg), cached in L1/L2;
+//   - the instruction stream, as immediates of a kernel compiled for one
+//     scene (P6).
+// Each kernel computes the reference probe's function. Threads: one a
+// (8, 128) tile element (1024 a block: one tile a block, so a block stages
+// its shared table once per tile), or one a ray (P5-P7). What bounds each:
+//   P1, P2  n dependent adds a thread (operations; a chain, so latency);
+//   P3, P4  the gathers and the output write (bytes);
+//   P5, P6  25 flop a sphere test (operations), plus the table read;
+//   P7      two 8-term products a (ray, sphere) on CUDA cores (f32 variant)
+//           or tensor cores (TF32 variant) and a 14-flop epilogue.
+//
+// Built like every source here with --fmad=false and without fast math:
+// the sphere tests do the reference's f32 operations in its order, with
+// IEEE sqrtf and division, so they equal the plain versions bit for bit.
+// The TF32 variant of P7 is the one exception by design: its products are
+// tf32 and are held to a derived tolerance (probes.py TF32_PROD_RTOL).
+//
+// c_tab is one __constant__ buffer shared by P1 and P5: the wrapper copies
+// the table into it on the launch stream before the kernel (launches on one
+// stream are ordered; two streams launching these probes concurrently would
+// race on it).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TILE = 1024;           // one (8, 128) tile, one block
+constexpr int LANES = 128;
+constexpr int GATHER_N = 256;
+constexpr int CONST_FLOATS = 16384;  // 64 KB
+constexpr int SHARED_MAX_BYTES = 232448;
+constexpr int SPACE_CONSTANT = 0, SPACE_SHARED = 1, SPACE_GLOBAL = 2;
+constexpr int MXU_K = 8;
+constexpr int MXU_F32_THREADS = 256;
+constexpr int MXU_TC_WARPS = 4;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr float NO_HIT = 1e30f;
+
+__constant__ float c_tab[CONST_FLOATS];
+
+// Copy n floats of a global table into this block's shared memory.
+__device__ __forceinline__ void stage(float* s, const float* __restrict__ g,
+                                      int n) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = __ldg(g + i);
+    __syncthreads();
+}
+
+template <int SPACE>
+__device__ __forceinline__ float tab_at(const float* __restrict__ g,
+                                        const float* s, int i) {
+    if (SPACE == SPACE_CONSTANT) return c_tab[i];
+    if (SPACE == SPACE_SHARED) return s[i];
+    return __ldg(g + i);
+}
+
+// ------------------------------------------------------------------- P1
+// Every thread folds tab[0..n) in index order (the reference's fori_loop
+// over SMEM scalars) and writes the sum.
+template <int SPACE>
+__global__ void __launch_bounds__(TILE)
+    smem_scalar_kernel(const float* __restrict__ tab, int n,
+                       float* __restrict__ out, long long total) {
+    extern __shared__ float s_tab[];
+    if (SPACE == SPACE_SHARED) stage(s_tab, tab, n);
+    float s = 0.0f;
+    for (int i = 0; i < n; ++i) s += tab_at<SPACE>(tab, s_tab, i);
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g < total) out[g] = s;
+}
+
+// ------------------------------------------------------------------- P2
+// 16-byte loads that the compiler may not narrow: the probe measures the
+// whole row read.
+__device__ __forceinline__ float4 ld_global_v4(const float4* p) {
+    float4 v;
+    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "l"(p)
+                 : "memory");
+    return v;
+}
+
+__device__ __forceinline__ float4 ld_shared_v4(const float4* p) {
+    float4 v;
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(a)
+                 : "memory");
+    return v;
+}
+
+// Step i: each warp reads row i of the (n, 128) table, one float4 a lane,
+// and broadcasts lane 0's first value (tab[i, 0]) to every lane, which adds
+// it: the reference's (1, 128) VMEM row read and [0, 0] broadcast.
+template <int SPACE>
+__global__ void __launch_bounds__(TILE)
+    row_broadcast_kernel(const float* __restrict__ tab, int n,
+                         float* __restrict__ out, long long total) {
+    extern __shared__ float4 s_rows[];
+    const float4* rows = reinterpret_cast<const float4*>(tab);
+    if (SPACE == SPACE_SHARED) {
+        for (int i = threadIdx.x; i < n * (LANES / 4); i += blockDim.x)
+            s_rows[i] = __ldg(rows + i);
+        __syncthreads();
+    }
+    const int lane = threadIdx.x & 31;
+    float s = 0.0f;
+    for (int i = 0; i < n; ++i) {
+        const int k = i * (LANES / 4) + lane;
+        const float4 v = SPACE == SPACE_SHARED ? ld_shared_v4(s_rows + k)
+                                               : ld_global_v4(rows + k);
+        s += __shfl_sync(FULL_MASK, v.x, 0);
+    }
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g < total) out[g] = s;
+}
+
+// ------------------------------------------------------------- P3 / P4
+// Element (r, l) of a tile gathers at idx = (7 r + stride l) % 256 (the
+// reference's index, stride 13); with reps > 1 it adds the gathers at
+// idx, idx + 1, ... (mod 256) in order, so that the gathers, and the bank
+// conflicts of a stride, and not the launch, are what is timed. Over 32
+// banks a warp's lanes hit distinct banks at stride 13; stride 2 gives
+// 2-way, 16 and 32 give 8-way conflicts on the 256-entry shared column.
+__device__ __forceinline__ int gather_idx(int stride) {
+    const int r = threadIdx.x / LANES, l = threadIdx.x % LANES;
+    return (7 * r + stride * l) % GATHER_N;
+}
+
+// P3: column 0 of the (256, 128) table; shared stages that column.
+template <int SPACE>
+__global__ void __launch_bounds__(TILE)
+    gather_probe_kernel(const float* __restrict__ tab, int stride, int reps,
+                        float* __restrict__ out, long long total) {
+    __shared__ float s_col[GATHER_N];
+    if (SPACE == SPACE_SHARED) {
+        for (int i = threadIdx.x; i < GATHER_N; i += blockDim.x)
+            s_col[i] = __ldg(tab + i * LANES);
+        __syncthreads();
+    }
+    const int idx = gather_idx(stride);
+    float acc = 0.0f;
+    for (int k = 0; k < reps; ++k) {
+        const int j = (idx + k) % GATHER_N;
+        const float v =
+            SPACE == SPACE_SHARED ? s_col[j] : __ldg(tab + j * LANES);
+        acc = k == 0 ? v : acc + v;
+    }
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g < total) out[g] = acc;
+}
+
+// P4: take_along_axis down each lane's own column of the whole table;
+// shared stages all of it (128 KB). Lane l reads bank l % 32 whatever the
+// row: conflict-free.
+template <int SPACE>
+__global__ void __launch_bounds__(TILE)
+    gather_2d_kernel(const float* __restrict__ tab, int reps,
+                     float* __restrict__ out, long long total) {
+    extern __shared__ float s_tab[];
+    if (SPACE == SPACE_SHARED) stage(s_tab, tab, GATHER_N * LANES);
+    const int l = threadIdx.x % LANES;
+    const int idx = gather_idx(13);
+    float acc = 0.0f;
+    for (int k = 0; k < reps; ++k) {
+        const int j = ((idx + k) % GATHER_N) * LANES + l;
+        const float v = SPACE == SPACE_SHARED ? s_tab[j] : __ldg(tab + j);
+        acc = k == 0 ? v : acc + v;
+    }
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g < total) out[g] = acc;
+}
+
+// ------------------------------------------------------------- P5 / P6
+// The rounds of P5-P7 are identical, so nvcc would hoist each round's
+// sphere tests (which do not depend on the running minimum) out of the
+// round loop, or keep them across rounds in spilled registers, and time
+// something else than reps rounds of tests. An empty asm that "changes" a
+// round's inputs keeps every round's tests in it; it costs no instruction.
+__device__ __forceinline__ void launder(float& x) {
+    asm volatile("" : "+f"(x));
+}
+__device__ __forceinline__ void launder(uint32_t& x) {
+    asm volatile("" : "+r"(x));
+}
+
+// One sphere test of the reference's loop (scripts/tpu_probe.py
+// sphere_loop_smem), its operations in its order.
+__device__ __forceinline__ float sphere_step(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float a, float cx, float cy,
+                                             float cz, float r2,
+                                             float tbest) {
+    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+    const float hb = ocx * dx + ocy * dy + ocz * dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - r2;
+    const float disc = hb * hb - a * c;
+    const float t = (-hb - sqrtf(fmaxf(disc, 0.0f))) / a;
+    const bool ok = (disc > 0.0f) && (t > 1e-3f) && (t < tbest);
+    return ok ? t : tbest;
+}
+
+// P5: one thread a ray; S spheres (cx, cy, cz, r2) read from SPACE, reps
+// rounds. o and d are (3, R) component planes.
+template <int SPACE>
+__global__ void __launch_bounds__(TILE)
+    sphere_loop_kernel(const float* __restrict__ sph, int S,
+                       const float* __restrict__ o,
+                       const float* __restrict__ d, long long R, int reps,
+                       float* __restrict__ out) {
+    extern __shared__ float s_sph[];
+    if (SPACE == SPACE_SHARED) stage(s_sph, sph, 4 * S);
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= R) return;
+    float ox = o[g], oy = o[R + g], oz = o[2 * R + g];
+    float dx = d[g], dy = d[R + g], dz = d[2 * R + g];
+    float a = dx * dx + dy * dy + dz * dz;
+    float tbest = NO_HIT;
+    for (int r = 0; r < reps; ++r) {
+        launder(ox), launder(oy), launder(oz);
+        launder(dx), launder(dy), launder(dz), launder(a);
+        for (int i = 0; i < S; ++i) {
+            tbest = sphere_step(ox, oy, oz, dx, dy, dz, a,
+                                tab_at<SPACE>(sph, s_sph, 4 * i),
+                                tab_at<SPACE>(sph, s_sph, 4 * i + 1),
+                                tab_at<SPACE>(sph, s_sph, 4 * i + 2),
+                                tab_at<SPACE>(sph, s_sph, 4 * i + 3), tbest);
+        }
+    }
+    out[g] = tbest;
+}
+
+// P6: the same loop with the S spheres compiled in. The sphere loop is
+// unrolled, so every value float(k) * 0.01f is a constant that nvcc folds
+// (round to nearest, as numpy's arange(4S, float32) * 0.01) and places in
+// the instructions.
+template <int S>
+__global__ void __launch_bounds__(TILE)
+    sphere_immediate_kernel(const float* __restrict__ o,
+                            const float* __restrict__ d, long long R,
+                            int reps, float* __restrict__ out) {
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= R) return;
+    float ox = o[g], oy = o[R + g], oz = o[2 * R + g];
+    float dx = d[g], dy = d[R + g], dz = d[2 * R + g];
+    float a = dx * dx + dy * dy + dz * dz;
+    float tbest = NO_HIT;
+#pragma unroll 1
+    for (int r = 0; r < reps; ++r) {
+        launder(ox), launder(oy), launder(oz);
+        launder(dx), launder(dy), launder(dz), launder(a);
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+            tbest = sphere_step(ox, oy, oz, dx, dy, dz, a,
+                                float(4 * i) * 0.01f,
+                                float(4 * i + 1) * 0.01f,
+                                float(4 * i + 2) * 0.01f,
+                                float(4 * i + 3) * 0.01f, tbest);
+        }
+    }
+    out[g] = tbest;
+}
+
+// ------------------------------------------------------------------- P7
+// The reference's placeholder algebra on the two products hd = d . cm_j and
+// ho = o . cm_j: a candidate t, or NO_HIT.
+__device__ __forceinline__ float mxu_cand(float hd, float ho, float a,
+                                          float o2, float c2) {
+    const float c = o2 - 2.0f * ho + c2;
+    const float disc = hd * hd - a * c;
+    const float t = (-hd - sqrtf(fmaxf(disc, 0.0f))) / a;
+    return (disc > 0.0f && t > 1e-3f) ? t : NO_HIT;
+}
+
+// Sum over k of x[k] * y[k * stride] in index order, from the first product.
+__device__ __forceinline__ float dot8(const float* __restrict__ x,
+                                      const float* y, int stride) {
+    float acc = x[0] * y[0];
+#pragma unroll
+    for (int k = 1; k < MXU_K; ++k) acc = acc + x[k] * y[k * stride];
+    return acc;
+}
+
+// f32 variant: one thread a ray; cm (8, S) and r2's row 0 staged in shared
+// memory; both products on the CUDA cores in index order. Min over spheres
+// is exact, so the order of the min does not matter.
+__global__ void __launch_bounds__(MXU_F32_THREADS)
+    sphere_mxu_f32_kernel(const float* __restrict__ cm,
+                          const float* __restrict__ r2, int S,
+                          const float* __restrict__ o,
+                          const float* __restrict__ d, long long R, int reps,
+                          float* __restrict__ out) {
+    extern __shared__ float s_cm[];  // 8 S products' columns, then S c2
+    float* s_c2 = s_cm + MXU_K * S;
+    for (int i = threadIdx.x; i < MXU_K * S; i += blockDim.x)
+        s_cm[i] = __ldg(cm + i);
+    for (int i = threadIdx.x; i < S; i += blockDim.x) s_c2[i] = __ldg(r2 + i);
+    __syncthreads();
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (g >= R) return;
+    float dr[MXU_K], orow[MXU_K];
+#pragma unroll
+    for (int k = 0; k < MXU_K; ++k) {
+        dr[k] = __ldg(d + g * MXU_K + k);
+        orow[k] = __ldg(o + g * MXU_K + k);
+    }
+    float a = dot8(dr, dr, 1), o2 = dot8(orow, orow, 1);
+    float tmin = NO_HIT;
+    for (int r = 0; r < reps; ++r) {
+#pragma unroll
+        for (int k = 0; k < MXU_K; ++k) launder(dr[k]), launder(orow[k]);
+        launder(a), launder(o2);
+        float tc = NO_HIT;
+        for (int j = 0; j < S; ++j) {
+            const float hd = dot8(dr, s_cm + j, S);
+            const float ho = dot8(orow, s_cm + j, S);
+            tc = fminf(tc, mxu_cand(hd, ho, a, o2, s_c2[j]));
+        }
+        tmin = fminf(tmin, tc);
+    }
+    out[g] = tmin;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// D = A (16x8, row) * B (8x8, col), tf32 inputs, f32 accumulate from 0.
+__device__ __forceinline__ void mma_tf32(float (&dd)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%10, %11, %12, %13};"
+        : "=f"(dd[0]), "=f"(dd[1]), "=f"(dd[2]), "=f"(dd[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
+}
+
+// TF32 variant: one warp per 16 rays. The m16n8k8 fragments (PTX ISA):
+// with gid = lane / 4 and tig = lane % 4, A holds (row gid | gid + 8,
+// col tig | tig + 4), B holds (row tig | tig + 4, col gid), D holds (row
+// gid | gid + 8, col 2 tig | 2 tig + 1). Rays' d and o rows are the A tiles
+// (loaded once), cm's 8 columns a step the B tile; the epilogue runs on the
+// four D elements a thread holds, and the quad of threads sharing a row
+// takes the min across its columns by shuffles. With prods non-null the
+// first round's products are written out, (2, R, S).
+__global__ void __launch_bounds__(32 * MXU_TC_WARPS)
+    sphere_mxu_tc_kernel(const float* __restrict__ cm,
+                         const float* __restrict__ r2, int S,
+                         const float* __restrict__ o,
+                         const float* __restrict__ d, long long R, int reps,
+                         float* __restrict__ out, float* __restrict__ prods) {
+    const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+    const long long base =
+        ((long long)blockIdx.x * MXU_TC_WARPS + (threadIdx.x >> 5)) * 16;
+    if (base >= R) return;
+    const long long r0 = base + gid, r1 = base + gid + 8;
+    uint32_t ad[4] = {to_tf32(__ldg(d + r0 * MXU_K + tig)),
+                            to_tf32(__ldg(d + r1 * MXU_K + tig)),
+                            to_tf32(__ldg(d + r0 * MXU_K + tig + 4)),
+                            to_tf32(__ldg(d + r1 * MXU_K + tig + 4))};
+    uint32_t ao[4] = {to_tf32(__ldg(o + r0 * MXU_K + tig)),
+                            to_tf32(__ldg(o + r1 * MXU_K + tig)),
+                            to_tf32(__ldg(o + r0 * MXU_K + tig + 4)),
+                            to_tf32(__ldg(o + r1 * MXU_K + tig + 4))};
+    float d0[MXU_K], d1[MXU_K], o0[MXU_K], o1[MXU_K];
+#pragma unroll
+    for (int k = 0; k < MXU_K; ++k) {
+        d0[k] = __ldg(d + r0 * MXU_K + k);
+        d1[k] = __ldg(d + r1 * MXU_K + k);
+        o0[k] = __ldg(o + r0 * MXU_K + k);
+        o1[k] = __ldg(o + r1 * MXU_K + k);
+    }
+    float a[2] = {dot8(d0, d0, 1), dot8(d1, d1, 1)};
+    float o2[2] = {dot8(o0, o0, 1), dot8(o1, o1, 1)};
+    float tmin[2] = {NO_HIT, NO_HIT};
+    for (int rep = 0; rep < reps; ++rep) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) launder(ad[i]), launder(ao[i]);
+        launder(a[0]), launder(a[1]), launder(o2[0]), launder(o2[1]);
+        float tc[2] = {NO_HIT, NO_HIT};
+        for (int j0 = 0; j0 < S; j0 += 8) {
+            const uint32_t b[2] = {to_tf32(__ldg(cm + tig * S + j0 + gid)),
+                                   to_tf32(__ldg(cm + (tig + 4) * S + j0 +
+                                                 gid))};
+            float hd[4], ho[4];
+            mma_tf32(hd, ad, b);
+            mma_tf32(ho, ao, b);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int h = e >> 1;
+                const int col = j0 + 2 * tig + (e & 1);
+                tc[h] = fminf(tc[h], mxu_cand(hd[e], ho[e], a[h], o2[h],
+                                              __ldg(r2 + col)));
+                if (prods != nullptr && rep == 0) {
+                    const long long row = h ? r1 : r0;
+                    prods[row * S + col] = hd[e];
+                    prods[(R + row) * S + col] = ho[e];
+                }
+            }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            tc[h] = fminf(tc[h], __shfl_xor_sync(FULL_MASK, tc[h], 1));
+            tc[h] = fminf(tc[h], __shfl_xor_sync(FULL_MASK, tc[h], 2));
+            tmin[h] = fminf(tmin[h], tc[h]);
+        }
+    }
+    if (tig == 0) {
+        out[r0] = tmin[0];
+        out[r1] = tmin[1];
+    }
+}
+
+// --------------------------------------------------------------- launch
+int blocks_of(long long n, int per_block) {
+    return (int)((n + per_block - 1) / per_block);
+}
+
+template <typename K>
+cudaError_t allow_shared(K kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)bytes);
+}
+
+// Place a table for `space`: __constant__ gets a copy on the stream.
+cudaError_t place(int space, const void* tab, int n, size_t* smem,
+                  cudaStream_t st) {
+    *smem = 0;
+    if (space == SPACE_CONSTANT) {
+        if (n > CONST_FLOATS) return cudaErrorInvalidValue;
+        return cudaMemcpyToSymbolAsync(c_tab, tab, (size_t)n * sizeof(float),
+                                       0, cudaMemcpyDeviceToDevice, st);
+    }
+    if (space == SPACE_SHARED) {
+        *smem = (size_t)n * sizeof(float);
+        if (*smem > (size_t)SHARED_MAX_BYTES) return cudaErrorInvalidValue;
+        return cudaSuccess;
+    }
+    return space == SPACE_GLOBAL ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+#define RT_TRY(expr)                           \
+    do {                                       \
+        const cudaError_t e_ = (expr);         \
+        if (e_ != cudaSuccess) return (int)e_; \
+    } while (0)
+
+template <int SPACE>
+int launch_smem_scalar(const float* tab, int n, float* out, long long total,
+                       size_t smem, cudaStream_t st) {
+    RT_TRY(allow_shared(smem_scalar_kernel<SPACE>, smem));
+    smem_scalar_kernel<SPACE><<<blocks_of(total, TILE), TILE, smem, st>>>(
+        tab, n, out, total);
+    return (int)cudaGetLastError();
+}
+
+template <int SPACE>
+int launch_sphere_loop(const float* sph, int S, const float* o,
+                       const float* d, long long R, int reps, float* out,
+                       size_t smem, cudaStream_t st) {
+    RT_TRY(allow_shared(sphere_loop_kernel<SPACE>, smem));
+    sphere_loop_kernel<SPACE><<<blocks_of(R, TILE), TILE, smem, st>>>(
+        sph, S, o, d, R, reps, out);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// P1: out (total,) = the index-order sum of tab[0..n), from `space`.
+extern "C" int rt_probe_smem_scalar_launch(const void* tab, int n, int space,
+                                           void* out, long long total,
+                                           void* stream) {
+    if (n < 1 || total < 1) return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    size_t smem;
+    RT_TRY(place(space, tab, n, &smem, st));
+    const float* t = static_cast<const float*>(tab);
+    float* y = static_cast<float*>(out);
+    if (space == SPACE_CONSTANT)
+        return launch_smem_scalar<SPACE_CONSTANT>(t, n, y, total, smem, st);
+    if (space == SPACE_SHARED)
+        return launch_smem_scalar<SPACE_SHARED>(t, n, y, total, smem, st);
+    return launch_smem_scalar<SPACE_GLOBAL>(t, n, y, total, smem, st);
+}
+
+// P2: out (total,) = sum of tab[i, 0] over the rows of an (n, 128) table,
+// read as float4 rows from shared or global memory.
+extern "C" int rt_probe_row_broadcast_launch(const void* tab, int n,
+                                             int space, void* out,
+                                             long long total, void* stream) {
+    if (n < 1 || total < 1 || (space != SPACE_SHARED && space != SPACE_GLOBAL))
+        return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* t = static_cast<const float*>(tab);
+    float* y = static_cast<float*>(out);
+    if (space == SPACE_SHARED) {
+        const size_t smem = (size_t)n * LANES * sizeof(float);
+        if (smem > (size_t)SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
+        RT_TRY(allow_shared(row_broadcast_kernel<SPACE_SHARED>, smem));
+        row_broadcast_kernel<SPACE_SHARED>
+            <<<blocks_of(total, TILE), TILE, smem, st>>>(t, n, y, total);
+    } else {
+        row_broadcast_kernel<SPACE_GLOBAL>
+            <<<blocks_of(total, TILE), TILE, 0, st>>>(t, n, y, total);
+    }
+    return (int)cudaGetLastError();
+}
+
+// P3: out (total,) = tab[idx, 0] of a (256, 128) table (summed over reps
+// offsets), idx = (7 r + stride l) % 256.
+extern "C" int rt_probe_gather_launch(const void* tab, int stride, int reps,
+                                      int space, void* out, long long total,
+                                      void* stream) {
+    if (reps < 1 || total < 1 || total % TILE
+        || (space != SPACE_SHARED && space != SPACE_GLOBAL))
+        return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* t = static_cast<const float*>(tab);
+    float* y = static_cast<float*>(out);
+    const int nb = blocks_of(total, TILE);
+    if (space == SPACE_SHARED)
+        gather_probe_kernel<SPACE_SHARED>
+            <<<nb, TILE, 0, st>>>(t, stride, reps, y, total);
+    else
+        gather_probe_kernel<SPACE_GLOBAL>
+            <<<nb, TILE, 0, st>>>(t, stride, reps, y, total);
+    return (int)cudaGetLastError();
+}
+
+// P4: out (total,) = tab[idx, l] of a (256, 128) table (summed over reps
+// offsets).
+extern "C" int rt_probe_gather_2d_launch(const void* tab, int reps, int space,
+                                         void* out, long long total,
+                                         void* stream) {
+    if (reps < 1 || total < 1 || total % TILE
+        || (space != SPACE_SHARED && space != SPACE_GLOBAL))
+        return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* t = static_cast<const float*>(tab);
+    float* y = static_cast<float*>(out);
+    const int nb = blocks_of(total, TILE);
+    if (space == SPACE_SHARED) {
+        const size_t smem = (size_t)GATHER_N * LANES * sizeof(float);
+        RT_TRY(allow_shared(gather_2d_kernel<SPACE_SHARED>, smem));
+        gather_2d_kernel<SPACE_SHARED><<<nb, TILE, smem, st>>>(t, reps, y,
+                                                               total);
+    } else {
+        gather_2d_kernel<SPACE_GLOBAL><<<nb, TILE, 0, st>>>(t, reps, y, total);
+    }
+    return (int)cudaGetLastError();
+}
+
+// P5: out (R,) = the closest hit of rays (3, R) over S spheres from `space`.
+extern "C" int rt_probe_sphere_loop_launch(const void* sph, int S,
+                                           const void* o, const void* d,
+                                           long long R, int reps, int space,
+                                           void* out, void* stream) {
+    if (S < 1 || R < 1 || reps < 0) return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    size_t smem;
+    RT_TRY(place(space, sph, 4 * S, &smem, st));
+    const float* s = static_cast<const float*>(sph);
+    const float* po = static_cast<const float*>(o);
+    const float* pd = static_cast<const float*>(d);
+    float* y = static_cast<float*>(out);
+    if (space == SPACE_CONSTANT)
+        return launch_sphere_loop<SPACE_CONSTANT>(s, S, po, pd, R, reps, y,
+                                                  smem, st);
+    if (space == SPACE_SHARED)
+        return launch_sphere_loop<SPACE_SHARED>(s, S, po, pd, R, reps, y,
+                                                smem, st);
+    return launch_sphere_loop<SPACE_GLOBAL>(s, S, po, pd, R, reps, y, smem,
+                                            st);
+}
+
+// P6: P5 with the spheres compiled in, S = 64 or 256.
+extern "C" int rt_probe_sphere_immediate_launch(int S, const void* o,
+                                                const void* d, long long R,
+                                                int reps, void* out,
+                                                void* stream) {
+    if (R < 1 || reps < 0) return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* po = static_cast<const float*>(o);
+    const float* pd = static_cast<const float*>(d);
+    float* y = static_cast<float*>(out);
+    const int nb = blocks_of(R, TILE);
+    if (S == 64)
+        sphere_immediate_kernel<64><<<nb, TILE, 0, st>>>(po, pd, R, reps, y);
+    else if (S == 256)
+        sphere_immediate_kernel<256><<<nb, TILE, 0, st>>>(po, pd, R, reps, y);
+    else
+        return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+// P7: out (R,) = the min over S spheres of the placeholder algebra on
+// d @ cm and o @ cm, for rays o, d (R, 8) and cm, r2 (8, S); f32 CUDA-core
+// or TF32 tensor-core products. prods (2, R, S) or null (TF32 only).
+extern "C" int rt_probe_sphere_mxu_launch(const void* cm, const void* r2,
+                                          int S, const void* o,
+                                          const void* d, long long R,
+                                          int reps, int tensor_cores,
+                                          void* out, void* prods,
+                                          void* stream) {
+    if (S < 1 || R < 1 || reps < 0) return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* pc = static_cast<const float*>(cm);
+    const float* pr = static_cast<const float*>(r2);
+    const float* po = static_cast<const float*>(o);
+    const float* pd = static_cast<const float*>(d);
+    float* y = static_cast<float*>(out);
+    if (tensor_cores) {
+        if (R % 16 || S % 8) return (int)cudaErrorInvalidValue;
+        const int rows = 16 * MXU_TC_WARPS;
+        sphere_mxu_tc_kernel<<<blocks_of(R, rows), 32 * MXU_TC_WARPS, 0,
+                               st>>>(pc, pr, S, po, pd, R, reps, y,
+                                     static_cast<float*>(prods));
+        return (int)cudaGetLastError();
+    }
+    if (prods != nullptr) return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)(MXU_K + 1) * S * sizeof(float);
+    if (smem > (size_t)SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
+    RT_TRY(allow_shared(sphere_mxu_f32_kernel, smem));
+    sphere_mxu_f32_kernel<<<blocks_of(R, MXU_F32_THREADS), MXU_F32_THREADS,
+                            smem, st>>>(pc, pr, S, po, pd, R, reps, y);
+    return (int)cudaGetLastError();
+}

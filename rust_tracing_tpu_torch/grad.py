@@ -70,6 +70,11 @@ def _sum_samples(rad, k: int, C: int):
 
 
 def _needs_graph(scene) -> bool:
+    """Whether autograd is recording a graph of the scene's leaves that a
+    per-chunk checkpoint can shorten. Not under a torch.func transform
+    (jacrev, vjp, grad), which refuses checkpoint's saved-tensor hooks."""
+    if torch._C._functorch.peek_interpreter_stack() is not None:
+        return False
     return torch.is_grad_enabled() and any(
         isinstance(v, torch.Tensor) and v.requires_grad
         for v in vars(scene).values())

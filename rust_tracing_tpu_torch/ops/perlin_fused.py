@@ -12,13 +12,17 @@ the same order, built without multiply-add contraction).
 ``turbulence`` is a ``torch.autograd.Function``:
 
 - forward: the kernel for CUDA tensors, the plain version for CPU tensors;
-- backward: the gradient of the plain version, recomputed under
-  ``torch.enable_grad()`` (the reference's primitive delegates its jvp to
-  the XLA formulation the same way and has no backward kernel). Gradients
-  reach ``px, py, pz`` and ``ranvec``; the permutation tables are integers.
-
-Not ported yet: the reference's batching rule (``vmap``), which no path
-needs; it comes with the multi-GPU slice, with ``tgather``'s.
+- backward: the gradient of the plain version, recomputed by
+  ``torch.func.vjp`` (the reference's primitive delegates its jvp to the
+  XLA formulation the same way and has no backward kernel), so that it
+  also runs under vmap (jacrev's batched cotangents). Gradients
+  reach ``px, py, pz`` and ``ranvec``; the permutation tables are integers;
+- jvp: the plain version's jvp (``torch.func.jvp``), as the reference's
+  ``_turb_jvp`` takes its tangent from the XLA formulation;
+- vmap: the reference's batching rule ``_turb_batch``, for batched points:
+  the batch dims move to the front and are flattened into the lane axis,
+  one launch for the whole batch. The tables are shared; a batched table is
+  refused. With the jvp, ``torch.func.jacfwd`` runs through the Function.
 """
 
 from __future__ import annotations
@@ -102,21 +106,52 @@ class _Turbulence(torch.autograd.Function):
         ranvec, perm_x, perm_y, perm_z, px, py, pz, depth = inputs
         ctx.depth = depth
         ctx.save_for_backward(ranvec, perm_x, perm_y, perm_z, px, py, pz)
+        ctx.save_for_forward(ranvec, perm_x, perm_y, perm_z, px, py, pz)
 
     @staticmethod
     def backward(ctx, g):
         ranvec, perm_x, perm_y, perm_z, px, py, pz = ctx.saved_tensors
-        want = [ctx.needs_input_grad[i] for i in (0, 4, 5, 6)]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(w)
-                      for t, w in zip((ranvec, px, py, pz), want)]
-            out = turbulence_plain(leaves[0], perm_x, perm_y, perm_z,
-                                   *leaves[1:], ctx.depth)
-            asked = [t for t, w in zip(leaves, want) if w]
-            got = iter(torch.autograd.grad(out, asked, g, allow_unused=True)
-                       if asked else ())
-        d_rv, d_px, d_py, d_pz = [next(got) if w else None for w in want]
+        leaves = (ranvec, px, py, pz)
+        asked = [i for i, j in enumerate((0, 4, 5, 6))
+                 if ctx.needs_input_grad[j]]
+
+        def plain(*vals):
+            full = list(leaves)
+            for i, v in zip(asked, vals):
+                full[i] = v
+            return turbulence_plain(full[0], perm_x, perm_y, perm_z,
+                                    *full[1:], ctx.depth)
+
+        _, vjp = torch.func.vjp(plain, *[leaves[i] for i in asked])
+        got = dict(zip(asked, vjp(g)))
+        d_rv, d_px, d_py, d_pz = (got.get(i) for i in range(4))
         return d_rv, None, None, None, d_px, d_py, d_pz, None
+
+    @staticmethod
+    def jvp(ctx, d_rv, _dpx, _dpy, _dpz, d_px, d_py, d_pz, _ddepth):
+        ranvec, perm_x, perm_y, perm_z, px, py, pz = ctx.saved_tensors
+        primals = (ranvec, px, py, pz)
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, (d_rv, d_px, d_py, d_pz)))
+
+        def plain(rv, x, y, z):
+            return turbulence_plain(rv, perm_x, perm_y, perm_z, x, y, z,
+                                    ctx.depth)
+
+        return torch.func.jvp(plain, primals, tangents)[1]
+
+    @staticmethod
+    def vmap(info, in_dims, ranvec, perm_x, perm_y, perm_z, px, py, pz,
+             depth):
+        if any(d is not None for d in in_dims[:4]):
+            raise ValueError("turbulence batches over the points only; the "
+                             "ranvec and permutation tables are shared")
+        B = info.batch_size
+        pts = [p.movedim(d, 0) if d is not None else p.expand((B,) + p.shape)
+               for p, d in zip((px, py, pz), in_dims[4:7])]
+        out = _Turbulence.apply(ranvec, perm_x, perm_y, perm_z,
+                                *[p.reshape(-1) for p in pts], depth)
+        return out.reshape(pts[0].shape), 0
 
 
 def turbulence(ranvec, perm_x, perm_y, perm_z, px, py, pz,

@@ -1,0 +1,907 @@
+"""Hardware probes of the H100 for the scene-in-fast-memory kernel design.
+
+Counterpart of scripts/tpu_probe.py, whose seven Pallas probes (P1-P7) ask
+the TPU where a scene table can live and what a sphere test costs there. The
+same questions on this card are: which memory space serves a table that
+every thread of a warp reads at the same index (``__constant__``, shared
+memory, ``__ldg`` global memory, or immediates compiled into the kernel),
+what a per-thread gather costs, and whether a tensor-core sphere test pays.
+Each probe keeps the reference's function name and computes the
+reference's function; the kernels are hand-written CUDA C++ in
+``csrc/probe_kernel.cu``.
+
+For every probe this module holds:
+
+- a kernel wrapper (``*_kernel``): launches the CUDA kernel for CUDA
+  tensors, raises for any other tensor, counts its launches in ``LAUNCHES``;
+- its plain PyTorch version (``*_plain``): what CPU tensors run, what the
+  CPU tests hold against the JAX probe, and what ``chip_smoke.py`` holds the
+  kernel against on the card;
+- an entry point with the reference's name that makes the probe's table,
+  checks that it fits the memory space (``fits``), and runs the kernel on
+  the card or the plain version on the CPU (``device=None`` means the card
+  and raises without one).
+
+Inputs are arguments: the rays ``o, d`` of P5/P6 and P7's ``cm, r2, o, d``.
+The tables are the reference's: ``arange`` tables for P1-P4 and P5/P6's
+spheres ``arange(4S, float32) * 0.01``.
+
+Shapes. The reference shape is one (8, 128) tile (P1-P6) or 1024 rays (P7):
+the bitwise check. ``tiles`` repeats the tile: with 1024 tiles (2^20
+threads or rays) every SM of the card is busy, which is the timing shape;
+one tile alone would occupy one SM of 132 and measure latency.
+
+``python -m rust_tracing_tpu_torch.probes`` runs the sweep on the card (the
+reference's ``__main__``) and prints one JSON line per (probe, variant,
+size).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+from .config import resolve_device
+from .runtime.kernels import LAUNCHES
+
+ROWS, LANES = 8, 128
+TILE = ROWS * LANES
+
+# Memory spaces a probe table can live in. The card's limits stand in for
+# the TPU's question "how big can SMEM be": 64 KB of __constant__ data, and
+# 227 KB (232 448 bytes) of shared memory a block.
+SPACES = ("constant", "shared", "global")
+CONSTANT_FLOATS = 16384
+SHARED_FLOATS = 232448 // 4
+SPACE_CODE = {"constant": 0, "shared": 1, "global": 2}
+
+SMEM_SIZES = (128, 1024, 4096, 16384, 65536)  # P1, the reference's sizes
+ROW_N = 256                                    # P2, the reference's rows
+GATHER_N = 256                                 # P3/P4 table rows
+GATHER_STRIDE = 13                             # the reference's lane stride
+# P3's lane strides. Over 32 four-byte banks a warp's 32 lanes gather
+# (7 r + s l) % 256: stride 13 is conflict-free, 2 gives 2-way conflicts and
+# 16 and 32 give 8-way conflicts (a 256-entry column has 8 entries a bank);
+# ``bank_conflict_ways`` counts them.
+GATHER_STRIDES = (13, 2, 16, 32)
+SPHERES, REPS = 256, 64                        # P5-P7, the reference's sweep
+IMMEDIATE_SPHERES = (64, 256)                  # P6's compiled sphere counts
+MXU_RAYS, MXU_K = 1024, 8                      # P7's rays and padded xyz
+FILL_TILES = 1024                              # the card-filling shape
+GATHER_TIMING_REPS = 64                        # gathers a thread when timed
+NO_HIT = 1e30
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
+# tensor cores, dense TF32 on the tensor cores, device memory bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BYTES_PER_S = 3.35e12
+# Operations, counted from csrc/probe_kernel.cu. A sphere test (P5, P6):
+# 3 subtractions, hb 5, c 6, disc 3, max, sqrt, the subtraction and the
+# division of t, 3 compares and a select. P7 a (ray, sphere) pair: two
+# 8-term products (16 each) and its epilogue (c 3, disc 3, max, sqrt, 2 of
+# t, 2 compares, select, min); a ray a round: two 8-term squared norms.
+FLOP_PER_SPHERE_TEST = 25
+FLOP_PER_MXU_PRODUCTS = 32
+FLOP_PER_MXU_EPILOGUE = 14
+FLOP_PER_MXU_RAY = 30
+
+# P7's tensor-core variant rounds each operand of the two products to TF32
+# (cvt.rna: 10 stored mantissa bits, relative error <= 2^-11), so a product
+# term is off by at most 2^-10 + 2^-22 of its size; both variants add the 8
+# terms in f32 (at most 8 roundings of 2^-24, and the tensor core's own
+# accumulation, which NVIDIA does not specify as round-to-nearest), which
+# 2^-18 of the terms' absolute sum covers. A product of the two variants
+# therefore differs by at most TF32_PROD_RTOL * sum_k |x_k| |cm_kj|. The
+# same bound, carried through the epilogue, says which rays' t may move by
+# more than TF32_T_RTOL (``mxu_at_risk``).
+TF32_PROD_RTOL = 2.0 ** -10 + 2.0 ** -18
+TF32_T_RTOL = 1e-3
+
+
+def fits(space: str, n_floats: int) -> bool:
+    """Whether a table of ``n_floats`` f32 fits memory space ``space`` on
+    the card: __constant__ holds 16 384, shared memory 58 112 a block,
+    global memory any."""
+    if space not in SPACE_CODE:
+        raise ValueError(f"space must be one of {SPACES}, got {space!r}")
+    if space == "constant":
+        return n_floats <= CONSTANT_FLOATS
+    if space == "shared":
+        return n_floats <= SHARED_FLOATS
+    return True
+
+
+def check_fits(space: str, n_floats: int) -> None:
+    """Raise ValueError when the table does not fit ``space``; nothing is
+    launched then."""
+    if not fits(space, n_floats):
+        limit = CONSTANT_FLOATS if space == "constant" else SHARED_FLOATS
+        raise ValueError(f"a table of {n_floats} f32 does not fit {space} "
+                         f"memory ({limit} f32 at most)")
+
+
+def bank_conflict_ways(stride: int, row: int = 0) -> int:
+    """Shared-memory bank conflict degree of P3's gather from a contiguous
+    256-entry column: the most distinct addresses that one warp's 32 lanes
+    ask of one 4-byte bank (1 = conflict-free)."""
+    idx = (7 * row + stride * np.arange(32)) % GATHER_N
+    return max(len(set(idx[idx % 32 == b])) for b in range(32))
+
+
+# ------------------------------------------------------------- plumbing
+def _cuda_f32(name, *tensors):
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} takes f32 tensors, got {t.dtype}")
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: tensors on different devices")
+    return dev
+
+
+def _launch(name, fn, dev, *args):
+    from .runtime import kernels
+
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*args,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES[name] += 1
+    kernels.check(err, name)
+
+
+def _tiled(value: torch.Tensor, tiles: int) -> torch.Tensor:
+    """(8, 128) -> (8, 128) for one tile, else (tiles, 8, 128)."""
+    if tiles == 1:
+        return value.contiguous()
+    return value.expand((tiles, ROWS, LANES)).contiguous()
+
+
+def _tile_out(tiles: int, dev) -> torch.Tensor:
+    if tiles < 1:
+        raise ValueError(f"tiles must be >= 1, got {tiles}")
+    shape = (ROWS, LANES) if tiles == 1 else (tiles, ROWS, LANES)
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def _shared_or_global(name: str, space: str) -> None:
+    if space not in ("shared", "global"):
+        raise ValueError(f"{name} reads from shared or global memory, got "
+                         f"{space!r}")
+
+
+def _fold(values: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of a 1-D tensor in index order, one add a step."""
+    s = torch.zeros((), dtype=torch.float32, device=values.device)
+    for v in values.unbind():
+        s = s + v
+    return s
+
+
+def _is_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+# ------------------------------------------------ P1: scalar table reads
+def smem_scalar_plain(tab: torch.Tensor, tiles: int = 1) -> torch.Tensor:
+    """Plain version of ``smem_scalar_kernel``: the f32 sum of ``tab`` in
+    index order (the reference's ``fori_loop``), broadcast to the tiles."""
+    return _tiled(_fold(tab).expand(ROWS, LANES), tiles)
+
+
+def smem_scalar_kernel(tab: torch.Tensor, space: str,
+                       tiles: int = 1) -> torch.Tensor:
+    """Every thread folds ``tab[0..n)`` in index order from memory space
+    ``space``; the sum fills ``tiles`` (8, 128) tiles."""
+    dev = _cuda_f32("smem_scalar_kernel", tab)
+    if tab.ndim != 1 or tab.numel() < 1:
+        raise ValueError(f"smem_scalar_kernel takes a 1-D table, got "
+                         f"{tuple(tab.shape)}")
+    n = tab.numel()
+    check_fits(space, n)
+    tab = tab.contiguous()
+    out = _tile_out(tiles, dev)
+    _launch("smem_scalar_kernel", "rt_probe_smem_scalar_launch", dev,
+            tab.data_ptr(), n, SPACE_CODE[space], out.data_ptr(),
+            tiles * TILE)
+    return out
+
+
+def smem_scalar(n: int, space: str = "constant",
+                device=None) -> torch.Tensor:
+    """P1 (scripts/tpu_probe.py ``smem_scalar``): the sum of
+    ``arange(n, float32)`` read one scalar a step, broadcast to a tile.
+    At n = 65536 the f32 sum is 2147421200.0, not the exact 2147450880."""
+    check_fits(space, n)
+    tab = torch.arange(n, dtype=torch.float32, device=resolve_device(device))
+    if _is_cpu(tab):
+        return smem_scalar_plain(tab)
+    return smem_scalar_kernel(tab, space)
+
+
+# ------------------------------------------- P2: row reads + broadcast
+def vmem_row_broadcast_plain(tab: torch.Tensor,
+                             tiles: int = 1) -> torch.Tensor:
+    """Plain version of ``vmem_row_broadcast_kernel``: the sum of
+    ``tab[i, 0]`` in row order, broadcast to the tiles."""
+    return _tiled(_fold(tab[:, 0]).expand(ROWS, LANES), tiles)
+
+
+def vmem_row_broadcast_kernel(tab: torch.Tensor, space: str,
+                              tiles: int = 1) -> torch.Tensor:
+    """Each warp reads row i of the (n, 128) table as one float4 a lane
+    (from ``space``: shared or global) and broadcasts lane 0's first value
+    to its lanes, which add it; n rows in order."""
+    dev = _cuda_f32("vmem_row_broadcast_kernel", tab)
+    if tab.ndim != 2 or tab.shape[1] != LANES or tab.shape[0] < 1:
+        raise ValueError(f"vmem_row_broadcast_kernel takes an (n, {LANES}) "
+                         f"table, got {tuple(tab.shape)}")
+    _shared_or_global("vmem_row_broadcast_kernel", space)
+    check_fits(space, tab.numel())
+    tab = tab.contiguous()
+    out = _tile_out(tiles, dev)
+    _launch("row_broadcast_kernel", "rt_probe_row_broadcast_launch", dev,
+            tab.data_ptr(), tab.shape[0], SPACE_CODE[space], out.data_ptr(),
+            tiles * TILE)
+    return out
+
+
+def vmem_row_broadcast(n: int = ROW_N, space: str = "shared",
+                       device=None) -> torch.Tensor:
+    """P2 (``vmem_row_broadcast``): the same sum as P1 over the rows of an
+    (n, 128) table whose row i holds i."""
+    check_fits(space, n * LANES)
+    dev = resolve_device(device)
+    tab = torch.arange(n, dtype=torch.float32, device=dev)[:, None].repeat(
+        1, LANES)
+    if _is_cpu(tab):
+        return vmem_row_broadcast_plain(tab)
+    return vmem_row_broadcast_kernel(tab, space)
+
+
+# ------------------------------------------------- P3 / P4: gathers
+def gather_index(stride: int = GATHER_STRIDE,
+                 device="cpu") -> torch.Tensor:
+    """The probes' (8, 128) gather index ``(7 row + stride lane) % 256``."""
+    r = torch.arange(ROWS, dtype=torch.int64, device=device)[:, None]
+    lane = torch.arange(LANES, dtype=torch.int64, device=device)[None, :]
+    return (7 * r + stride * lane) % GATHER_N
+
+
+def _gather_sum(pick, idx, reps):
+    """``pick((idx + 0) % 256) + pick((idx + 1) % 256) + ...`` in order;
+    ``reps`` = 1 is the reference's single gather."""
+    acc = pick(idx)
+    for k in range(1, reps):
+        acc = acc + pick((idx + k) % GATHER_N)
+    return acc
+
+
+def vmem_gather_plain(tab: torch.Tensor, stride: int = GATHER_STRIDE,
+                      reps: int = 1, tiles: int = 1) -> torch.Tensor:
+    """Plain version of ``vmem_gather_kernel``: ``tab[idx, 0]`` (summed
+    over ``reps`` offsets of the index), broadcast to the tiles."""
+    col = tab[:, 0]
+    idx = gather_index(stride, tab.device)
+    return _tiled(_gather_sum(lambda i: col[i], idx, reps), tiles)
+
+
+def vmem_gather_kernel(tab: torch.Tensor, space: str,
+                       stride: int = GATHER_STRIDE, reps: int = 1,
+                       tiles: int = 1) -> torch.Tensor:
+    """Each thread gathers ``tab[idx, 0]`` from column 0 of the (256, 128)
+    table, staged in shared memory or read with ``__ldg``; ``reps`` > 1
+    adds the gathers at ``reps`` offsets of the index, in order (to time the
+    gather and its bank conflicts, not the launch)."""
+    dev = _cuda_f32("vmem_gather_kernel", tab)
+    if tuple(tab.shape) != (GATHER_N, LANES):
+        raise ValueError(f"vmem_gather_kernel takes a ({GATHER_N}, {LANES}) "
+                         f"table, got {tuple(tab.shape)}")
+    _shared_or_global("vmem_gather_kernel", space)
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    tab = tab.contiguous()
+    out = _tile_out(tiles, dev)
+    _launch("gather_probe_kernel", "rt_probe_gather_launch", dev,
+            tab.data_ptr(), int(stride), int(reps), SPACE_CODE[space],
+            out.data_ptr(), tiles * TILE)
+    return out
+
+
+def gather_table(device):
+    """P3's (256, 128) table, row i holding i."""
+    return torch.arange(GATHER_N, dtype=torch.float32,
+                        device=device)[:, None].repeat(1, LANES)
+
+
+def vmem_gather(space: str = "shared", stride: int = GATHER_STRIDE,
+                device=None) -> torch.Tensor:
+    """P3 (``vmem_gather``): a per-thread gather from one 256-entry column
+    (row i holds i) at ``(7 row + stride lane) % 256``."""
+    tab = gather_table(resolve_device(device))
+    if _is_cpu(tab):
+        return vmem_gather_plain(tab, stride)
+    return vmem_gather_kernel(tab, space, stride)
+
+
+def gather_2d_table(device):
+    """P4's (256, 128) table holding ``row + 1000 lane``."""
+    return (torch.arange(GATHER_N, dtype=torch.float32, device=device)[:, None]
+            + torch.arange(LANES, dtype=torch.float32, device=device)[None, :]
+            * 1000)
+
+
+def vmem_gather_2d_plain(tab: torch.Tensor, reps: int = 1,
+                         tiles: int = 1) -> torch.Tensor:
+    """Plain version of ``vmem_gather_2d_kernel``: ``take_along_axis(tab,
+    idx, 0)``, each lane down its own column."""
+    idx = gather_index(GATHER_STRIDE, tab.device)
+    out = _gather_sum(lambda i: torch.take_along_dim(tab, i, 0), idx, reps)
+    return _tiled(out, tiles)
+
+
+def vmem_gather_2d_kernel(tab: torch.Tensor, space: str, reps: int = 1,
+                          tiles: int = 1) -> torch.Tensor:
+    """Each thread gathers ``tab[idx, lane]`` from the whole (256, 128)
+    table, staged in shared memory (128 KB) or read with ``__ldg``."""
+    dev = _cuda_f32("vmem_gather_2d_kernel", tab)
+    if tuple(tab.shape) != (GATHER_N, LANES):
+        raise ValueError(f"vmem_gather_2d_kernel takes a ({GATHER_N}, "
+                         f"{LANES}) table, got {tuple(tab.shape)}")
+    _shared_or_global("vmem_gather_2d_kernel", space)
+    if reps < 1:
+        raise ValueError(f"reps must be >= 1, got {reps}")
+    tab = tab.contiguous()
+    out = _tile_out(tiles, dev)
+    _launch("gather_2d_kernel", "rt_probe_gather_2d_launch", dev,
+            tab.data_ptr(), int(reps), SPACE_CODE[space], out.data_ptr(),
+            tiles * TILE)
+    return out
+
+
+def vmem_gather_2d(space: str = "shared", device=None) -> torch.Tensor:
+    """P4 (``vmem_gather_2d``): the gather down each lane's own column of a
+    (256, 128) table holding ``row + 1000 lane``."""
+    tab = gather_2d_table(resolve_device(device))
+    if _is_cpu(tab):
+        return vmem_gather_2d_plain(tab)
+    return vmem_gather_2d_kernel(tab, space)
+
+
+# ---------------------------------------------- P5 / P6: sphere loops
+def sphere_table(S: int, device="cpu") -> torch.Tensor:
+    """The reference's spheres: ``arange(4S, float32) * 0.01``, as
+    (cx, cy, cz, r2) quadruples."""
+    return torch.arange(4 * S, dtype=torch.float32, device=device) * 0.01
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root on every device, as the kernels'
+    ``sqrtf``: PyTorch's vectorised float sqrt on the CPU is off by an ulp
+    for ~0.7 % of inputs; the double root of an f32 rounded once to f32 is
+    exact."""
+    return torch.sqrt(x.double()).float()
+
+
+def _check_rays(name, o, d):
+    if o.shape != d.shape or o.ndim < 2 or o.shape[0] != 3:
+        raise ValueError(f"{name} takes rays o, d of one shape (3, ...), got "
+                         f"{tuple(o.shape)} and {tuple(d.shape)}")
+
+
+def sphere_loop_plain(sph: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                      reps: int) -> torch.Tensor:
+    """Plain version of the sphere loops (P5, P6): the closest-hit t of
+    each ray over the spheres of ``sph``, ``reps`` rounds. The reference's
+    operations in its order, every sphere at once; the loop's running
+    ``where(ok & (t < best), t, best)`` is the exact minimum over the hits,
+    so each round is a min-reduction, bit for bit the loop."""
+    _check_rays("sphere_loop_plain", o, d)
+    shape = (-1,) + (1,) * (o.ndim - 1)
+    cx, cy, cz, r2 = (sph[j::4].reshape(shape) for j in range(4))
+    ox, oy, oz = o
+    dx, dy, dz = d
+    a = dx * dx + dy * dy + dz * dz
+    best = torch.full(o.shape[1:], NO_HIT, dtype=torch.float32,
+                      device=o.device)
+    for _ in range(reps):
+        ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+        hb = ocx * dx + ocy * dy + ocz * dz
+        c = ocx * ocx + ocy * ocy + ocz * ocz - r2
+        disc = hb * hb - a * c
+        t = (-hb - _sqrt_rn(torch.clamp_min(disc, 0.0))) / a
+        ok = (disc > 0.0) & (t > 1e-3)
+        best = torch.minimum(best, torch.where(ok, t, NO_HIT).amin(0))
+    return best
+
+
+def sphere_loop_kernel(sph: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                       reps: int, space: str) -> torch.Tensor:
+    """One thread a ray: the brute loop over the spheres of ``sph`` read
+    from ``space`` (constant, shared or global), ``reps`` rounds. Returns
+    ``o.shape[1:]``."""
+    dev = _cuda_f32("sphere_loop_kernel", sph, o, d)
+    _check_rays("sphere_loop_kernel", o, d)
+    if sph.ndim != 1 or sph.numel() % 4 or sph.numel() == 0:
+        raise ValueError(f"sphere_loop_kernel takes a (4S,) sphere table, "
+                         f"got {tuple(sph.shape)}")
+    check_fits(space, sph.numel())
+    o, d, sph = o.contiguous(), d.contiguous(), sph.contiguous()
+    out = torch.empty(o.shape[1:], dtype=torch.float32, device=dev)
+    _launch("sphere_loop_kernel", "rt_probe_sphere_loop_launch", dev,
+            sph.data_ptr(), sph.numel() // 4, o.data_ptr(), d.data_ptr(),
+            out.numel(), int(reps), SPACE_CODE[space], out.data_ptr())
+    return out
+
+
+def sphere_loop_smem(S: int, reps: int, o: torch.Tensor, d: torch.Tensor,
+                     space: str = "constant") -> torch.Tensor:
+    """P5 (``sphere_loop_smem``): S spheres read from a table in
+    ``space``; the kernel for CUDA rays, the plain version for CPU rays."""
+    check_fits(space, 4 * S)
+    sph = sphere_table(S, o.device)
+    if _is_cpu(o):
+        return sphere_loop_plain(sph, o, d, reps)
+    return sphere_loop_kernel(sph, o, d, reps, space)
+
+
+def sphere_immediate_kernel(S: int, o: torch.Tensor, d: torch.Tensor,
+                            reps: int) -> torch.Tensor:
+    """The brute loop with the spheres compiled into the kernel as
+    immediates (``float(k) * 0.01f``, folded by nvcc to the table's f32
+    values), one instantiation per S in ``IMMEDIATE_SPHERES``."""
+    dev = _cuda_f32("sphere_immediate_kernel", o, d)
+    _check_rays("sphere_immediate_kernel", o, d)
+    if S not in IMMEDIATE_SPHERES:
+        raise ValueError(f"sphere_immediate_kernel is compiled for S in "
+                         f"{IMMEDIATE_SPHERES}, got {S}")
+    o, d = o.contiguous(), d.contiguous()
+    out = torch.empty(o.shape[1:], dtype=torch.float32, device=dev)
+    _launch("sphere_immediate_kernel", "rt_probe_sphere_immediate_launch",
+            dev, int(S), o.data_ptr(), d.data_ptr(), out.numel(), int(reps),
+            out.data_ptr())
+    return out
+
+
+def sphere_loop_immediate(S: int, reps: int, o: torch.Tensor,
+                          d: torch.Tensor) -> torch.Tensor:
+    """P6 (``sphere_loop_immediate``): P5's loop with the spheres as
+    compile-time immediates; the plain version is P5's."""
+    if _is_cpu(o):
+        return sphere_loop_plain(sphere_table(S, o.device), o, d, reps)
+    return sphere_immediate_kernel(S, o, d, reps)
+
+
+# ------------------------------------------- P7: leaf-batched products
+def _rows_dot(x: torch.Tensor, cm: torch.Tensor) -> torch.Tensor:
+    """``x @ cm`` for (R, 8) x (8, S), each entry summed over k in index
+    order from the first product (the f32 kernel's order)."""
+    acc = x[:, 0:1] * cm[0:1, :]
+    for k in range(1, x.shape[1]):
+        acc = acc + x[:, k:k + 1] * cm[k:k + 1, :]
+    return acc
+
+
+def _rows_norm2(x: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of squares, (R, 1), in index order."""
+    acc = x[:, 0:1] * x[:, 0:1]
+    for k in range(1, x.shape[1]):
+        acc = acc + x[:, k:k + 1] * x[:, k:k + 1]
+    return acc
+
+
+def _mxu_t(hd, ho, a, o2, c2):
+    """The reference's placeholder algebra on the two products: each
+    (ray, sphere)'s t, and whether it counts as a hit."""
+    c = o2 - 2.0 * ho + c2
+    disc = hd * hd - a * c
+    t = (-hd - _sqrt_rn(torch.clamp_min(disc, 0.0))) / a
+    return t, disc, (disc > 0.0) & (t > 1e-3)
+
+
+def _check_mxu(name, cm, r2, o, d):
+    if (cm.ndim != 2 or cm.shape[0] != MXU_K or r2.shape != cm.shape
+            or o.ndim != 2 or o.shape[1] != MXU_K or d.shape != o.shape):
+        raise ValueError(f"{name} takes cm, r2 ({MXU_K}, S) and o, d "
+                         f"(R, {MXU_K}), got {tuple(cm.shape)}, "
+                         f"{tuple(r2.shape)}, {tuple(o.shape)}, "
+                         f"{tuple(d.shape)}")
+
+
+def sphere_mxu_plain(cm: torch.Tensor, r2: torch.Tensor, o: torch.Tensor,
+                     d: torch.Tensor, reps: int) -> torch.Tensor:
+    """Plain version of ``sphere_mxu_kernel`` (f32): per round the products
+    ``d @ cm`` and ``o @ cm`` summed in index order, the reference's
+    placeholder algebra, the min over spheres; (R, 1)."""
+    _check_mxu("sphere_mxu_plain", cm, r2, o, d)
+    a, o2 = _rows_norm2(d), _rows_norm2(o)
+    c2 = r2[0:1, :]
+    best = torch.full((o.shape[0], 1), NO_HIT, dtype=torch.float32,
+                      device=o.device)
+    for _ in range(reps):
+        t, _, ok = _mxu_t(_rows_dot(d, cm), _rows_dot(o, cm), a, o2, c2)
+        best = torch.minimum(best, torch.where(ok, t, NO_HIT).amin(
+            1, keepdim=True))
+    return best
+
+
+def sphere_mxu_kernel(cm: torch.Tensor, r2: torch.Tensor, o: torch.Tensor,
+                      d: torch.Tensor, reps: int, tensor_cores: bool = False,
+                      products: bool = False):
+    """P7 on the card. ``tensor_cores=False``: one thread a ray, both
+    products in f32 on the CUDA cores in index order (bit for bit the plain
+    version). ``tensor_cores=True``: one warp per 16 rays, the products as
+    ``mma.sync`` m16n8k8 TF32 tiles, the epilogue in f32. Returns t (R, 1),
+    and with ``products`` also the two products of the first round, (2, R,
+    S), for the TF32 gate."""
+    dev = _cuda_f32("sphere_mxu_kernel", cm, r2, o, d)
+    _check_mxu("sphere_mxu_kernel", cm, r2, o, d)
+    R, S = o.shape[0], cm.shape[1]
+    if tensor_cores and (R % 16 or S % 8):
+        raise ValueError(f"the tensor-core variant takes R % 16 == 0 and "
+                         f"S % 8 == 0, got R={R}, S={S}")
+    if products and not tensor_cores:
+        raise ValueError("only the tensor-core variant writes its products")
+    cm, r2, o, d = (t.contiguous() for t in (cm, r2, o, d))
+    out = torch.empty((R, 1), dtype=torch.float32, device=dev)
+    prods = (torch.empty((2, R, S), dtype=torch.float32, device=dev)
+             if products else None)
+    name = "sphere_mxu_tc_kernel" if tensor_cores else "sphere_mxu_kernel"
+    _launch(name, "rt_probe_sphere_mxu_launch", dev, cm.data_ptr(),
+            r2.data_ptr(), S, o.data_ptr(), d.data_ptr(), R, int(reps),
+            int(tensor_cores), out.data_ptr(),
+            prods.data_ptr() if products else None)
+    return (out, prods) if products else out
+
+
+def sphere_mxu(cm: torch.Tensor, r2: torch.Tensor, o: torch.Tensor,
+               d: torch.Tensor, reps: int,
+               tensor_cores: bool = False) -> torch.Tensor:
+    """P7 (``sphere_mxu``): the leaf-batched sphere test as two products,
+    placeholder algebra (throughput only); the kernel for CUDA tensors, the
+    f32 plain version for CPU tensors."""
+    if _is_cpu(o):
+        return sphere_mxu_plain(cm, r2, o, d, reps)
+    return sphere_mxu_kernel(cm, r2, o, d, reps, tensor_cores)
+
+
+def mxu_products_plain(cm, o, d) -> torch.Tensor:
+    """The f32 variant's two products, (2, R, S)."""
+    return torch.stack([_rows_dot(d, cm), _rows_dot(o, cm)])
+
+
+def mxu_at_risk(cm, r2, o, d, rtol=TF32_PROD_RTOL) -> torch.Tensor:
+    """Rays (R,) whose t may move by more than TF32_T_RTOL relative when
+    each product moves by up to ``rtol`` of its terms' absolute sum. The
+    product bound is carried through the epilogue (plus the f32 rounding of
+    c and disc): each sphere's t lies in [t_min, t_max]; a sphere that may
+    be a hit (disc may be > 0, t_max > 1e-3) bounds the ray's t from below
+    by max(t_min, 1e-3), one that is surely a hit bounds it from above by
+    t_max. Both variants' t lie between the ray's two bounds."""
+    hd, ho = mxu_products_plain(cm, o, d)
+    a, o2 = _rows_norm2(d), _rows_norm2(o)
+    c2 = r2[0:1, :]
+    t, disc, _ = _mxu_t(hd, ho, a, o2, c2)
+    eps = 2.0 ** -23
+    e_d = rtol * _rows_dot(d.abs(), cm.abs())
+    c = o2 - 2.0 * ho + c2
+    e_c = (2.0 * rtol * _rows_dot(o.abs(), cm.abs())
+           + eps * (o2 + 2.0 * ho.abs() + c2.abs()))
+    e_disc = (2.0 * hd.abs() * e_d + e_d * e_d + a * e_c
+              + 2 * eps * (hd * hd + (a * c).abs()))
+    sq = _sqrt_rn(torch.clamp_min(disc, 0.0))
+    sq_hi = _sqrt_rn(torch.clamp_min(disc + e_disc, 0.0))
+    sq_lo = _sqrt_rn(torch.clamp_min(disc - e_disc, 0.0))
+    pos = disc > e_disc
+    slack = 1 + 2.0 ** -10
+    e_t = (e_d + e_disc / torch.where(pos, sq + sq_lo, 1.0)) / a * slack
+    t_min = torch.where(pos, t - e_t, (-hd - e_d - sq_hi) / a * slack)
+    t_max = torch.where(pos, t + e_t, (-hd + e_d) / a * slack)
+    t_min = t_min - 4 * eps * t.abs()
+    t_max = t_max + 4 * eps * t.abs()
+    may = (disc + e_disc > 0) & (t_max > 1e-3)
+    sure = pos & (t_min > 1e-3)
+    lo = torch.where(may, torch.clamp_min(t_min, 1e-3), NO_HIT).amin(1)
+    hi = torch.where(sure, t_max, NO_HIT).amin(1)
+    best = torch.where((disc > 0) & (t > 1e-3), t, NO_HIT).amin(1)
+    return (hi - lo) > TF32_T_RTOL * best
+
+
+def tf32_gate(cm, r2, o, d, t_tc, prods_tc, reps=1, t_ref=None) -> dict:
+    """The tensor-core variant's gate against the f32 plain version: every
+    product within TF32_PROD_RTOL of its terms' absolute sum, and every ray
+    whose t moved by more than TF32_T_RTOL relative among the rays that
+    ``mxu_at_risk`` allows to move."""
+    ref_p = mxu_products_plain(cm, o, d)
+    scale = torch.stack([_rows_dot(d.abs(), cm.abs()),
+                         _rows_dot(o.abs(), cm.abs())])
+    ratio = ((prods_tc - ref_p).abs() / scale.clamp_min(1e-30)).max().item()
+    if t_ref is None:
+        t_ref = sphere_mxu_plain(cm, r2, o, d, reps)
+    t_ref = t_ref.reshape(-1)
+    moved = (t_tc.reshape(-1) - t_ref).abs() > TF32_T_RTOL * t_ref.abs()
+    risk = mxu_at_risk(cm, r2, o, d)
+    ok = ratio <= TF32_PROD_RTOL and not bool((moved & ~risk).any())
+    return dict(prod_err_over_abs_sum=ratio, prod_rtol=TF32_PROD_RTOL,
+                moved_share=float(moved.float().mean()),
+                at_risk_share=float(risk.float().mean()),
+                moved_outside_risk=int((moved & ~risk).sum()), ok=ok)
+
+
+# ------------------------------------------------------------- the sweep
+def rays(seed: int, tiles: int = 1, device=None):
+    """P5/P6's rays: o, d (3, 8, 128) standard normal from numpy's
+    generator ``seed``, repeated to (3, tiles, 8, 128) for tiles > 1."""
+    g = np.random.default_rng(seed)
+    o, d = (torch.from_numpy(g.standard_normal((3, ROWS, LANES)).astype(
+        np.float32)).to(resolve_device(device)) for _ in range(2))
+    if tiles > 1:
+        o, d = (x[:, None].expand(3, tiles, ROWS, LANES).contiguous()
+                for x in (o, d))
+    return o, d
+
+
+def mxu_inputs(seed: int, S: int = SPHERES, tiles: int = 1, device=None):
+    """P7's inputs from numpy's generator ``seed``: cm (8, S) and o, d
+    (1024, 8) standard normal, r2 ones (the reference's draws' shapes); o,
+    d repeated ``tiles`` times along the rays."""
+    g = np.random.default_rng(seed)
+    dev = resolve_device(device)
+    o, d = (torch.from_numpy(g.standard_normal((MXU_RAYS, MXU_K)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    cm = torch.from_numpy(g.standard_normal((MXU_K, S)).astype(
+        np.float32)).to(dev)
+    r2 = torch.ones((MXU_K, S), dtype=torch.float32, device=dev)
+    if tiles > 1:
+        o, d = o.repeat(tiles, 1), d.repeat(tiles, 1)
+    return cm, r2, o, d
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean ms of ``fn`` by CUDA events after a warm-up: over ``reps``
+    calls, or as many more (up to 200) as take ~10 ms, so that a kernel of
+    microseconds is not timed by one launch's jitter."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    n = max(reps, min(200, int(10.0 / max(start.elapsed_time(end), 0.05))))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def variants():
+    """Every (probe, function, variant, size) of the sweep that fits, and
+    the (space, size) pairs that do not fit, from ``fits``."""
+    run, skip = [], []
+    for n in SMEM_SIZES:
+        for space in SPACES:
+            (run if fits(space, n) else skip).append(
+                ("P1", "smem_scalar", space, n))
+    for space in ("shared", "global"):
+        (run if fits(space, ROW_N * LANES) else skip).append(
+            ("P2", "vmem_row_broadcast", space, ROW_N))
+    for space in ("shared", "global"):
+        for stride in GATHER_STRIDES:
+            run.append(("P3", "vmem_gather", f"{space}/stride{stride}",
+                        GATHER_N))
+    for space in ("shared", "global"):
+        run.append(("P4", "vmem_gather_2d", space, GATHER_N))
+    for space in SPACES:
+        (run if fits(space, 4 * SPHERES) else skip).append(
+            ("P5", "sphere_loop_smem", space, SPHERES))
+    for S in IMMEDIATE_SPHERES:
+        run.append(("P6", "sphere_loop_immediate", "immediate", S))
+    for variant in ("f32", "tf32"):
+        run.append(("P7", "sphere_mxu", variant, SPHERES))
+    return run, skip
+
+
+def _stride(variant: str) -> int:
+    return int(variant.split("/stride")[1])
+
+
+def case(probe, variant, size, seed, tiles, dev, gathers=1):
+    """(kernel call, plain call) of one sweep case at ``tiles`` tiles.
+    P3/P4 add their gathers at ``gathers`` index offsets (1 is the
+    reference's function); the other probes ignore it."""
+    if probe == "P1":
+        tab = torch.arange(size, dtype=torch.float32, device=dev)
+        return (lambda: smem_scalar_kernel(tab, variant, tiles),
+                lambda: smem_scalar_plain(tab, tiles))
+    if probe == "P2":
+        tab = torch.arange(size, dtype=torch.float32,
+                           device=dev)[:, None].repeat(1, LANES)
+        return (lambda: vmem_row_broadcast_kernel(tab, variant, tiles),
+                lambda: vmem_row_broadcast_plain(tab, tiles))
+    if probe == "P3":
+        space, stride = variant.split("/")[0], _stride(variant)
+        tab = gather_table(dev)
+        return (lambda: vmem_gather_kernel(tab, space, stride, gathers,
+                                           tiles),
+                lambda: vmem_gather_plain(tab, stride, gathers, tiles))
+    if probe == "P4":
+        tab = gather_2d_table(dev)
+        return (lambda: vmem_gather_2d_kernel(tab, variant, gathers, tiles),
+                lambda: vmem_gather_2d_plain(tab, gathers, tiles))
+    if probe in ("P5", "P6"):
+        o, d = rays(seed, tiles, dev)
+        sph = sphere_table(size, dev)
+        if probe == "P5":
+            kern = lambda: sphere_loop_kernel(sph, o, d, REPS, variant)
+        else:
+            kern = lambda: sphere_immediate_kernel(size, o, d, REPS)
+        return kern, lambda: sphere_loop_plain(sph, o, d, REPS)
+    cm, r2, o, d = mxu_inputs(seed, size, tiles, dev)
+    return (lambda: sphere_mxu_kernel(cm, r2, o, d, REPS, variant == "tf32"),
+            lambda: sphere_mxu_plain(cm, r2, o, d, REPS))
+
+
+def timed_gathers(probe) -> int:
+    """Gathers a thread in the timed call: GATHER_TIMING_REPS for P3/P4
+    (to time the gather, not the launch), else 1."""
+    return GATHER_TIMING_REPS if probe in ("P3", "P4") else 1
+
+
+def touched_entries(probe, gathers=1) -> int:
+    """Distinct table entries that P3's or P4's function reads over one
+    tile at ``gathers`` index offsets: P3 rows of column 0, P4 (row, lane)
+    pairs."""
+    idx = gather_index().numpy()
+    rows = np.stack([(idx + k) % GATHER_N for k in range(gathers)])
+    if probe == "P3":
+        return len(np.unique(rows))
+    return len(np.unique(rows * LANES + np.arange(LANES)))
+
+
+def work(probe, variant, size, tiles, gathers=1):
+    """(count, unit, f32 flop, tensor-core flop, bytes) of one call at
+    ``tiles`` tiles. The count is what the kernel does, the rate's
+    numerator: reads (P1-P4; in P1/P2 every thread folds the whole table)
+    or sphere tests (P5-P7). The operations and bytes are what the function
+    needs, the bound's: P1/P2 one n-term sum a tile, over the table entries
+    it sums (P2: column 0); P3/P4 the adds of ``gathers`` gathers and the
+    entries the index touches (``touched_entries``); the sphere probes
+    their tests' operations, counted from the kernels. Each input byte is
+    read once and each output byte written once."""
+    threads = tiles * TILE
+    out_bytes = 4 * threads
+    if probe in ("P1", "P2"):
+        return (threads * size, "G reads/s", tiles * size, 0,
+                4 * size + out_bytes)
+    if probe in ("P3", "P4"):
+        return (threads * gathers, "G reads/s", threads * (gathers - 1), 0,
+                4 * touched_entries(probe, gathers) + out_bytes)
+    if probe in ("P5", "P6"):
+        tests = threads * size * REPS
+        return (tests, "G prim-tests/s", tests * FLOP_PER_SPHERE_TEST, 0,
+                4 * 4 * size + 7 * out_bytes)
+    R = tiles * MXU_RAYS
+    tests = R * size * REPS
+    epi = tests * FLOP_PER_MXU_EPILOGUE + R * REPS * FLOP_PER_MXU_RAY
+    prods = tests * FLOP_PER_MXU_PRODUCTS
+    n_bytes = 4 * (2 * MXU_K * size + 2 * MXU_K * R + R)
+    if variant == "tf32":
+        return tests, "G prim-tests/s", epi, prods, n_bytes
+    return tests, "G prim-tests/s", epi + prods, 0, n_bytes
+
+
+def bound_ms(flop, n_bytes, tc_flop=0.0):
+    """(ms, 'operations' or 'bytes'): the larger of the f32 operations over
+    the f32 peak (or the tensor-core operations over the TF32 peak, where
+    larger) and the bytes over the memory rate."""
+    t_ops = max(flop / PEAK_FP32_FLOPS, tc_flop / PEAK_TF32_FLOPS) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def sweep(seed: int = 0, emit=None):
+    """Run every probe variant on the card. First at the reference shape
+    (one tile, or 1024 rays; P3/P4 one gather a thread) against its plain
+    version: bit for bit, the TF32 variant by ``tf32_gate``. Then the timed
+    call at FILL_TILES tiles (P3/P4 ``timed_gathers`` gathers a thread),
+    every tile bit for bit the plain version of one tile at the same
+    gathers (the TF32 variant: its own one-tile output), and timed by CUDA
+    events. ``equal`` holds both checks. Returns one dict per (probe,
+    variant, size) and one per pair that does not fit its memory space
+    (from ``fits``); ``emit`` (e.g. ``print``) gets each as a JSON line."""
+    dev = resolve_device(None)
+    run, skip = variants()
+    rows = []
+
+    def out(row):
+        rows.append(row)
+        if emit is not None:
+            emit(json.dumps(row))
+
+    for probe, fn, space, n in skip:
+        out(dict(probe=probe, function=fn, variant=space, size=n, fits=False,
+                 limit_floats=(CONSTANT_FLOATS if space == "constant"
+                               else SHARED_FLOATS)))
+    plains = {}
+
+    def plain_tile(probe, variant, size, gathers):
+        """The plain version of one tile, shared by the variants that
+        compute the same function."""
+        key = ("P5" if probe == "P6" else probe, size,
+               _stride(variant) if probe == "P3" else None,
+               gathers if probe in ("P3", "P4") else 1)
+        if key not in plains:
+            plains[key] = case(probe, variant, size, seed, 1, dev,
+                               gathers)[1]()
+        return plains[key]
+
+    for probe, fn, variant, size in run:
+        row = dict(probe=probe, function=fn, variant=variant, size=size,
+                   fits=True)
+        want = plain_tile(probe, variant, size, 1)
+        kern = case(probe, variant, size, seed, 1, dev)[0]
+        got = kern()
+        if probe == "P7" and variant == "tf32":
+            cm, r2, o, d = mxu_inputs(seed, size, 1, dev)
+            t_tc, prods = sphere_mxu_kernel(cm, r2, o, d, REPS, True, True)
+            gate = tf32_gate(cm, r2, o, d, t_tc, prods, REPS, want)
+            ref_ok = gate.pop("ok") and bool(torch.equal(got, t_tc))
+            row.update({f"gate_{k}": v for k, v in gate.items()})
+            want, err = got, 0.0
+        else:
+            ref_ok = bool(torch.equal(got, want))
+            err = float((got - want).abs().max())
+        if probe == "P3":
+            row["bank_conflict_ways"] = bank_conflict_ways(_stride(variant))
+        gathers = timed_gathers(probe)
+        if gathers > 1:
+            want = plain_tile(probe, variant, size, gathers)
+        kern = case(probe, variant, size, seed, FILL_TILES, dev, gathers)[0]
+        got = kern().reshape((FILL_TILES,) + tuple(want.shape))
+        tiles_ok = bool(torch.equal(got, want.expand_as(got)))
+        err = max(err, float((got - want).abs().max()))
+        del got
+        ms = time_ms(kern, 3)
+        count, unit, flop, tc_flop, n_bytes = work(probe, variant, size,
+                                                    FILL_TILES, gathers)
+        b_ms, b_by = bound_ms(flop, n_bytes, tc_flop)
+        row.update(equal=ref_ok and tiles_ok, reference_equal=ref_ok,
+                   tiles_equal=tiles_ok, max_abs_err=err, tiles=FILL_TILES,
+                   ms=ms, rate=count / ms / 1e6, rate_unit=unit,
+                   bound_ms=b_ms, bound_by=b_by)
+        if gathers > 1:
+            row["gathers_a_thread"] = gathers
+        out(row)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m rust_tracing_tpu_torch.probes",
+        description="Run the H100 probes (scripts/tpu_probe.py's P1-P7) on "
+                    "the card: one JSON line per (probe, variant, size).")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="numpy seed of the rays and P7's inputs")
+    args = ap.parse_args(argv)
+    resolve_device(None)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "count": torch.cuda.device_count()}), flush=True)
+    rows = sweep(args.seed, emit=lambda s: print(s, flush=True))
+    bad = [r for r in rows if r["fits"] and not r["equal"]]
+    for r in bad:
+        print(f"probes: {r['probe']} {r['variant']} size {r['size']} "
+              f"differs from its plain version", file=sys.stderr)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

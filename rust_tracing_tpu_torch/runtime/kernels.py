@@ -28,7 +28,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("render_kernel.cu", "gather_kernel.cu", "perlin_kernel.cu")
+SOURCES = ("render_kernel.cu", "gather_kernel.cu", "perlin_kernel.cu",
+           "probe_kernel.cu")
 HEADERS = ("hashrng.cuh",)
 LIB_NAME = "librt_kernels.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,7 +39,12 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "hit_kernel": 0,
             "gather_kernel": 0, "gather_cols_kernel": 0,
             "scatter_sum_kernel": 0, "segment_sum_kernel": 0,
-            "perlin_kernel": 0}
+            "perlin_kernel": 0,
+            # the hardware probes (probes.py, csrc/probe_kernel.cu)
+            "smem_scalar_kernel": 0, "row_broadcast_kernel": 0,
+            "gather_probe_kernel": 0, "gather_2d_kernel": 0,
+            "sphere_loop_kernel": 0, "sphere_immediate_kernel": 0,
+            "sphere_mxu_kernel": 0, "sphere_mxu_tc_kernel": 0}
 
 _lib = None
 build_seconds = None  # seconds the last build in this process took
@@ -137,6 +143,26 @@ def load() -> ctypes.CDLL:
         lib.rt_perlin_launch.argtypes = [vp, vp, vp, vp, vp, cll, ci, ci, vp,
                                          vp]
         lib.rt_perlin_launch.restype = ci
+        # probes: tab, n, space, out, total, stream
+        lib.rt_probe_smem_scalar_launch.argtypes = [vp, ci, ci, vp, cll, vp]
+        lib.rt_probe_row_broadcast_launch.argtypes = [vp, ci, ci, vp, cll,
+                                                      vp]
+        # tab, stride, reps, space, out, total, stream
+        lib.rt_probe_gather_launch.argtypes = [vp, ci, ci, ci, vp, cll, vp]
+        # tab, reps, space, out, total, stream
+        lib.rt_probe_gather_2d_launch.argtypes = [vp, ci, ci, vp, cll, vp]
+        # sph, S, o, d, R, reps, space, out, stream
+        lib.rt_probe_sphere_loop_launch.argtypes = [vp, ci, vp, vp, cll, ci,
+                                                    ci, vp, vp]
+        # S, o, d, R, reps, out, stream
+        lib.rt_probe_sphere_immediate_launch.argtypes = [ci, vp, vp, cll, ci,
+                                                         vp, vp]
+        # cm, r2, S, o, d, R, reps, tensor_cores, out, prods, stream
+        lib.rt_probe_sphere_mxu_launch.argtypes = [vp, vp, ci, vp, vp, cll,
+                                                   ci, ci, vp, vp, vp]
+        for fn in ("smem_scalar", "row_broadcast", "gather", "gather_2d",
+                   "sphere_loop", "sphere_immediate", "sphere_mxu"):
+            getattr(lib, f"rt_probe_{fn}_launch").restype = ci
         lib.rt_error_string.argtypes = [ci]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -12,11 +12,13 @@ the sample sum (the reference's own tolerance, tests/test_replay.py)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import rust_tracing_tpu as J
 import rust_tracing_tpu_torch as T
 from rust_tracing_tpu import grad as jgrad
 from rust_tracing_tpu_torch import cli
@@ -186,11 +188,12 @@ def test_texture_replay_gradient_equals_direct():
         assert np.isfinite(a[f]).all() and np.abs(a[f]).max() > 0, f
 
 
-def _mini_cornell_noise():
-    """tests/test_grad.py::_mini_cornell at a smaller frame: a marble back
-    wall, a checker floor and a marble sphere, where the continuous channel
-    geometry -> hit point -> marble makes geometry gradients non-zero."""
-    b = T.SceneBuilder(background=(0.0, 0.0, 0.0))
+def _mini_cornell_noise(M=T, width=12):
+    """tests/test_grad.py::_mini_cornell (in package M; at a smaller frame
+    by default): a marble back wall, a checker floor and a marble sphere,
+    where the continuous channel geometry -> hit point -> marble makes
+    geometry gradients non-zero."""
+    b = M.SceneBuilder(background=(0.0, 0.0, 0.0))
     marble = b.lambertian(b.noise_texture(2.0))
     checker = b.lambertian(b.checker_texture(0.5, (0.8, 0.8, 0.2),
                                              (0.1, 0.1, 0.4)))
@@ -200,10 +203,10 @@ def _mini_cornell_noise():
     b.add_quad((-2, -2, 0), (4, 0, 0), (0, 0, 4), checker)
     b.add_quad((-1, 1.9, 1), (2, 0, 0), (0, 0, 2), b.diffuse_light((6, 6, 6)))
     b.add_sphere((0.3, -1.2, 2.0), 0.8, b.lambertian(b.noise_texture(3.0)))
-    settings = T.RenderSettings(
-        aspect_ratio=1.0, image_width=12, samples_per_pixel=4, max_depth=3,
-        vfov=60.0, look_from=(0.0, 0.0, -3.0), look_at=(0.0, 0.0, 2.0),
-        background=(0.0, 0.0, 0.0))
+    settings = M.RenderSettings(
+        aspect_ratio=1.0, image_width=width, samples_per_pixel=4,
+        max_depth=3, vfov=60.0, look_from=(0.0, 0.0, -3.0),
+        look_at=(0.0, 0.0, 2.0), background=(0.0, 0.0, 0.0))
     return b, settings
 
 
@@ -291,3 +294,44 @@ def test_bvh_scene_gradient_matches_jax(cornell, jax_grad):
         tscene, tcam, lambda im, p: torch.mean(im * torch.tensor(W)), seed=5,
         use_recorder=False)
     _assert_matches_jax(tl, g, jax_grad, no_grad=("bvh_min", "bvh_max"))
+
+
+def test_jacfwd_through_textured_scene():
+    """The port of tests/test_grad.py::test_jacfwd_through_textured_scene:
+    torch.func.jacfwd of the replay image's row mean (the middle row of the
+    24 px noise scene, seed 3, 4 spp, depth 3, float64) w.r.t. ``tex_rgb``,
+    through the batching rules of tgather, tgather_cols and the turbulence
+    Function, against jax.jacfwd of the reference's replay and against the
+    port's own jacrev, rtol 1e-10 (the reference's own tolerance). Both
+    replay the port's records (equal to the reference's:
+    test_torch_replay.py)."""
+    tb, ts = _mini_cornell_noise(T, 24)
+    scene = T.compile_scene(tb, dtype=torch.float64, device="cpu")
+    cam = T.Camera.create(ts)
+    c = cam.constants(torch.float64, device="cpu")
+    pid = 24 * 12 + torch.arange(24, dtype=torch.int32)
+    recs = tg.get_records(scene, cam, 3, 4, 3, pixel_ids=pid,
+                          dtype=torch.float64)
+
+    def f(tex_rgb):
+        img, _ = tg.radiance_mean_replay_rays(scene.replace(tex_rgb=tex_rgb),
+                                              c, pid, 3, recs, 4, 3)
+        return img.mean(-1)
+
+    j_fwd = torch.func.jacfwd(f)(scene.tex_rgb).numpy()
+    j_rev = torch.func.jacrev(f)(scene.tex_rgb).numpy()
+    jb, js = _mini_cornell_noise(J, 24)
+    jscene = J.compile_scene(jb, dtype=jnp.float64)
+    jcam = J.Camera.create(js).constants(jnp.float64)
+    jpid, jrecs = jnp.asarray(pid.numpy()), jnp.asarray(recs.numpy())
+
+    def jf(tex_rgb):
+        img, _ = jgrad.radiance_mean_replay_rays(
+            dataclasses.replace(jscene, tex_rgb=tex_rgb), jcam, jpid,
+            jnp.uint32(3), jrecs, 4, 3)
+        return jnp.mean(img, axis=-1)
+
+    ref = np.asarray(jax.jit(jax.jacfwd(jf))(jscene.tex_rgb))
+    assert np.isfinite(j_fwd).all() and np.abs(j_fwd).max() > 0
+    np.testing.assert_allclose(j_fwd, ref, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(j_fwd, j_rev, rtol=1e-10, atol=1e-12)

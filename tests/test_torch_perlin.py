@@ -129,3 +129,51 @@ def test_turbulence_kernel_refuses_cpu_tensors(tables):
     assert perlin_fused.LAUNCHES == before
     with pytest.raises(TypeError, match="f32 or f64"):
         perlin_fused.turbulence(*tt, *[q.half() for q in p])
+
+
+def test_turbulence_vmap_and_jacfwd_match_jax(tables):
+    """torch.func.vmap of the turbulence Function over batched points
+    (flattened into one launch's lanes) against jax.vmap of the reference
+    primitive, bit for bit (f32, unjitted); jacfwd w.r.t. the positions and
+    a jvp along a gradient-table tangent (float64) against jitted JAX's,
+    and jacrev against jacfwd, to float64 rounding. Three octaves, as in
+    test_turbulence_gradients_match_jax."""
+    rv, px, py, pz = tables
+    tt, jt = _torch_tabs(tables), [jnp.asarray(a) for a in tables]
+    p = np.random.default_rng(8).uniform(-3, 3, (3, 2, 16)).astype(np.float32)
+    got = torch.func.vmap(lambda x, y, z: perlin_fused.turbulence(
+        *tt, x, y, z, depth=3), in_dims=(0, 0, None))(
+        *[torch.from_numpy(a) for a in (p[0], p[1], p[2, 0])])
+    ref = jax.vmap(lambda x, y, z: perlin_tpu.turbulence(*jt, x, y, z,
+                                                         depth=3),
+                   in_axes=(0, 0, None))(
+        *[jnp.asarray(a) for a in (p[0], p[1], p[2, 0])])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    q = p[:, 0, :8].astype(np.float64)
+    rv64 = rv.astype(np.float64)
+    tan = np.random.default_rng(9).standard_normal(rv64.shape)
+
+    def tf(r, x):
+        return perlin_fused.turbulence(r, *tt[1:], x,
+                                       *[torch.from_numpy(a) for a in q[1:]],
+                                       depth=3)
+
+    def jf(r, x):
+        return perlin_tpu.turbulence(r, *jt[1:], x,
+                                     *[jnp.asarray(a) for a in q[1:]],
+                                     depth=3)
+
+    r, x = torch.from_numpy(rv64), torch.from_numpy(q[0])
+    fwd = torch.func.jacfwd(tf, argnums=1)(r, x)
+    ref = np.asarray(jax.jit(jax.jacfwd(jf, argnums=1))(jnp.asarray(rv64),
+                                                        jnp.asarray(q[0])))
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(fwd.numpy(), ref, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(torch.func.jacrev(tf, argnums=1)(r, x).numpy(),
+                               ref, rtol=1e-12, atol=1e-12)
+    _, dt = torch.func.jvp(lambda v: tf(v, x), (r,), (torch.from_numpy(tan),))
+    _, jdt = jax.jit(lambda v, t: jax.jvp(lambda u: jf(u, jnp.asarray(q[0])),
+                                          (v,), (t,)))(jnp.asarray(rv64),
+                                                       jnp.asarray(tan))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(jdt), rtol=1e-12,
+                               atol=1e-12)

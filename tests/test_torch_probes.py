@@ -1,0 +1,235 @@
+"""The port's hardware probes (rust_tracing_tpu_torch/probes.py) on the CPU,
+where each probe runs its kernel's plain version, against the JAX probes of
+scripts/tpu_probe.py (imported by file path; its Pallas kernels run in
+interpret mode through a test-scoped patch of ``pallas_call``).
+
+Tolerances and their reasons. P1-P4 sum integers or copy table entries: bit
+for bit. P5/P6 do f32 arithmetic: interpret mode runs the kernel as one
+jitted XLA computation, and XLA's CPU compiler contracts its multiply-adds
+(``hb*hb - a*c``, the dot products) into fused multiply-adds, which the
+port (like its CUDA kernels, built with ``--fmad=false``) never does. So
+against interpret mode the hits must be the same rays and each hit's t
+agree to 1e-3 relative (seen: 110 of 1024 rays differ, by at most 8.8e-5);
+and the same kernel evaluated op by op (``pallas_call`` replaced by an
+eager evaluation of the kernel body, no fusion; seen equal to numpy's f32)
+must equal the plain version bit for bit. P7's products are XLA dots in
+interpret mode: the same hit rays, t to 1e-3 relative (seen: 1.3e-4)."""
+
+import functools
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rust_tracing_tpu_torch import probes
+from rust_tracing_tpu_torch.runtime.kernels import LAUNCHES
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+S, REPS = 64, 2
+T_RTOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def tp():
+    spec = importlib.util.spec_from_file_location(
+        "tpu_probe", os.path.join(REPO, "scripts", "tpu_probe.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret(tp, monkeypatch):
+    monkeypatch.setattr(tp.pl, "pallas_call",
+                        functools.partial(tp.pl.pallas_call, interpret=True))
+    return tp
+
+
+class _Ref:
+    """A mutable stand-in for a Pallas ref: the kernel body's reads and
+    writes as plain jnp indexing."""
+
+    def __init__(self, a):
+        self.a = a
+
+    def __getitem__(self, k):
+        return self.a[k]
+
+    def __setitem__(self, k, v):
+        self.a = self.a.at[k].set(v)
+
+
+def _eager_pallas_call(kernel, out_shape, **_):
+    def call(*args):
+        refs = [_Ref(jnp.asarray(a)) for a in args]
+        out = _Ref(jnp.zeros(out_shape.shape, out_shape.dtype))
+        with jax.disable_jit():
+            kernel(*refs, out)
+        return out.a
+    return call
+
+
+def _rays(tp):
+    return [torch.from_numpy(np.array(a)) for a in tp._mk_rays()]
+
+
+def _mxu_draws(S):
+    """P7's own draws (scripts/tpu_probe.py sphere_mxu), as torch."""
+    k = jax.random.PRNGKey(0)
+    o = jax.random.normal(k, (1024, 8), jnp.float32)
+    d = jax.random.normal(jax.random.fold_in(k, 1), (1024, 8), jnp.float32)
+    cm = jax.random.normal(jax.random.fold_in(k, 2), (8, S), jnp.float32)
+    r2 = np.ones((8, S), np.float32)
+    return [torch.from_numpy(np.array(a)) for a in (cm, r2, o, d)]
+
+
+@pytest.mark.parametrize("n", [128, 1024, 65536])
+def test_smem_scalar_matches_jax(interpret, n):
+    """P1: the index-order f32 sum; at 65536 entries 2147421200.0, not the
+    exact 2147450880."""
+    ref = np.asarray(interpret.smem_scalar(n))
+    got = probes.smem_scalar(n, "global", device="cpu").numpy()
+    np.testing.assert_array_equal(got, ref)
+    if n == 65536:
+        assert got[0, 0] == np.float32(2147421200.0)
+
+
+@pytest.mark.parametrize("probe", ["P2", "P3", "P4"])
+def test_row_and_gather_probes_match_jax(interpret, probe):
+    if probe == "P2":
+        ref, got = interpret.vmem_row_broadcast(256), \
+            probes.vmem_row_broadcast(256, device="cpu")
+    elif probe == "P3":
+        ref, got = interpret.vmem_gather(), probes.vmem_gather(device="cpu")
+    else:
+        ref, got = interpret.vmem_gather_2d(), \
+            probes.vmem_gather_2d(device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("probe", ["smem", "immediate"])
+def test_sphere_loops_match_jax(tp, monkeypatch, probe):
+    """P5/P6 at S = 64, reps = 2: bit for bit against the kernel body
+    evaluated op by op; 15.6 % of the rays hit, so the comparison is not
+    vacuous. P5 also to the contraction tolerance against interpret mode
+    (P6's unrolled kernel is the same arithmetic, and costs interpret mode's
+    compiler seconds)."""
+    o, d = _rays(tp)
+    if probe == "smem":
+        got = probes.sphere_loop_smem(S, REPS, o, d).numpy()
+        monkeypatch.setattr(tp.pl, "pallas_call", functools.partial(
+            tp.pl.pallas_call, interpret=True))
+        ref_jit = np.asarray(tp.sphere_loop_smem(S, REPS))
+        hit = got < probes.NO_HIT
+        np.testing.assert_array_equal(ref_jit < probes.NO_HIT, hit)
+        np.testing.assert_allclose(got[hit], ref_jit[hit], rtol=T_RTOL)
+    else:
+        got = probes.sphere_loop_immediate(S, REPS, o, d).numpy()
+    assert 0.1 < (got < probes.NO_HIT).mean() < 0.5
+    monkeypatch.setattr(tp.pl, "pallas_call", _eager_pallas_call)
+    fn = (tp.sphere_loop_smem if probe == "smem"
+          else tp.sphere_loop_immediate)
+    np.testing.assert_array_equal(got, np.asarray(fn(S, REPS)))
+
+
+def test_sphere_mxu_matches_jax(interpret):
+    """P7's f32 plain version at S = 64, reps = 2 on the JAX probe's own
+    draws: the same rays hit (61 %), t to 1e-3 relative."""
+    cm, r2, o, d = _mxu_draws(S)
+    ref = np.asarray(interpret.sphere_mxu(S, REPS))
+    got = probes.sphere_mxu(cm, r2, o, d, REPS).numpy()
+    hit = got < probes.NO_HIT
+    assert 0.5 < hit.mean() < 0.7
+    np.testing.assert_array_equal(ref < probes.NO_HIT, hit)
+    np.testing.assert_allclose(got[hit], ref[hit], rtol=T_RTOL)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, 10 stored mantissa bits."""
+    b = x.numpy().view(np.uint32)
+    return torch.from_numpy(((b + np.uint32(0x1000))
+                             & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def test_tf32_gate_holds_emulated_tensor_cores():
+    """The TF32 gate on the tensor-core variant's arithmetic emulated here
+    (operands rounded to TF32, exact products, f32 sums): the products stay
+    within TF32_PROD_RTOL, every ray whose t moves by more than 1e-3 is one
+    the gate's bound lets move, and the gate is not vacuous (rays move, and
+    not every ray is at risk)."""
+    cm, r2, o, d = probes.mxu_inputs(0, probes.SPHERES, device="cpu")
+    cmr, orr, drr = (_tf32(x) for x in (cm, o, d))
+    prods = torch.stack([probes._rows_dot(drr, cmr),
+                         probes._rows_dot(orr, cmr)])
+    a, o2 = probes._rows_norm2(d), probes._rows_norm2(o)
+    t, _, ok = probes._mxu_t(prods[0], prods[1], a, o2, r2[0:1])
+    t_tc = torch.where(ok, t, probes.NO_HIT).amin(1, keepdim=True)
+    gate = probes.tf32_gate(cm, r2, o, d, t_tc, prods)
+    assert gate["ok"], gate
+    assert gate["prod_err_over_abs_sum"] > 0.25 * probes.TF32_PROD_RTOL
+    assert 0 < gate["moved_share"] <= gate["at_risk_share"] < 1
+    # f32 products move nothing
+    exact = probes.tf32_gate(cm, r2, o, d,
+                             probes.sphere_mxu_plain(cm, r2, o, d, 1),
+                             probes.mxu_products_plain(cm, o, d))
+    assert exact["ok"] and exact["moved_share"] == 0
+
+
+def test_limits_refusals_and_sweep_listing():
+    """Sizes that do not fit a memory space raise before any launch and
+    are listed by the sweep from the same limit function; the kernel
+    wrappers refuse CPU tensors; P3's strides have the stated bank
+    conflicts."""
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="does not fit constant"):
+        probes.smem_scalar(65536, "constant", device="cpu")
+    with pytest.raises(ValueError, match="does not fit shared"):
+        probes.check_fits("shared", probes.SHARED_FLOATS + 1)
+    assert probes.fits("constant", 16384) and probes.fits("global", 1 << 30)
+    _, skip = probes.variants()
+    assert skip == [("P1", "smem_scalar", "constant", 65536),
+                    ("P1", "smem_scalar", "shared", 65536)]
+    tab = torch.arange(8.0)
+    o, d = torch.zeros(3, 8, 128), torch.ones(3, 8, 128)
+    cm, r2, ro, rd = probes.mxu_inputs(0, 8, device="cpu")
+    for call in (lambda: probes.smem_scalar_kernel(tab, "global"),
+                 lambda: probes.vmem_gather_kernel(
+                     probes.gather_table("cpu"), "shared"),
+                 lambda: probes.sphere_loop_kernel(
+                     probes.sphere_table(4), o, d, 1, "global"),
+                 lambda: probes.sphere_immediate_kernel(64, o, d, 1),
+                 lambda: probes.sphere_mxu_kernel(cm, r2, ro, rd, 1, True)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call()
+    assert LAUNCHES == before
+    assert [probes.bank_conflict_ways(s) for s in probes.GATHER_STRIDES] \
+        == [1, 2, 8, 8]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            probes.main([])
+
+
+def test_bounds_count_the_function():
+    """The bounds count what each probe's function needs, not what its
+    kernel does: P1/P2 one n-term sum a tile over the n entries it sums
+    (every thread's own fold is the read count, the rate's numerator);
+    P3/P4 the table entries the index touches (P4 at one gather: each
+    lane's 8 rows 7 r + 13 l are distinct, 8 x 128 entries)."""
+    tiles, n = 1024, 16384
+    out_bytes = 4 * tiles * probes.TILE
+    count, _, flop, tc, n_bytes = probes.work("P1", "constant", n, tiles)
+    assert (count, flop, tc, n_bytes) == (tiles * probes.TILE * n,
+                                          tiles * n, 0, 4 * n + out_bytes)
+    assert probes.bound_ms(flop, n_bytes, tc)[1] == "bytes"
+    assert probes.work("P2", "shared", 256, tiles)[4] == 4 * 256 + out_bytes
+    assert probes.touched_entries("P4") == 8 * 128
+    idx = probes.gather_index().numpy()
+    assert probes.touched_entries("P3") == len(np.unique(idx))
+    assert probes.touched_entries("P3", 64) == probes.GATHER_N
+    assert probes.work("P4", "shared", 256, tiles, 64)[4] == (
+        4 * probes.touched_entries("P4", 64) + out_bytes)

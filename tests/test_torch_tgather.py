@@ -138,3 +138,57 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                  lambda: lg.segment_sum_kernel(col[None, :2], idx, 4)):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             call()
+
+
+@pytest.mark.parametrize("dims", [(0, None), (None, 0), (1, 0)],
+                         ids=["table", "index", "both"])
+def test_vmap_matches_jax_vmap(dims):
+    """torch.func.vmap of tgather and tgather_cols (float64) over a batched
+    table, a batched index, or both, against jax.vmap of the reference
+    primitives' batching rules: the same gathered bits."""
+    rng = np.random.default_rng(11)
+    B, K, n = 4, 3, 70
+    col = rng.standard_normal((B, n))
+    tab = rng.standard_normal((B, K, n))
+    idx = rng.integers(0, n, (B, 50)).astype(np.int32)
+    args = [col if dims[0] == 0 else col[0], idx if dims[1] == 0 else idx[0]]
+    targs = [tab if dims[0] == 0 else tab[0], args[1]]
+    if dims == (1, 0):
+        args[0], targs[0] = col.T.copy(), np.moveaxis(tab, 0, 2).copy()
+        tdims = (2, 0)
+    else:
+        tdims = dims
+    got = torch.func.vmap(ttg.tgather, in_dims=dims)(
+        *[torch.from_numpy(a) for a in args])
+    ref = jax.vmap(jtg.tgather, in_axes=dims)(*[jnp.asarray(a) for a in args])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    got = torch.func.vmap(lambda t, i: torch.stack(ttg.tgather_cols(
+        tuple(t), i)), in_dims=tdims)(*[torch.from_numpy(a) for a in targs])
+    ref = jax.vmap(lambda t, i: jnp.stack(jtg.tgather_cols(tuple(t), i)),
+                   in_axes=tdims)(*[jnp.asarray(a) for a in targs])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_jacfwd_and_jacrev_match_jax():
+    """torch.func.jacfwd of tgather and tgather_cols (a vmap over the jvp,
+    whose batched tangent table takes the batching rule) against
+    jax.jacfwd, and jacrev (a vmap over the transpose) against both."""
+    col, idx, _ = _inputs(64, np.float64)
+    idx = idx[:200]
+    tab = np.random.default_rng(5).standard_normal((3, 64))
+    tidx, jidx = torch.from_numpy(idx), jnp.asarray(idx)
+
+    def f(c):
+        return ttg.tgather(c, tidx) * 2.0
+
+    def g(t):
+        return torch.stack(ttg.tgather_cols(tuple(t), tidx))
+
+    for fn, jfn, x in (
+            (f, lambda c: jtg.tgather(c, jidx) * 2.0, col),
+            (g, lambda t: jnp.stack(jtg.tgather_cols(tuple(t), jidx)), tab)):
+        ref = np.asarray(jax.jacfwd(jfn)(jnp.asarray(x)))
+        np.testing.assert_array_equal(
+            torch.func.jacfwd(fn)(torch.from_numpy(x)).numpy(), ref)
+        np.testing.assert_array_equal(
+            torch.func.jacrev(fn)(torch.from_numpy(x)).numpy(), ref)
