@@ -6,20 +6,27 @@ device and the CUDA toolkit (``nvcc``), builds the hand-written kernels from
 ``rust_tracing_tpu_torch/csrc/`` and drives the port's main paths through the
 entry points a user would call. Every phase prints one JSON line; any failure
 exits non-zero. Without a CUDA device it exits non-zero and prints no result.
+``--only render,segment_sums`` runs those phases alone (the B1 compares and
+the main path; the reductions), for a short call, and prints no kernels line.
 
 Phases:
   device     card name and power limit (nvidia-smi), torch and CUDA versions
   build      seconds to compile the kernel library at first use
   exact      closed-form cases through the render kernel
   kernels    every CUDA kernel against its plain PyTorch version ON THE CARD,
-             same inputs: the render kernel (B1) and the path recorder (B2)
-             on four scenes at a small frame and on cornell_box at 600x600;
+             same inputs: the render kernel (B1; a group of threads a pixel,
+             its resources and waves on each line) and the path recorder (B2)
+             on four scenes at a small frame (B1 also at 1 and 23 spp and
+             over a pixel range that starts mid-row) and on cornell_box at
+             600x600 (B1 with its tables staged and through __ldg);
              the render kernel's noise and image families (B8) and the
              recorder on two_perlin_spheres, simple_light and earth, and B8
              on simple_light's own 600x337 frame; the gathers (B5, B6) and
              their transpose (the reduction) on tables of 4 to 3407 rows and
-             3.96 M indices, and its sorted form (the segment sum) on 3407 to
-             524 288 rows; the Perlin turbulence kernel (B7) at 2^22 lanes
+             3.96 M indices, and its sorted form (the radix sort and the
+             segment sum, f32 and f64, time by kernel, the crossover with
+             the tile kernel) on 1024 to 524 288 rows; the Perlin
+             turbulence kernel (B7) at 2^22 lanes
   main_path  render() of cornell_box at 600x600, 4096 spp, depth 8
   cli        the command-line entry point writes a PNG
   deferred_path
@@ -103,22 +110,26 @@ Phases:
 Tolerances and their reasons.
 - Render kernel: built without fused multiply-add contraction and without
   fast math, it does the plain version's f32 operations in the plain
-  version's order; `sinf cosf logf expf rsqrtf` come from the same device
-  library PyTorch's CUDA ops call. A pixel counts as equal when
-  |kernel - plain| <= 1e-5 + 1e-5 * |plain|. Where one ulp flips a hit
-  decision the path after it differs freely, so what is bounded is the SHARE
-  of such pixels (<= 0.5 %), the share of pixels whose ray count differs
-  (<= 0.5 %) and the ratio of the mean images (within 1e-3 of 1). Seen on an
-  H100: 0; a build with contraction left on shows 1.2 % on random_balls.
+  version's order, and adds each pixel's samples in sample order whatever
+  thread traced them: every pixel and every ray count must be equal to the
+  plain version's, bit for bit. Scenes with the noise and image families
+  (B8) also call `sinf cosf logf expf` (the same device library PyTorch's
+  CUDA ops call) on more values; for them a pixel counts as equal when
+  |kernel - plain| <= 1e-5 + 1e-5 * |plain|, and what is bounded is the
+  SHARE of other pixels (<= 0.5 %), of pixels whose ray count differs
+  (<= 0.5 %) and the ratio of the mean images (within 1e-3 of 1). Seen on
+  an H100: 0; a build with contraction left on shows 1.2 % on random_balls.
 - Recorder: records are integers, and every record must be equal.
 - Gathers: a gather copies bits; equal to the plain version and to
   torch.index_select bit for bit.
 - Reduction (both forms): with integer-valued cotangents every partial sum
-  is exact, so the kernel must equal the plain version bit for bit; with normal-valued
-  cotangents the two add the same terms in different orders, so each row
-  may differ by at most 1e-6 of the sum of |cotangent| over the row (f32
-  rounding of a blocked sum stays far below). Two calls must give the same
-  bits.
+  is exact, so the kernel must equal the plain version bit for bit; with
+  normal-valued cotangents the two add the same terms in different orders,
+  so each row may differ by at most 1e-6 of the sum of |cotangent| over the
+  row (f32 rounding of a blocked sum stays far below). Two calls must give
+  the same bits. The radix sort is stable: equal to torch.sort(stable=True) and a
+  gather of the columns, bit for bit. The segment sum may launch nothing
+  but its own kernels and torch.zeros' fill.
 - grad_path: the loss (the image mean, linear_loss) must equal the mean of
   the render kernel's image at the same seed, spp and depth to rtol 1e-5:
   the same estimator, summed in another association (per-slice float means
@@ -257,7 +268,7 @@ TURB_RANGE = 300.0      # positions in [-300, 300]^3
 TEXTURE_SCENES = ("two_perlin_spheres", "simple_light", "earth")
 NOISE_MEAN_TOL, IMAGE_MEAN_TOL = 0.08, 0.01
 GRAD_TEX_WIDTH, GRAD_TEX_SPP = 400, 32
-SEG_ROWS = (3407, 65536, 524288)  # 524288: earth's full-resolution image
+SEG_ROWS = (1024, 2048, 3407, 8192, 16384, 65536, 524288)  # 524288: earth
 FINAL_SPP = 32          # final_scene's frame: its own 800x800, depth 40
 CROSS_SPP = 4
 GAMMA_RATIO_TOL = 0.1   # wavefront vs the fused render's noise and mip
@@ -387,15 +398,42 @@ def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0), walk=None):
 
 
 def scene_inputs(name, width, spp, depth, seed=0, sample_offset=0,
-                 use_bvh=False):
+                 use_bvh=False, pixel_base=0, pixel_count=None):
     b, settings = getattr(builders, name)()
     settings = dataclasses.replace(settings, image_width=width,
                                    samples_per_pixel=spp, max_depth=depth)
     scene = rt.compile_scene(b, device=DEVICE)
     camera = rt.Camera.create(settings)
     packed, tables = mk._packed_dev(scene, use_bvh)
-    p = mk.make_params(camera, packed, seed, spp, depth, sample_offset)
+    p = mk.make_params(camera, packed, seed, spp, depth, sample_offset,
+                       pixel_base, pixel_count)
     return scene, camera, tables, p
+
+
+def render_spills(noise, image, bvh, staged):
+    """Spill stores in bytes that ptxas reported (-Xptxas -v, the build log)
+    for the render kernel's instantiation with these template flags."""
+    flags = "".join(f"Lb{int(f)}E" for f in (noise, image, bvh, staged))
+    lines = kernels.build_log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and f"render_kernelI{flags}" in ln:
+            for nxt in lines[i + 1:i + 4]:
+                if "spill stores" in nxt:
+                    return int(nxt.split("bytes spill stores")[0]
+                               .split(",")[-1])
+    return None
+
+
+def occupancy(p, plan):
+    """The render kernel's resources for this launch and the waves of its
+    grid: warps over the warps the card holds at once."""
+    occ = mk.render_occupancy(p, plan)
+    warps = -(-p.pixel_count * plan.group // 32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = sms * occ["blocks_per_sm"] * mk.RENDER_THREADS // 32
+    return dict(occ, warps=warps, waves=warps / resident,
+                spill_stores=render_spills(p.has_noise, p.has_image,
+                                           p.use_bvh, plan.stage_bytes > 0))
 
 
 def texture_shades(tables, p):
@@ -437,12 +475,19 @@ def walk_counts(counters):
     return [int(x) for x in counters.sum(0, dtype=torch.int64).tolist()]
 
 
-def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False):
+def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False,
+            pixel_base=0, pixel_count=None, unstaged=False):
     """Render kernel vs plain version on the card, same inputs. With
-    ``use_bvh`` the kernel walks the BVH, its counters give the bound, and
-    every pixel and ray count must be equal."""
+    ``use_bvh`` the kernel walks the BVH and its counters give the bound.
+    Without the noise and image families every pixel and ray count must be
+    equal (the samples are added in the plain version's order). With
+    ``unstaged`` the same brute-loop launch with the tables read through
+    __ldg instead of shared memory is held to the same gate and timed."""
     scene, camera, tables, p = scene_inputs(name, width, spp, depth, seed=11,
-                                            use_bvh=use_bvh)
+                                            use_bvh=use_bvh,
+                                            pixel_base=pixel_base,
+                                            pixel_count=pixel_count)
+    plan = mk.render_plan(tables, p)
     counters = torch.zeros((p.pixel_count, 3), dtype=torch.int32,
                            device=DEVICE) if use_bvh else None
     rgb_k, n_k = mk.render_kernel(tables, p, counters)
@@ -452,6 +497,19 @@ def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     kernel_ms = time_ms(lambda: mk.render_kernel(tables, p), reps_kernel)
+    strict = use_bvh or not (p.has_noise or p.has_image)
+    extra = {}
+    if unstaged:
+        ldg = mk.RenderPlan.from_buffer_copy(plan)
+        ldg.stage_bytes = 0
+        rgb_u, n_u = mk.render_kernel(tables, p, plan=ldg)
+        extra = dict(
+            unstaged_bitwise_equal=bool(torch.equal(rgb_u, rgb_p)
+                                        and torch.equal(n_u, n_p)),
+            unstaged_ms=time_ms(lambda: mk.render_kernel(tables, p,
+                                                         plan=ldg),
+                                reps_kernel),
+            unstaged_occupancy=occupancy(p, ldg))
 
     if not (torch.isfinite(rgb_k).all() and torch.isfinite(rgb_p).all()):
         fail(f"{name}: non-finite radiance")
@@ -467,8 +525,8 @@ def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False):
         use_bvh=p.use_bvh, nodes=p.n_nodes, walk=walk,
         noise_shades=shades[0], image_shades=shades[1],
         scene=name, width=camera.image_width, height=camera.image_height,
-        spp=spp, depth=depth, spheres=p.n_spheres, quads=p.n_quads,
-        media=p.n_media, rays=n_rays,
+        spp=spp, depth=depth, pixel_base=p.pixel_base, spheres=p.n_spheres,
+        quads=p.n_quads, media=p.n_media, rays=n_rays,
         rays_plain=int(n_p.sum(dtype=torch.int64).item()),
         pixels_ray_count_differs=int((n_k != n_p).sum().item()),
         pixels_bitwise_equal=int((rgb_k == rgb_p).all(dim=-1).sum().item()),
@@ -477,13 +535,17 @@ def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False):
         mean_abs_err=float(diff.mean().item()),
         share_beyond_tol=float(beyond.float().mean().item()),
         mean_ratio=float((rgb_k.mean() / rgb_p.mean()).item()),
-        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        bitwise_gate=strict, occupancy=occupancy(p, plan), **extra)
     say("kernels", **res)
-    if use_bvh and (res["pixels_bitwise_equal"] != p.pixel_count
-                    or res["pixels_ray_count_differs"]):
-        fail(f"{name}: the BVH walk differs from the plain search in "
-             f"{p.pixel_count - res['pixels_bitwise_equal']} pixels, ray "
+    if strict and (res["pixels_bitwise_equal"] != p.pixel_count
+                   or res["pixels_ray_count_differs"]):
+        fail(f"{name} @ {spp} spp: the kernel differs from the plain version "
+             f"in {p.pixel_count - res['pixels_bitwise_equal']} pixels, ray "
              f"counts in {res['pixels_ray_count_differs']}")
+    if unstaged and not extra["unstaged_bitwise_equal"]:
+        fail(f"{name} @ {spp} spp: the kernel reading its tables through "
+             "__ldg differs from the plain version")
     if res["share_beyond_tol"] > MAX_DIVERGED_SHARE:
         fail(f"{name}: {res['share_beyond_tol']:.4f} of pixels beyond "
              f"tolerance (limit {MAX_DIVERGED_SHARE})")
@@ -608,10 +670,14 @@ def compare_reductions(reps=5):
             within = bool((err <= SUM_TOL * scale).all())
             ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
             call = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
+            # the other form at the same shape: where the two cross
+            seg_ms = device_ms(lambda: lg.segment_sum_kernel(ct, idx, n),
+                               reps)
             lib = device_ms(lambda: torch.zeros(
                 (K, n), device=DEVICE).index_add_(1, idx_l, ct), reps)
             b_ms, b_by = bytes_bound(N_INDEX * (4 + 4 * K) + K * n * 4)
             res = dict(kernel="scatter_sum_kernel", rows=n, columns=K,
+                       segment_sum_ms=seg_ms,
                        indices=N_INDEX, exact_on_integers=exact,
                        bitwise_repeatable=repeat, within_tol=within,
                        max_abs_err=float(err.max().item()),
@@ -627,44 +693,126 @@ def compare_reductions(reps=5):
     return out
 
 
+def _kernel_name(name):
+    """A device event's kernel name without its namespace, template
+    arguments and parameters (``void ns::k<float>(...)`` -> ``k``)."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return head.split("<")[0].split("::")[-1].strip().split(" ")[-1]
+
+
+# device work the segment-sum call may launch: its own kernels and the fill
+# of torch.zeros (allocations launch nothing else)
+SEG_ALLOWED = ("radix_hist_kernel", "radix_scan_kernel",
+               "radix_scatter_kernel", "segment_sum_kernel",
+               "segment_carry_kernel", "FillFunctor")
+
+
+def pipeline_ms(fn, reps):
+    """Device ms of one call of ``fn``, in all and by kernel (torch.profiler
+    over ``reps`` calls after a warm-up), and the device work it launched
+    that is neither one of the segment sum's kernels nor a fill."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by, other = {}, set()
+    for name, us in _kernel_events(prof):
+        key = _kernel_name(name)
+        by[key] = by.get(key, 0.0) + us / 1e3 / reps
+        if not any(a in name for a in SEG_ALLOWED):
+            other.add(name[:120])
+    return sum(by.values()), by, sorted(other)
+
+
 def compare_segment_sums(reps=3):
-    """The sorted reduction (segment sum) against its plain version: exact
-    on integer-valued cotangents, within SUM_TOL on normal ones, bitwise
-    repeatable; times (sort included) against the tile kernel and
-    index_add_, 3 columns (an image's r g b) and one replay wavefront."""
+    """The segment sum (its own stable radix sort of the index, then one
+    pass over the sorted runs) against its plain version: exact on
+    integer-valued cotangents, within SUM_TOL on normal ones, bitwise
+    repeatable, f32 and f64; device time by kernel of the pipeline, beside
+    the tile kernel (the crossover that sets SCATTER_SORT_MIN_ROWS) and
+    index_add_, 3 columns (an image's r g b) and one replay wavefront. The
+    call may launch only the repo's kernels and torch.zeros' fill."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4)
     out = {}
     for n in SEG_ROWS:
         idx = torch.randint(0, n, (N_INDEX,), device=DEVICE,
                             dtype=torch.int32, generator=gen)
+        idx_l = idx.long()
         ints = torch.randint(-8, 9, (3, N_INDEX), device=DEVICE,
                              generator=gen).to(torch.float32)
         exact = torch.equal(lg.segment_sum_kernel(ints, idx, n),
                             lg.scatter_sum_plain(ints, idx, n))
-        ct = torch.randn(3, N_INDEX, device=DEVICE, generator=gen)
-        got = lg.segment_sum_kernel(ct, idx, n)
-        repeat = torch.equal(got, lg.segment_sum_kernel(ct, idx, n))
-        ref, plain_ms = once_ms(lambda: lg.scatter_sum_plain(ct, idx, n))
-        scale = lg.scatter_sum_plain(ct.abs(), idx, n)
-        err = (got - ref).abs()
-        within = bool((err <= SUM_TOL * scale).all())
-        ms = device_ms(lambda: lg.segment_sum_kernel(ct, idx, n), reps)
-        tile_ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
-        lib = device_ms(lambda: torch.zeros((3, n), device=DEVICE).index_add_(
-            1, idx.long(), ct), reps)
-        b_ms, b_by = bytes_bound(N_INDEX * (4 + 4 * 3) + 3 * n * 4)
-        res = dict(kernel="segment_sum_kernel", rows=n, columns=3,
-                   indices=N_INDEX, exact_on_integers=exact,
-                   bitwise_repeatable=repeat, within_tol=within,
-                   max_abs_err=float(err.max().item()), kernel_ms=ms,
-                   tile_kernel_ms=tile_ms, plain_ms=plain_ms,
-                   library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-        say("kernels", **res)
-        if not (exact and repeat and within):
-            fail(f"segment_sum_kernel at {n} rows: exact={exact} "
-                 f"repeatable={repeat} within_tol={within}")
-        out[n] = res
+        # the sort alone, carrying the 3 cotangent columns: its plain
+        # version is torch.sort(stable=True) and a gather of the columns
+        vals = torch.randn(3, N_INDEX, device=DEVICE, generator=gen)
+        keys, svals = lg.radix_sort_kernel(idx, n, vals)
+        (keys_p, svals_p), sort_plain_ms = once_ms(
+            lambda: lg.radix_sort_plain(idx, n, vals))
+        sort = dict(
+            kernel="radix_sort_kernel", rows=n, indices=N_INDEX, columns=3,
+            digits=list(lg.radix_digits(n)),
+            bitwise_equal=bool(torch.equal(keys, keys_p)
+                               and torch.equal(svals, svals_p)),
+            kernel_ms=device_ms(lambda: lg.radix_sort_kernel(idx, n, vals),
+                                reps),
+            plain_ms=sort_plain_ms,
+            library_ms=device_ms(lambda: torch.sort(idx, stable=True), reps))
+        # the index and the columns read once, the keys and columns written
+        sort["bound_ms"], sort["bound_by"] = bytes_bound(N_INDEX * 2 * 16)
+        say("kernels", **sort)
+        if not sort["bitwise_equal"]:
+            fail(f"radix_sort_kernel at {n} rows differs from a stable sort")
+        out[(n, "sort")] = sort
+        for dt in (torch.float32, torch.float64):
+            ct = torch.randn(3, N_INDEX, device=DEVICE, generator=gen,
+                             dtype=dt)
+            got = lg.segment_sum_kernel(ct, idx, n)
+            repeat = torch.equal(got, lg.segment_sum_kernel(ct, idx, n))
+            ref, plain_ms = once_ms(lambda: lg.scatter_sum_plain(ct, idx, n))
+            scale = lg.scatter_sum_plain(ct.abs(), idx, n)
+            err = (got - ref).abs()
+            within = bool((err <= SUM_TOL * scale).all())
+            ms, by_kernel, other = pipeline_ms(
+                lambda: lg.segment_sum_kernel(ct, idx, n), reps)
+            call = time_ms(lambda: lg.segment_sum_kernel(ct, idx, n), reps)
+            tile_ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n),
+                                reps)
+            tile_call = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n),
+                                reps)
+            lib = device_ms(lambda: torch.zeros(
+                (3, n), device=DEVICE, dtype=dt).index_add_(1, idx_l, ct),
+                reps)
+            es = ct.element_size()
+            b_ms, b_by = bytes_bound(N_INDEX * (4 + es * 3) + 3 * n * es)
+            res = dict(kernel="segment_sum_kernel", rows=n, columns=3,
+                       dtype=str(dt), indices=N_INDEX,
+                       exact_on_integers=exact, bitwise_repeatable=repeat,
+                       within_tol=within, max_abs_err=float(err.max().item()),
+                       kernel_ms=ms, kernel_ms_by_kernel=by_kernel,
+                       call_ms=call, tile_kernel_ms=tile_ms,
+                       tile_call_ms=tile_call, plain_ms=plain_ms,
+                       library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                       other_device_work=other)
+            say("kernels", **res)
+            if not (exact and repeat and within):
+                fail(f"segment_sum_kernel at {n} rows, {dt}: exact={exact} "
+                     f"repeatable={repeat} within_tol={within}")
+            if other:
+                fail(f"segment_sum_kernel at {n} rows launched device work "
+                     f"other than its own kernels and fills: {other}")
+            out[(n, dt)] = res
+    faster = [n for n in SEG_ROWS
+              if out[(n, torch.float32)]["kernel_ms"]
+              < out[(n, torch.float32)]["tile_kernel_ms"]]
+    say("kernels", check="scatter_sort_crossover", rows=list(SEG_ROWS),
+        segment_faster_at=faster,
+        scatter_sort_min_rows=lg.SCATTER_SORT_MIN_ROWS)
     return out
 
 
@@ -1101,19 +1249,20 @@ def phase_main_path(at_main):
     packed, tables = mk._packed_dev(scene)
     p_main = mk.make_params(camera, packed, 0, spp, camera.max_depth)
     main_bound, main_by = bound_ms(tables, p_main, stats.rays)
+    occ = occupancy(p_main, mk.render_plan(tables, p_main))
     say("main_path", scene="cornell_box", width=600, height=600, spp=spp,
         spp_of_scene=builders.cornell_box()[1].samples_per_pixel,
         depth=camera.max_depth, seconds=stats.seconds, rays=stats.rays,
         mrays_per_s=stats.rays_per_sec / 1e6, gamma_mean=gmean,
         launches=launches, bound_ms=main_bound, bound_by=main_by,
-        roofline_share=main_bound / (stats.seconds * 1e3))
+        roofline_share=main_bound / (stats.seconds * 1e3), occupancy=occ)
     if not 0.24 <= gmean <= 0.27:
         fail(f"cornell gamma mean {gmean} outside 0.24-0.27")
     if OUT_DIR:
         os.makedirs(OUT_DIR, exist_ok=True)
         write_png(os.path.join(OUT_DIR, "cornell_main.png"), img)
     return dict(seconds=stats.seconds, spp=spp, bound=main_bound,
-                launches=launches["render_kernel"])
+                launches=launches["render_kernel"], occupancy=occ)
 
 
 def texture_scene(name, width=None, spp=None, depth=None):
@@ -1262,9 +1411,10 @@ def phase_grad_textures():
             fail(f"{name}: the {leaf} gradient is zero")
         if name == "two_perlin_spheres" and launches["perlin_kernel"] < 1:
             fail("grad_textures did not launch perlin_kernel")
-        if name == "earth" and launches["segment_sum_kernel"] < 1:
+        if name == "earth" and (launches["segment_sum_kernel"] < 1
+                                or launches["radix_sort_kernel"] < 1):
             fail("grad_textures did not reduce the image gradient through "
-                 "segment_sum_kernel")
+                 "radix_sort_kernel and segment_sum_kernel")
         out[name] = res
 
     return out
@@ -1960,7 +2110,55 @@ def phase_torch_func():
         fail(f"torch_func: the batching rules never launched {idle}")
 
 
-def main():
+def b1_compares():
+    """The render kernel against its plain version, four scene families at
+    a small frame (one, a few and many samples a pixel; a pixel range that
+    starts mid-row), and at the main path's shapes (600x600 frame, depth 8,
+    the same tables) with spp cut so the plain version ends in seconds, its
+    tables staged in shared memory and read through __ldg."""
+    for name, spp in (("cornell_box", 16), ("cornell_smoke", 16),
+                      ("two_spheres", 16), ("random_balls", 8),
+                      ("cornell_box", 1), ("cornell_box", 23)):
+        compare(name, 64, spp, 8)
+    compare("cornell_smoke", 64, 23, 8, pixel_base=5 * 64 + 17,
+            pixel_count=1500)
+    return compare("cornell_box", 600, 16, 8, unstaged=True)
+
+
+def render_resources():
+    """Registers, local memory and blocks an SM of every render kernel
+    instantiation (staged: at the full staging budget)."""
+    out = {}
+    for noise in (0, 1):
+        for image in (0, 1):
+            for route in ("ldg", "staged", "bvh"):
+                p = mk.RenderParams(has_noise=noise, has_image=image,
+                                    use_bvh=int(route == "bvh"))
+                plan = mk.RenderPlan(group=32, stage_bytes=(
+                    mk.STAGE_BUDGET_BYTES if route == "staged" else 0))
+                occ = mk.render_occupancy(p, plan)
+                out[f"noise{noise}_image{image}_{route}"] = dict(
+                    {k: occ[k] for k in ("registers", "local_bytes",
+                                         "blocks_per_sm")},
+                    spill_stores=render_spills(noise, image, route == "bvh",
+                                               route == "staged"))
+    return out
+
+
+# phases that `--only` runs alone, for a short call while a kernel is new
+ONLY = {"segment_sums": lambda: (compare_reductions(),
+                                 compare_segment_sums()),
+        "render": lambda: phase_main_path(b1_compares())}
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run alone "
+                         f"({', '.join(ONLY)}); prints no kernels line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     card = gpu_line()
     say("device", nvidia_smi=card, torch=torch.__version__,
@@ -1971,17 +2169,17 @@ def main():
             if "registers" in ln or "spill" in ln or ln.startswith("==")
             or "Compiling entry" in ln]
     say("build", seconds=kernels.build_seconds, sources=list(kernels.SOURCES),
-        ptxas=regs)
+        ptxas=regs, render_kernel=render_resources())
+    if args.only:
+        for name in args.only.split(","):
+            ONLY[name]()
+        say("total", seconds=time.perf_counter() - t_start)
+        print(card, flush=True)
+        return
 
     phase_exact()
 
-    # the render kernel against its plain version, four scene families,
-    # small frame, and at the main path's shapes (600x600 frame, depth 8,
-    # the same tables) with spp cut so the plain version ends in seconds
-    for name, spp in (("cornell_box", 16), ("cornell_smoke", 16),
-                      ("two_spheres", 16), ("random_balls", 8)):
-        compare(name, 64, spp, 8)
-    at_main = compare("cornell_box", 600, 16, 8)
+    at_main = b1_compares()
 
     # the recorder against its plain version: the same scenes at a small
     # frame, cornell_box 600x600 at two sample offsets, and one full sample
@@ -2063,6 +2261,8 @@ def main():
     g5 = gathers[("gather", 4, torch.float32)]
     g6 = gathers[("cols", 24, 17, torch.float32)]
     rd = sums[(24, 17)]
+    seg = segs[(524288, torch.float32)]
+    srt = segs[(524288, "sort")]
     gl = grad["launches"]
     print(json.dumps({"kernels": [{
         "name": "render_kernel", "route": "cuda",
@@ -2077,6 +2277,7 @@ def main():
                  "tables, spp cut for the plain version)",
         "main_path_ms": main["seconds"] * 1e3, "main_path_spp": main["spp"],
         "main_path_bound_ms": main["bound"],
+        "main_path_occupancy": main["occupancy"],
     }, {
         "name": "record_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
@@ -2124,14 +2325,27 @@ def main():
         "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
         "replaces": "rust_tracing_tpu/ops/tgather.py:65",
         "launches": grad_tex["earth"]["launches"]["segment_sum_kernel"],
-        "max_abs_err": segs[524288]["max_abs_err"],
-        "ms": segs[524288]["kernel_ms"], "plain_ms": segs[524288]["plain_ms"],
-        "bound_ms": segs[524288]["bound_ms"],
-        "bound_by": segs[524288]["bound_by"],
-        "library_ms": segs[524288]["library_ms"],
+        "max_abs_err": seg["max_abs_err"],
+        "ms": seg["kernel_ms"], "plain_ms": seg["plain_ms"],
+        "bound_ms": seg["bound_ms"], "bound_by": seg["bound_by"],
+        "library_ms": seg["library_ms"],
         "shape": f"f32 cotangent (3, {N_INDEX}) into earth's (3, 524288) "
                  "image table, sort included; launches from grad_textures, "
                  "earth 400x225 @ 32 spp",
+        "ms_by_kernel": seg["kernel_ms_by_kernel"],
+    }, {
+        "name": "radix_sort_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/tgather.py:65",
+        "launches": grad_tex["earth"]["launches"]["radix_sort_kernel"],
+        "max_abs_err": 0.0 if srt["bitwise_equal"] else None,
+        "ms": srt["kernel_ms"], "plain_ms": srt["plain_ms"],
+        "bound_ms": srt["bound_ms"], "bound_by": srt["bound_by"],
+        "library_ms": srt["library_ms"],
+        "shape": f"{N_INDEX} int32 indices into 524288 rows carrying 3 f32 "
+                 f"columns, {len(srt['digits'])} passes {srt['digits']} (the "
+                 "segment sum's sort); library call torch.sort(stable=True) "
+                 "of the index, keys and int64 permutation only",
     }, {
         "name": "perlin_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/perlin_kernel.cu",

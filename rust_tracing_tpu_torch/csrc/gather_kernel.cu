@@ -35,16 +35,37 @@
 // partials. Bound: bytes (8 bytes read per element: the cotangent and its
 // index).
 //
-// segment_sum_kernel is the same reduction for tables with many rows (an
-// image texture's 524 288 texels), where the tile loop re-reads the slice
-// once per 3072 rows and the partials take K * B * n elements. The wrapper
-// sorts the index stably (torch.sort(stable=True): equal rows keep their
-// positions in ascending order), so the order of the sum depends on the
-// index alone: one warp per row finds its run in the sorted index by binary
-// search, lane l adds the run's elements l, l+32, ... in order, and the 32
-// lane sums are added in a fixed shuffle tree. No atomics; out of range
-// indices fall outside every row's run and are dropped. Bound: bytes (the
-// sorted index and its permutation, and one gather of each cotangent).
+// The same reduction for tables with many rows (an image texture's 524 288
+// texels), where the tile loop would re-read its slice once per 3072 rows and
+// keep K * B * n partials, is a stable sort of the index by rows followed by
+// one pass over the sorted runs. Both are written here; no library sort.
+//  - radix_*_kernel: a stable LSD radix sort of the keys (the index, with rows
+//    outside [0, n) given the key n, which sorts last and is dropped) over the
+//    bits of n only, in passes of at most RADIX_MAX_BITS (3 passes of 7, 7
+//    and 6 bits for 524 288 rows), carrying the K cotangent columns along. A pass:
+//    radix_hist_kernel counts each tile's digits (integer atomics on shared
+//    memory: exact in any order), radix_scan_kernel turns the counts into each
+//    (digit, tile)'s first output slot, and radix_scatter_kernel places each
+//    element: a tile is cut into contiguous warp slices, a warp walks its
+//    slice 32 elements a step, lanes with the same digit find each other (one
+//    ballot a digit bit) and take consecutive slots in lane order. Elements of
+//    one digit keep their order: tile by tile, warp by warp, step by step,
+//    lane by lane. The block orders its tile in shared memory first, so its
+//    stores go out in runs of one digit, not to 32 scattered slots a step.
+//  - segment_sum_kernel: one thread a sorted position, a warp 32 of them. A
+//    row's run is cut by the warps into pieces; the first lane of a piece adds
+//    the piece's cotangents in position order (0 + c_j + c_j+1 + ..., read by
+//    shuffles). A run that spans warps is its first piece's sum + the next
+//    warps' piece sums (segment_carry_kernel: in warp order up to
+//    SEG_SHORT_CHAIN of them, else lane-strided and a fixed butterfly). Rows
+//    without elements keep the zero the wrapper allocated them.
+// So every row's order of summation is a function of the index alone: the
+// same bits on every call, exact sums on integer-valued cotangents, no float
+// atomics. Bound: bytes. Each sort pass reads the keys twice (count, place)
+// and the columns once and writes both; the sum reads the sorted keys and
+// columns once, in order. Moving the columns with the keys replaces a gather
+// of each cotangent at a random position (a 32-byte sector for 4 or 8 useful
+// bytes) by two streaming copies.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,6 +77,20 @@ constexpr int SS_WARPS = 4;
 constexpr int SS_THREADS = 32 * SS_WARPS;
 constexpr int SS_SMEM_BYTES = 48 * 1024;
 constexpr int SEG_THREADS = 256;
+constexpr int RADIX_WARPS = 8;
+constexpr int RADIX_THREADS = 32 * RADIX_WARPS;
+constexpr int RADIX_TILE = 4096;  // elements a block; ops/lanegather.py
+constexpr int RADIX_SLICE = RADIX_TILE / RADIX_WARPS;
+constexpr int RADIX_ITEMS = RADIX_SLICE / 32;
+constexpr int RADIX_MAX_BITS = 8;  // ops/lanegather.py::RADIX_MAX_BITS
+constexpr int RADIX_MAX_DIGITS = 1 << RADIX_MAX_BITS;
+constexpr int HIST_TILES = 8;  // tiles a block of radix_hist_kernel counts
+constexpr int HIST_THREADS = 1024;
+// blocks of radix_scatter_kernel an SM holds: registers capped for 3 (their
+// shared memory is 32 KB of values and 10 KB of digit slots at most)
+constexpr int RADIX_SCATTER_BLOCKS = 3;
+// carry chains of up to this many warps are added by one thread
+constexpr int SEG_SHORT_CHAIN = 8;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 template <typename T>
@@ -156,50 +191,341 @@ __global__ void __launch_bounds__(G_THREADS)
     out[t] = s;
 }
 
-// First position in the ascending array a[0, R) whose value is >= key.
-__device__ __forceinline__ long long lower_bound(const int* __restrict__ a,
-                                                 long long R, int key) {
-    long long lo = 0, hi = R;
-    while (lo < hi) {
-        const long long mid = (lo + hi) >> 1;
-        if (__ldg(a + mid) < key)
-            lo = mid + 1;
-        else
-            hi = mid;
-    }
-    return lo;
+// The sort key of element i: the index itself after the first pass (`raw`
+// 0); on the first pass rows outside [0, n) become n.
+__device__ __forceinline__ int radix_key(const int* __restrict__ keys,
+                                         long long i, int n, int raw) {
+    const int k = __ldg(keys + i);
+    return (raw && (k < 0 || k >= n)) ? n : k;
 }
 
-// out[k, r] = sum over the run of row r in the sorted index `sidx` of
-// ct[k, perm[i]]; one warp per row, grid-stride over rows.
+// counts[d * B + b] = elements of tile b (RADIX_TILE elements from
+// b * RADIX_TILE) whose digit (key >> shift) & (D - 1) is d. A block counts
+// HIST_TILES tiles, so that its writes of a digit's counts fill whole
+// sectors.
+__global__ void __launch_bounds__(HIST_THREADS)
+    radix_hist_kernel(const int* __restrict__ keys, long long R, int n,
+                      int raw, int shift, int D, int B,
+                      int* __restrict__ counts) {
+    __shared__ int hist[HIST_TILES][RADIX_MAX_DIGITS];
+    for (int d = threadIdx.x; d < HIST_TILES * RADIX_MAX_DIGITS;
+         d += HIST_THREADS)
+        (&hist[0][0])[d] = 0;
+    __syncthreads();
+    const int b0 = blockIdx.x * HIST_TILES;
+    const long long lo = (long long)b0 * RADIX_TILE;
+    const long long hi = lo + (long long)HIST_TILES * RADIX_TILE < R
+                             ? lo + (long long)HIST_TILES * RADIX_TILE
+                             : R;
+    for (long long i = lo + threadIdx.x; i < hi; i += HIST_THREADS)
+        atomicAdd(&hist[(i - lo) / RADIX_TILE]
+                       [(radix_key(keys, i, n, raw) >> shift) & (D - 1)],
+                  1);
+    __syncthreads();
+    for (int e = threadIdx.x; e < HIST_TILES * D; e += HIST_THREADS) {
+        const int d = e / HIST_TILES, t = e % HIST_TILES;
+        if (b0 + t < B) counts[(size_t)d * B + b0 + t] = hist[t][d];
+    }
+}
+
+// Inclusive sum over the lanes 0..lane of a warp.
+__device__ __forceinline__ int warp_inclusive_sum(int x, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL_MASK, x, off);
+        if (lane >= off) x += y;
+    }
+    return x;
+}
+
+// One warp a digit d, in place: counts[d * B + b] becomes the number of
+// elements of digit d in the tiles before b; totals[d] their number in all.
+__global__ void __launch_bounds__(RADIX_THREADS)
+    radix_scan_kernel(int* __restrict__ counts, int B, int D,
+                      int* __restrict__ totals) {
+    const int d = blockIdx.x * RADIX_WARPS + (threadIdx.x >> 5);
+    const int lane = threadIdx.x & 31;
+    if (d >= D) return;  // the whole warp
+    int* c = counts + (size_t)d * B;
+    int carry = 0;
+    for (int b0 = 0; b0 < B; b0 += 32) {
+        const int b = b0 + lane;
+        const int v = b < B ? c[b] : 0;
+        const int x = warp_inclusive_sum(v, lane);
+        if (b < B) c[b] = carry + x - v;
+        carry += __shfl_sync(FULL_MASK, x, 31);
+    }
+    if (lane == 0) totals[d] = carry;
+}
+
+// Lanes of the warp whose `digit` (of `width` bits) equals this lane's, among
+// the lanes whose `valid` is the same: one ballot a bit (instead of
+// __match_any_sync, which the card issues far more slowly).
+__device__ __forceinline__ unsigned match_digit(int digit, int width,
+                                                bool valid) {
+    const unsigned v = __ballot_sync(FULL_MASK, valid);
+    unsigned peers = valid ? v : ~v;
+    for (int b = 0; b < width; ++b) {
+        const bool bit = (digit >> b) & 1;
+        const unsigned m = __ballot_sync(FULL_MASK, bit);
+        peers &= bit ? m : ~m;
+    }
+    return peers;
+}
+
+// One stable pass over keys and their K value columns (V: the values' bits,
+// 4 or 8 bytes). Element i of tile b goes to slot
+//   (elements of smaller digits) + (elements of its digit in earlier tiles)
+//   + (in earlier warp slices of its tile) + (in earlier steps of its slice)
+//   + (in lower lanes of its step).
+// A lane holds its RADIX_ITEMS elements of the slice (step q: element
+// lo + 32 q + lane) in registers from the start, so a warp's loads are all
+// in flight at once. The block places its tile in shared memory in output
+// order (digit by digit), then writes each run out with consecutive threads
+// on consecutive slots: the keys, then each value column the same way.
+template <typename V>
+__global__ void __launch_bounds__(RADIX_THREADS, RADIX_SCATTER_BLOCKS)
+    radix_scatter_kernel(const int* __restrict__ keys, long long R, int n,
+                         int raw, int shift, int width,
+                         const int* __restrict__ counts,
+                         const int* __restrict__ totals,
+                         int* __restrict__ keys_out,
+                         const V* __restrict__ vals, int K,
+                         V* __restrict__ vals_out) {
+    extern __shared__ __align__(16) unsigned char radix_smem[];
+    V* tile = reinterpret_cast<V*>(radix_smem);  // RADIX_TILE values or keys
+    int(*slot)[RADIX_MAX_DIGITS] = reinterpret_cast<int(*)[RADIX_MAX_DIGITS]>(
+        radix_smem + RADIX_TILE * sizeof(V));
+    int* local = &slot[RADIX_WARPS][0];  // the tile's first slot of a digit
+    int* first = local + RADIX_MAX_DIGITS;  // its global slot
+    int* warp_sum = first + RADIX_MAX_DIGITS;  // 2 x RADIX_WARPS
+    int* tile_key = reinterpret_cast<int*>(tile);
+    const int D = 1 << width;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const unsigned lower = (1u << lane) - 1u;
+    const long long t0 = (long long)blockIdx.x * RADIX_TILE;
+    const long long lo = t0 + (long long)warp * RADIX_SLICE;
+    const long long hi = lo + RADIX_SLICE < R ? lo + RADIX_SLICE : R;
+    const int count = (int)(R - t0 < RADIX_TILE ? R - t0 : RADIX_TILE);
+
+    int key[RADIX_ITEMS];
+#pragma unroll
+    for (int q = 0; q < RADIX_ITEMS; ++q) {
+        const long long i = lo + 32 * q + lane;
+        key[q] = i < hi ? radix_key(keys, i, n, raw) : 0;
+    }
+    for (int d = threadIdx.x; d < D; d += RADIX_THREADS)
+        for (int w = 0; w < RADIX_WARPS; ++w) slot[w][d] = 0;
+    __syncthreads();
+
+    // the warp's count of each digit in its slice; a step's groups have
+    // distinct digits, and only this warp touches its row of `slot`
+    unsigned peers[RADIX_ITEMS];
+#pragma unroll
+    for (int q = 0; q < RADIX_ITEMS; ++q) {
+        const bool ok = lo + 32 * q + lane < hi;
+        const int digit = (key[q] >> shift) & (D - 1);
+        peers[q] = match_digit(digit, width, ok);
+        if (ok && lane == __ffs(peers[q]) - 1)
+            slot[warp][digit] += __popc(peers[q]);
+        __syncwarp();
+    }
+    __syncthreads();
+
+    // exclusive sums over the digits of the totals (the digit's first global
+    // slot) and of the tile's counts (its first slot in the tile); each
+    // thread four digits in a row
+    constexpr int PER = RADIX_MAX_DIGITS / RADIX_THREADS;
+    int vg[PER], vl[PER], sg = 0, sl = 0;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+        const int d = threadIdx.x * PER + q;
+        vg[q] = sg;
+        vl[q] = sl;
+        if (d < D) {
+            sg += __ldg(totals + d);
+            for (int w = 0; w < RADIX_WARPS; ++w) sl += slot[w][d];
+        }
+    }
+    const int xg = warp_inclusive_sum(sg, lane);
+    const int xl = warp_inclusive_sum(sl, lane);
+    if (lane == 31) {
+        warp_sum[warp] = xg;
+        warp_sum[RADIX_WARPS + warp] = xl;
+    }
+    __syncthreads();
+    int bg = xg - sg, bl = xl - sl;
+    for (int w = 0; w < warp; ++w) {
+        bg += warp_sum[w];
+        bl += warp_sum[RADIX_WARPS + w];
+    }
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+        const int d = threadIdx.x * PER + q;
+        if (d >= D) continue;
+        local[d] = bl + vl[q];
+        first[d] = bg + vg[q]
+                   + __ldg(counts + (size_t)d * gridDim.x + blockIdx.x);
+        int run = bl + vl[q];
+        for (int w = 0; w < RADIX_WARPS; ++w) {
+            const int c = slot[w][d];
+            slot[w][d] = run;
+            run += c;
+        }
+    }
+    __syncthreads();
+    // each element's slot in the tile
+    int li[RADIX_ITEMS];
+#pragma unroll
+    for (int q = 0; q < RADIX_ITEMS; ++q) {
+        const bool ok = lo + 32 * q + lane < hi;
+        const int digit = (key[q] >> shift) & (D - 1);
+        li[q] = ok ? slot[warp][digit] + __popc(peers[q] & lower) : -1;
+        __syncwarp();
+        if (ok && lane == __ffs(peers[q]) - 1)
+            slot[warp][digit] += __popc(peers[q]);
+        __syncwarp();
+    }
+#pragma unroll
+    for (int q = 0; q < RADIX_ITEMS; ++q)
+        if (li[q] >= 0) tile_key[li[q]] = key[q];
+    __syncthreads();
+    // the tile's slot s goes to global slot dst[m] (s = threadIdx.x + m *
+    // RADIX_THREADS)
+    int dst[RADIX_ITEMS];
+#pragma unroll
+    for (int m = 0; m < RADIX_ITEMS; ++m) {
+        const int s = threadIdx.x + m * RADIX_THREADS;
+        dst[m] = -1;
+        if (s < count) {
+            const int k = tile_key[s];
+            const int digit = (k >> shift) & (D - 1);
+            dst[m] = first[digit] + s - local[digit];
+            keys_out[dst[m]] = k;
+        }
+    }
+    for (int c = 0; c < K; ++c) {
+        const V* in = vals + (size_t)c * R;
+        V v[RADIX_ITEMS];
+#pragma unroll
+        for (int q = 0; q < RADIX_ITEMS; ++q)
+            v[q] = li[q] >= 0 ? __ldg(in + lo + 32 * q + lane) : V(0);
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < RADIX_ITEMS; ++q)
+            if (li[q] >= 0) tile[li[q]] = v[q];
+        __syncthreads();
+        V* o = vals_out + (size_t)c * R;
+#pragma unroll
+        for (int m = 0; m < RADIX_ITEMS; ++m)
+            if (dst[m] >= 0) o[dst[m]] = tile[threadIdx.x + m * RADIX_THREADS];
+    }
+}
+
+// The segment sum over the sorted keys `skey` (key n: dropped) and the
+// values sorted with them, `svals` (K x R). Warp w holds the sorted
+// positions [32 w, 32 w + 32), one a lane; a run of one row is cut by the
+// warps into pieces. Each piece is summed by its first lane in position
+// order (0 + c_j + c_j+1 + ..., the other lanes' values read by shuffles).
+// A piece that starts its run writes its sum to the row; a piece that
+// continues a run from an earlier warp (it starts at lane 0) writes it to
+// `carry` (K x W). The warp's last piece, when it starts a run that goes on
+// into the next warp, names the row in `tail_key` (else -1) for
+// segment_carry_kernel.
 template <typename T>
 __global__ void __launch_bounds__(SEG_THREADS)
-    segment_sum_kernel(const T* __restrict__ ct, const int* __restrict__ sidx,
-                       const long long* __restrict__ perm, long long R, int n,
-                       int K, T* __restrict__ out) {
+    segment_sum_kernel(const T* __restrict__ svals,
+                       const int* __restrict__ skey, long long R, int n,
+                       int K, T* __restrict__ out, T* __restrict__ carry,
+                       int* __restrict__ tail_key) {
+    const long long j = (long long)blockIdx.x * SEG_THREADS + threadIdx.x;
     const int lane = threadIdx.x & 31;
-    const long long warps = (long long)gridDim.x * (SEG_THREADS / 32);
-    // the row is the same for all lanes of a warp: every lane takes part in
-    // the shuffles
-    for (long long r = (long long)blockIdx.x * (SEG_THREADS / 32)
-                       + (threadIdx.x >> 5);
-         r < n; r += warps) {
-        long long lo = 0, hi = 0;
-        if (lane == 0) {
-            lo = lower_bound(sidx, R, (int)r);
-            hi = lower_bound(sidx, R, (int)r + 1);
+    const long long j0 = j - lane, w = j0 >> 5, W = (R + 31) >> 5;
+    if (j0 >= R) return;  // the whole warp
+    const int key = j < R ? __ldg(skey + j) : n;
+    const int before = j0 > 0 ? __ldg(skey + j0 - 1) : -1;
+    const int after = j0 + 32 < R ? __ldg(skey + j0 + 32) : -1;
+    const int up = __shfl_up_sync(FULL_MASK, key, 1);
+    const bool head = lane == 0 || key != up;
+    const bool run_head = key != (lane == 0 ? before : up);
+    const unsigned above =
+        __ballot_sync(FULL_MASK, head) & ~((2u << lane) - 1u);
+    const int len = (above ? __ffs(above) - 1 : 32) - lane;  // on heads
+    const bool live = head && key < n;
+    const int span = __reduce_max_sync(FULL_MASK, head ? len : 0);
+    for (int k = 0; k < K; ++k) {
+        const T v = key < n ? __ldg(svals + (size_t)k * R + j) : T(0);
+        T acc = T(0);
+        for (int off = 0; off < span; ++off) {
+            const T y = __shfl_down_sync(FULL_MASK, v, off);
+            if (off < len) acc = acc + y;
         }
-        lo = __shfl_sync(FULL_MASK, lo, 0);
-        hi = __shfl_sync(FULL_MASK, hi, 0);
+        if (live) {
+            if (run_head)
+                out[(size_t)k * n + key] = acc;
+            else
+                carry[(size_t)k * W + w] = acc;
+        }
+    }
+    if (head && !above)
+        tail_key[w] = live && run_head && after == key ? key : -1;
+}
+
+// For each warp w whose last piece starts a run that goes on: the row's sum
+// is that piece's sum + the sum of the following warps' carries while the
+// run goes on (the chain). A chain of up to SEG_SHORT_CHAIN carries is added
+// by w's thread in warp order. A longer one is added by the whole warp, the
+// chains one at a time: lane l adds carries l, l + 32, ... in order, and the
+// lane sums are added in a fixed butterfly. Which order a chain gets
+// depends on its length alone.
+template <typename T>
+__global__ void __launch_bounds__(SEG_THREADS)
+    segment_carry_kernel(const int* __restrict__ skey, long long R, int n,
+                         int K, const T* __restrict__ carry,
+                         const int* __restrict__ tail_key,
+                         T* __restrict__ out) {
+    const long long w = (long long)blockIdx.x * SEG_THREADS + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const long long W = (R + 31) >> 5;
+    const int mine = w < W ? __ldg(tail_key + w) : -1;
+    // the chain is warps w + 1 .. end - 1: those whose first position the
+    // run reaches (keys ascend, so they are a prefix)
+    long long end = w + 1;
+    if (mine >= 0)
+        while (end < W && end - w <= SEG_SHORT_CHAIN
+               && __ldg(skey + end * 32) == mine)
+            ++end;
+    const bool long_chain = mine >= 0 && end - w > SEG_SHORT_CHAIN;
+    if (mine >= 0 && !long_chain)
         for (int k = 0; k < K; ++k) {
-            const T* ctk = ct + (size_t)k * R;
+            T acc = out[(size_t)k * n + mine];
+            for (long long v = w + 1; v < end; ++v)
+                acc = acc + __ldg(carry + (size_t)k * W + v);
+            out[(size_t)k * n + mine] = acc;
+        }
+    unsigned todo = __ballot_sync(FULL_MASK, long_chain);
+    while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const int key = __shfl_sync(FULL_MASK, mine, src);
+        const long long v0 = __shfl_sync(FULL_MASK, w, src) + 1;
+        long long e = v0;
+        for (;;) {
+            const long long v = e + lane;
+            const unsigned m = __ballot_sync(
+                FULL_MASK, v < W && __ldg(skey + v * 32) == key);
+            e += __popc(m);
+            if (m != FULL_MASK) break;
+        }
+        for (int k = 0; k < K; ++k) {
             T acc = T(0);
-            for (long long i = lo + lane; i < hi; i += 32)
-                acc = acc + __ldg(ctk + __ldg(perm + i));
+            for (long long v = v0 + lane; v < e; v += 32)
+                acc = acc + __ldg(carry + (size_t)k * W + v);
 #pragma unroll
             for (int off = 16; off > 0; off >>= 1)
-                acc = acc + __shfl_down_sync(FULL_MASK, acc, off);
-            if (lane == 0) out[(size_t)k * n + r] = acc;
+                acc = acc + __shfl_xor_sync(FULL_MASK, acc, off);
+            if (lane == 0)
+                out[(size_t)k * n + key] = out[(size_t)k * n + key] + acc;
         }
     }
 }
@@ -247,15 +573,61 @@ int launch_scatter_sum(const void* ct, const void* idx, long long R, int n,
 }
 
 template <typename T>
-int launch_segment_sum(const void* ct, const void* sidx, const void* perm,
-                       long long R, int n, int K, void* out, cudaStream_t st) {
-    const long long rows_per_block = SEG_THREADS / 32;
-    long long blocks = (n + rows_per_block - 1) / rows_per_block;
-    if (blocks > 132 * 16) blocks = 132 * 16;
-    segment_sum_kernel<T><<<(int)blocks, SEG_THREADS, 0, st>>>(
-        static_cast<const T*>(ct), static_cast<const int*>(sidx),
-        static_cast<const long long*>(perm), R, n, K, static_cast<T*>(out));
+int launch_segment_sum(const void* svals, const void* skey, long long R,
+                       int n, int K, void* out, void* carry, void* tail_key,
+                       cudaStream_t st) {
+    const long long W = (R + 31) / 32;
+    segment_sum_kernel<T><<<(unsigned)((R + SEG_THREADS - 1) / SEG_THREADS),
+                            SEG_THREADS, 0, st>>>(
+        static_cast<const T*>(svals), static_cast<const int*>(skey), R, n, K,
+        static_cast<T*>(out), static_cast<T*>(carry),
+        static_cast<int*>(tail_key));
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    segment_carry_kernel<T><<<(unsigned)((W + SEG_THREADS - 1) / SEG_THREADS),
+                              SEG_THREADS, 0, st>>>(
+        static_cast<const int*>(skey), R, n, K,
+        static_cast<const T*>(carry), static_cast<const int*>(tail_key),
+        static_cast<T*>(out));
     return (int)cudaGetLastError();
+}
+
+// The radix sort's passes for values of V's size (see rt_radix_sort_launch).
+template <typename V>
+int launch_radix_sort(const int* idx, long long R, int n, const int* widths,
+                      int passes, const V* vals, int K, int* keys_out,
+                      V* vals_out, int* keys_tmp, V* vals_tmp, int* counts,
+                      int* totals, cudaStream_t st) {
+    const int smem = (int)(RADIX_TILE * sizeof(V))
+                     + (int)sizeof(int) * ((RADIX_WARPS + 2) * RADIX_MAX_DIGITS
+                                           + 2 * RADIX_WARPS);
+    int err = (int)cudaFuncSetAttribute(
+        radix_scatter_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != 0) return err;
+    const int B = (int)((R + RADIX_TILE - 1) / RADIX_TILE);
+    const int* keys = idx;
+    int shift = 0;
+    for (int p = 0; p < passes; ++p) {
+        // the last pass writes the output; passes alternate buffers
+        const bool to_out = (passes - 1 - p) % 2 == 0;
+        int* ko = to_out ? keys_out : keys_tmp;
+        V* vo = to_out ? vals_out : vals_tmp;
+        const int D = 1 << widths[p], raw = p == 0;
+        radix_hist_kernel<<<(B + HIST_TILES - 1) / HIST_TILES, HIST_THREADS,
+                            0, st>>>(keys, R, n, raw, shift, D, B, counts);
+        radix_scan_kernel<<<(D + RADIX_WARPS - 1) / RADIX_WARPS,
+                            RADIX_THREADS, 0, st>>>(counts, B, D, totals);
+        radix_scatter_kernel<V><<<B, RADIX_THREADS, smem, st>>>(
+            keys, R, n, raw, shift, widths[p], counts, totals, ko, vals, K,
+            vo);
+        err = (int)cudaGetLastError();
+        if (err != 0) return err;
+        keys = ko;
+        vals = vo;
+        shift += widths[p];
+    }
+    return 0;
 }
 
 }  // namespace
@@ -310,17 +682,65 @@ extern "C" int rt_scatter_sum_launch(const void* ct, const void* idx,
                                      st);
 }
 
+// Stable sort of the int32 index `idx` (R elements) by row, rows outside
+// [0, n) keyed n, carrying K value columns `vals` (K x R, `elem` 4 or 8
+// bytes each) along: `passes` LSD passes of digit widths `widths` (a host
+// array, lowest digit first, summing to at least the bits of n). Writes the
+// sorted keys to keys_out (R int32) and the values in the same order to
+// vals_out (K x R); keys_tmp / vals_tmp are scratch of the same sizes,
+// `counts` scratch of 2^max(widths) * ceil(R / RADIX_TILE) int32, `totals`
+// of 2^max(widths).
+extern "C" int rt_radix_sort_launch(const void* idx, long long R, int n,
+                                    const int* widths, int passes,
+                                    const void* vals, int K, int elem,
+                                    void* keys_out, void* vals_out,
+                                    void* keys_tmp, void* vals_tmp,
+                                    void* counts, void* totals,
+                                    void* stream) {
+    if (n < 1 || R < 1 || R > 0x7FFFFFFFLL || passes < 1 || K < 0
+        || (elem != 4 && elem != 8))
+        return (int)cudaErrorInvalidValue;
+    int bits = 0;
+    for (int p = 0; p < passes; ++p) {
+        if (widths[p] < 1 || widths[p] > RADIX_MAX_BITS)
+            return (int)cudaErrorInvalidValue;
+        bits += widths[p];
+    }
+    if (bits < 31 && (n >> bits) != 0) return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int* ix = static_cast<const int*>(idx);
+    int* ko = static_cast<int*>(keys_out);
+    int* kt = static_cast<int*>(keys_tmp);
+    int* c = static_cast<int*>(counts);
+    int* t = static_cast<int*>(totals);
+    if (elem == 4)
+        return launch_radix_sort<uint32_t>(
+            ix, R, n, widths, passes, static_cast<const uint32_t*>(vals), K,
+            ko, static_cast<uint32_t*>(vals_out), kt,
+            static_cast<uint32_t*>(vals_tmp), c, t, st);
+    return launch_radix_sort<unsigned long long>(
+        ix, R, n, widths, passes, static_cast<const unsigned long long*>(vals),
+        K, ko, static_cast<unsigned long long*>(vals_out), kt,
+        static_cast<unsigned long long*>(vals_tmp), c, t, st);
+}
+
 // out[k, r] = sum of ct[k, i] over idx[i] == r, for ct (K, R) float
-// (is_double 0) or double (1), from the stably sorted index `sidx` (int32)
-// and its permutation `perm` (int64): sidx[i] = idx[perm[i]].
-extern "C" int rt_segment_sum_launch(const void* ct, const void* sidx,
-                                     const void* perm, long long R, int n,
-                                     int K, int is_double, void* out,
+// (is_double 0) or double (1), from the sorted keys `skey` and the values
+// sorted with them, `svals` (K x R), that rt_radix_sort_launch wrote. `out`
+// (K, n) holds zeros: rows without elements are not written. `carry` is
+// scratch of K * ceil(R / 32) elements, `tail_key` of ceil(R / 32) int32.
+extern "C" int rt_segment_sum_launch(const void* svals, const void* skey,
+                                     long long R, int n, int K, int is_double,
+                                     void* out, void* carry, void* tail_key,
                                      void* stream) {
-    if (n < 1 || K < 1 || R < 1) return (int)cudaErrorInvalidValue;
+    if (n < 1 || K < 1 || R < 1 || R > 0x7FFFFFFFLL)
+        return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (is_double)
-        return launch_segment_sum<double>(ct, sidx, perm, R, n, K, out, st);
-    return launch_segment_sum<float>(ct, sidx, perm, R, n, K, out, st);
+        return launch_segment_sum<double>(svals, skey, R, n, K, out, carry,
+                                          tail_key, st);
+    return launch_segment_sum<float>(svals, skey, R, n, K, out, carry,
+                                     tail_key, st);
 }

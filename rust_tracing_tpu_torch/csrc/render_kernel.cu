@@ -16,16 +16,31 @@
 // instantiation, so a scene without them runs code without them.
 //
 // Design for this card, not carried over from the TPU tile by tile:
-//  - One thread per pixel, 8x8 blocks of neighbouring pixels so a warp's rays
-//    are coherent; pixels outside the frame or the requested range are masked.
-//  - Each thread runs its own `for sample { for bounce }` loop. The TPU kernel
-//    regenerates dead lanes to keep a 1024-lane vector full; per pixel it adds
-//    finished samples in sample order, so this nested loop gives the same sums.
-//  - Scene tables are read from global memory through the read-only path
-//    (`__ldg`, vector loads of whole rows). In the brute loop all threads of a
-//    warp read the same primitive row at the same time, a broadcast served by
-//    L1. Nothing is staged in shared memory, so no table size can overflow it:
-//    the tables are bounded by device memory only.
+//  - render_kernel is parallel over pixels AND samples. A group of G
+//    consecutive threads (G = 1, 2, ..., 32, picked by the host from spp so
+//    that few lanes idle: ops/megakernel.py::samples_per_group) traces one
+//    pixel: in round r, lane l traces sample r*G + l. After each round every
+//    lane of the group reads the round's G radiances (__shfl_sync) and adds
+//    them to the pixel's running sum in sample order, `acc = acc + rad_s`:
+//    the f32 sum of a one-thread-a-pixel loop and of the plain version, bit
+//    for bit. A sample's path depends on (seed, pixel, sample, bounce, site)
+//    only, never on which thread traces it. Ray counts and walk counters are
+//    integers, summed over the group in any order. A 600x600 frame at 4096
+//    spp is 360 000 warps, ~100 waves of the card's resident warps: the last,
+//    partial wave is a few percent of the frame. (One thread a pixel made
+//    5 625 blocks of 64 threads, ~3 waves of equally long blocks, the last a
+//    quarter full for a whole wave's time.) The TPU kernel regenerates dead
+//    lanes to keep a 1024-lane vector full and adds finished samples per
+//    pixel in sample order: the same sums. record_kernel and hit_kernel keep
+//    one thread a pixel (8x8 blocks) and one thread a lane.
+//  - Scene tables: the brute-loop render kernel stages the sphere, quad,
+//    medium, material and texture rows in shared memory once a block when
+//    they fit the host's byte budget (megakernel.STAGE_BUDGET_BYTES, small
+//    enough that registers, not shared memory, bound the blocks an SM holds)
+//    and reads them with plain loads: the threads of a warp read the same row
+//    at once, a broadcast. Larger tables, the BVH instantiations, the image
+//    and the tree are read from global memory through the read-only path
+//    (`__ldg`, vector loads of whole rows), bounded by device memory only.
 //  - BVH (B4): each thread walks the skip-link tree with its own node
 //    pointer. The TPU kernel walks one pointer per 1024-lane tile and descends
 //    wherever any lane's box test passes (its vector unit has no per-lane
@@ -78,7 +93,12 @@ struct RenderParams {
     int n_nodes;               // rows of bvh_f / bvh_i
 };
 
-struct SceneTables {
+// The scene's tables. STAGED: the brute loop's rows (spheres, quads, media,
+// materials, textures) lie in shared memory and `ld` is a plain load; else
+// `ld` reads global memory through the read-only path. The image and the
+// tree are never staged: they are read with __ldg directly.
+template <bool STAGED>
+struct Tables {
     const float4* sph_f;  // (S,8)  cx cy cz r2 | inv_r mvx mvy mvz
     const int* sph_m;     // (S,)
     const float4* quad_f; // (Q,16) q(3) u(3) v(3) n(3) w(3) d
@@ -93,7 +113,16 @@ struct SceneTables {
     const float4* bvh_f;  // (N,8)  min x y z, max x | max y z, 0, 0
     const int4* bvh_i;    // (N,4)  skip, leaf start, leaf count, sphere count
     const int2* prim_i;   // (P,2)  kind (0 sphere, 1 quad), index; leaf order
+
+    template <typename T>
+    __device__ __forceinline__ T ld(const T* q) const {
+        if constexpr (STAGED)
+            return *q;
+        else
+            return __ldg(q);
+    }
 };
+using SceneTables = Tables<false>;
 
 // What a trace computes. RENDER shades and accumulates radiance; RECORD
 // (record_kernel: winner ids per bounce) and HIT (hit_kernel: one-bounce
@@ -144,12 +173,12 @@ __device__ __forceinline__ bool beats(float t, int kind, int idx,
 }
 
 // sphere.rs:59-89 + moving-centre lerp: strict bounds, near root preferred.
-template <int MODE, bool TIE = false>
-__device__ __forceinline__ void sphere_test(const SceneTables& sc, int i,
+template <int MODE, bool TIE = false, class Tab>
+__device__ __forceinline__ void sphere_test(const Tab& sc, int i,
                                             const Ray& r, float a_len,
                                             float inv_a, Hit& h) {
-    const float4 s0 = __ldg(sc.sph_f + 2 * i);
-    const float4 s1 = __ldg(sc.sph_f + 2 * i + 1);
+    const float4 s0 = sc.ld(sc.sph_f + 2 * i);
+    const float4 s1 = sc.ld(sc.sph_f + 2 * i + 1);
     const float ccx = s0.x + s1.y * r.time;
     const float ccy = s0.y + s1.z * r.time;
     const float ccz = s0.z + s1.w * r.time;
@@ -173,7 +202,7 @@ __device__ __forceinline__ void sphere_test(const SceneTables& sc, int i,
     if (!(ok1 || ok2)) return;
     const float root = ok1 ? r1 : rr2;
     h.t_best = root;
-    h.mat = __ldg(sc.sph_m + i);
+    h.mat = sc.ld(sc.sph_m + i);
     h.nx = (r.ox + root * r.dx - ccx) * inv_r;
     h.ny = (r.oy + root * r.dy - ccy) * inv_r;
     h.nz = (r.oz + root * r.dz - ccz) * inv_r;
@@ -185,13 +214,13 @@ __device__ __forceinline__ void sphere_test(const SceneTables& sc, int i,
 }
 
 // quad.rs:96-133: inclusive bounds, no back-face culling.
-template <int MODE, bool TIE = false>
-__device__ __forceinline__ void quad_test(const SceneTables& sc, int i,
+template <int MODE, bool TIE = false, class Tab>
+__device__ __forceinline__ void quad_test(const Tab& sc, int i,
                                           const Ray& r, Hit& h) {
-    const float4 a = __ldg(sc.quad_f + 4 * i);      // qx qy qz ux
-    const float4 b = __ldg(sc.quad_f + 4 * i + 1);  // uy uz vx vy
-    const float4 c = __ldg(sc.quad_f + 4 * i + 2);  // vz nx ny nz
-    const float4 e = __ldg(sc.quad_f + 4 * i + 3);  // wx wy wz d
+    const float4 a = sc.ld(sc.quad_f + 4 * i);      // qx qy qz ux
+    const float4 b = sc.ld(sc.quad_f + 4 * i + 1);  // uy uz vx vy
+    const float4 c = sc.ld(sc.quad_f + 4 * i + 2);  // vz nx ny nz
+    const float4 e = sc.ld(sc.quad_f + 4 * i + 3);  // wx wy wz d
     const float nx = c.y, ny = c.z, nz = c.w;
     const float denom = nx * r.dx + ny * r.dy + nz * r.dz;
     const float safe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
@@ -217,7 +246,7 @@ __device__ __forceinline__ void quad_test(const SceneTables& sc, int i,
           && (beta <= 1.0f)))
         return;
     h.t_best = t;
-    h.mat = __ldg(sc.quad_m + i);
+    h.mat = sc.ld(sc.quad_m + i);
     h.nx = nx;
     h.ny = ny;
     h.nz = nz;
@@ -244,8 +273,8 @@ __device__ __forceinline__ void quad_test(const SceneTables& sc, int i,
 // TIE rule makes the winner the brute loop's whatever order the tree visits
 // primitives in, so visiting more boxes never changes it; chip_smoke.py
 // counts any record that still differs from the brute search.
-template <int MODE, bool BVH = false>
-__device__ __forceinline__ void closest_surface(const SceneTables& sc,
+template <int MODE, bool BVH = false, class Tab>
+__device__ __forceinline__ void closest_surface(const Tab& sc,
                                                 const RenderParams& p,
                                                 const Ray& r, float a_len,
                                                 float inv_a, Hit& h,
@@ -304,8 +333,8 @@ __device__ __forceinline__ void closest_surface(const SceneTables& sc,
 // Constant media (constant_medium.rs:34-71): boundary entry/exit in closed
 // form, exponential free flight. The boundary kind is a runtime switch per
 // medium. A medium wins only if its scatter point is nearer than the surface.
-template <int MODE>
-__device__ __forceinline__ void media_test(const SceneTables& sc,
+template <int MODE, class Tab>
+__device__ __forceinline__ void media_test(const Tab& sc,
                                            const RenderParams& p, const Ray& r,
                                            float a_len, float inv_a,
                                            const CounterRng& rngb, Hit& h) {
@@ -313,15 +342,15 @@ __device__ __forceinline__ void media_test(const SceneTables& sc,
         const float* m = sc.med_f + 24 * i;
         float entry, exit_;
         bool okb;
-        if (__ldg(sc.med_i + 2 * i) == MED_BOX) {
-            const float rx = r.ox - __ldg(m + 9);
-            const float ry = r.oy - __ldg(m + 10);
-            const float rz = r.oz - __ldg(m + 11);
+        if (sc.ld(sc.med_i + 2 * i) == MED_BOX) {
+            const float rx = r.ox - sc.ld(m + 9);
+            const float ry = r.oy - sc.ld(m + 10);
+            const float rz = r.oz - sc.ld(m + 11);
             float lo[3], ld[3];
 #pragma unroll
             for (int k = 0; k < 3; ++k) {
-                const float m0 = __ldg(m + 3 * k), m1 = __ldg(m + 3 * k + 1),
-                            m2 = __ldg(m + 3 * k + 2);
+                const float m0 = sc.ld(m + 3 * k), m1 = sc.ld(m + 3 * k + 1),
+                            m2 = sc.ld(m + 3 * k + 2);
                 lo[k] = m0 * rx + m1 * ry + m2 * rz;
                 ld[k] = m0 * r.dx + m1 * r.dy + m2 * r.dz;
             }
@@ -331,18 +360,18 @@ __device__ __forceinline__ void media_test(const SceneTables& sc,
             for (int k = 0; k < 3; ++k) {
                 const float invd =
                     1.0f / (fabsf(ld[k]) < 1e-30f ? 1e-30f : ld[k]);
-                const float t0 = (__ldg(m + 12 + k) - lo[k]) * invd;
-                const float t1 = (__ldg(m + 15 + k) - lo[k]) * invd;
+                const float t0 = (sc.ld(m + 12 + k) - lo[k]) * invd;
+                const float t1 = (sc.ld(m + 15 + k) - lo[k]) * invd;
                 entry = fmaxf(entry, fminf(t0, t1));
                 exit_ = fminf(exit_, fmaxf(t0, t1));
             }
             okb = entry < exit_;
         } else {
-            const float ocx = r.ox - __ldg(m + 18);
-            const float ocy = r.oy - __ldg(m + 19);
-            const float ocz = r.oz - __ldg(m + 20);
+            const float ocx = r.ox - sc.ld(m + 18);
+            const float ocy = r.oy - sc.ld(m + 19);
+            const float ocz = r.oz - sc.ld(m + 20);
             const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-            const float c = ocx * ocx + ocy * ocy + ocz * ocz - __ldg(m + 21);
+            const float c = ocx * ocx + ocy * ocy + ocz * ocz - sc.ld(m + 21);
             const float disc = half_b * half_b - a_len * c;
             const float sq = sqrtf(fmaxf(disc, 0.0f));
             entry = (-half_b - sq) * inv_a;
@@ -355,12 +384,12 @@ __device__ __forceinline__ void media_test(const SceneTables& sc,
         const float ray_len = sqrtf(a_len);
         const float dist_in = (exit_ - entry) * ray_len;
         const float u = fmaxf(rngb.uniform(SITE_MEDIUM + (uint32_t)i), 1e-12f);
-        const float hd = __ldg(m + 22) * logf(u);
+        const float hd = sc.ld(m + 22) * logf(u);
         okb = okb && (hd <= dist_in);
         const float t_m = entry + hd / ray_len;
         if (okb && (t_m < h.t_best)) {
             h.t_best = t_m;
-            h.mat = __ldg(sc.med_i + 2 * i + 1);
+            h.mat = sc.ld(sc.med_i + 2 * i + 1);
             h.is_med = true;
             if (MODE != MODE_RENDER) {
                 h.kind = 3 + i;
@@ -474,23 +503,23 @@ __device__ __forceinline__ float acos_poly(float x) {
 // Image: nearest texel of the mipped table, u clamped, v flipped
 // (texture.rs:83-93). Noise: marble sin(scale*z + 10*turb(p))*0.5+0.5
 // (texture.rs:107-111).
-template <bool NOISE, bool IMAGE>
-__device__ __forceinline__ void tex_value(const SceneTables& sc,
+template <bool NOISE, bool IMAGE, class Tab>
+__device__ __forceinline__ void tex_value(const Tab& sc,
                                           const RenderParams& p, int tid,
                                           float hx, float hy, float hz,
                                           float tu, float tv, float& tr,
                                           float& tg, float& tb) {
     int leaf = tid;
-    if (__ldg(sc.tex_i + 3 * tid) == TEX_CHECKER) {
-        const float inv = __ldg(sc.tex_f + 4 * tid + 3);
+    if (sc.ld(sc.tex_i + 3 * tid) == TEX_CHECKER) {
+        const float inv = sc.ld(sc.tex_f + 4 * tid + 3);
         const float fsum = floorf(inv * hx) + floorf(inv * hy) + floorf(inv * hz);
         const bool even = (fsum - 2.0f * floorf(fsum * 0.5f)) == 0.0f;
-        leaf = even ? __ldg(sc.tex_i + 3 * tid + 1) : __ldg(sc.tex_i + 3 * tid + 2);
+        leaf = even ? sc.ld(sc.tex_i + 3 * tid + 1) : sc.ld(sc.tex_i + 3 * tid + 2);
     }
     if (NOISE || IMAGE) {
-        const int type = __ldg(sc.tex_i + 3 * leaf);
+        const int type = sc.ld(sc.tex_i + 3 * leaf);
         if (NOISE && type == TEX_NOISE) {
-            const float scale = __ldg(sc.tex_f + 4 * leaf + 3);
+            const float scale = sc.ld(sc.tex_f + 4 * leaf + 3);
             const float marble =
                 sinf(scale * hz + 10.0f * hash_turbulence(hx, hy, hz)) * 0.5f
                 + 0.5f;
@@ -511,9 +540,9 @@ __device__ __forceinline__ void tex_value(const SceneTables& sc,
             return;
         }
     }
-    tr = __ldg(sc.tex_f + 4 * leaf);
-    tg = __ldg(sc.tex_f + 4 * leaf + 1);
-    tb = __ldg(sc.tex_f + 4 * leaf + 2);
+    tr = sc.ld(sc.tex_f + 4 * leaf);
+    tg = sc.ld(sc.tex_f + 4 * leaf + 1);
+    tb = sc.ld(sc.tex_f + 4 * leaf + 2);
 }
 
 struct Path {
@@ -525,8 +554,9 @@ struct Path {
 // One bounce of a live path: closest hit, media, emission, scatter, advance.
 // Returns true if the path scattered and goes on. `rec` receives the packed
 // winner record `kind<<24 | idx` (0 on a miss) outside RENDER mode.
-template <int MODE, bool NOISE = false, bool IMAGE = false, bool BVH = false>
-__device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
+template <int MODE, bool NOISE = false, bool IMAGE = false, bool BVH = false,
+          class Tab>
+__device__ __forceinline__ bool trace_bounce(const Tab& sc,
                                              const RenderParams& p, Path& s,
                                              bool depth_left_ok,
                                              const CounterRng& rngb, int& rec,
@@ -565,7 +595,7 @@ __device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
     const float sign = front ? 1.0f : -1.0f;
     const float nx = sign * mx, ny = sign * my, nz = sign * mz;
 
-    const int m_type = __ldg(sc.mat_i + 2 * h.mat);
+    const int m_type = sc.ld(sc.mat_i + 2 * h.mat);
     float tex_r = 0.0f, tex_g = 0.0f, tex_b = 0.0f;
     if (MODE == MODE_RENDER) {
         float tu = 0.0f, tv = 0.0f;
@@ -578,7 +608,7 @@ __device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
             tu = phi * (float)(1.0 / (2.0 * 3.141592653589793));
             tv = theta * (float)(1.0 / 3.141592653589793);
         }
-        tex_value<NOISE, IMAGE>(sc, p, __ldg(sc.mat_i + 2 * h.mat + 1), hpx,
+        tex_value<NOISE, IMAGE>(sc, p, sc.ld(sc.mat_i + 2 * h.mat + 1), hpx,
                                 hpy, hpz, tu, tv, tex_r, tex_g, tex_b);
         if (m_type == DIFFUSE_LIGHT) {
             // emission (material.rs:114-122), pre-scatter throughput
@@ -617,18 +647,18 @@ __device__ __forceinline__ bool trace_bounce(const SceneTables& sc,
         // mirror + fuzz ball (material.rs:53-64)
         float fx, fy, fz;
         rngb.in_unit_sphere(SITE_FUZZ_Z, SITE_FUZZ_PHI, SITE_FUZZ_R, fx, fy, fz);
-        const float fuzz = __ldg(sc.mat_f + 5 * h.mat + 3);
+        const float fuzz = sc.ld(sc.mat_f + 5 * h.mat + 3);
         const float rdot = udx * nx + udy * ny + udz * nz;
         new_dx = udx - 2.0f * rdot * nx + fuzz * fx;
         new_dy = udy - 2.0f * rdot * ny + fuzz * fy;
         new_dz = udz - 2.0f * rdot * nz + fuzz * fz;
         if (!((new_dx * nx + new_dy * ny + new_dz * nz) > 0.0f)) return false;
-        at_r = __ldg(sc.mat_f + 5 * h.mat);
-        at_g = __ldg(sc.mat_f + 5 * h.mat + 1);
-        at_b = __ldg(sc.mat_f + 5 * h.mat + 2);
+        at_r = sc.ld(sc.mat_f + 5 * h.mat);
+        at_g = sc.ld(sc.mat_f + 5 * h.mat + 1);
+        at_b = sc.ld(sc.mat_f + 5 * h.mat + 2);
     } else {
         // dielectric (material.rs:80-104); ir pads with 1.0
-        const float ir = __ldg(sc.mat_f + 5 * h.mat + 4);
+        const float ir = sc.ld(sc.mat_f + 5 * h.mat + 4);
         const float ratio = front ? 1.0f / ir : ir;
         const float rdot = udx * nx + udy * ny + udz * nz;
         const float cos_t = fminf(-rdot, 1.0f);
@@ -709,6 +739,7 @@ __device__ __forceinline__ void camera_ray(const RenderParams& p, uint32_t pid,
 }
 
 constexpr int BLOCK_X = 8, BLOCK_Y = 8;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Write a thread's walk counts to row `i` of `counters` ((rows, 3) int32)
 // when the caller passed one; only BVH instantiations count.
@@ -724,49 +755,137 @@ __device__ __forceinline__ void put_counts(int* counters, size_t i,
     }
 }
 
+// How the host launches render_kernel; mirrors ops/megakernel.py::RenderPlan.
+// group: threads a pixel (1, 2, 4, 8, 16 or 32). stage_bytes: 0 (tables read
+// through __ldg), or the shared memory a block stages its tables in; then
+// mat_rows and tex_rows rows of the material and texture tables are staged.
+struct RenderPlan {
+    int group, stage_bytes, mat_rows, tex_rows;
+};
+
+constexpr int RENDER_THREADS = 128;
+
+// Copy `bytes` (a multiple of 4) from global memory to `dst` with the whole
+// block; returns where they went and moves `dst` on to the next 16-byte
+// boundary (ops/megakernel.py::stage_bytes counts the same layout).
+__device__ __forceinline__ const void* stage(const void* src, int bytes,
+                                             unsigned char*& dst) {
+    const int* s = static_cast<const int*>(src);
+    int* d = reinterpret_cast<int*>(dst);
+    for (int w = threadIdx.x; w < bytes / 4; w += RENDER_THREADS)
+        d[w] = __ldg(s + w);
+    const void* at = dst;
+    dst += (bytes + 15) & ~15;
+    return at;
+}
+
 // out_rgb (pixel_count,3): mean radiance over spp samples, f32 sum in sample
 // order times f32(1/spp). out_n (pixel_count,): scene queries traced.
-template <bool NOISE, bool IMAGE, bool BVH>
-__global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
-    render_kernel(SceneTables sc, RenderParams p, int row0,
+// Thread t of the grid works for local pixel t / G as lane t % G (see the
+// header); the group's lane 0 writes the pixel.
+template <bool NOISE, bool IMAGE, bool BVH, bool STAGED>
+__global__ void __launch_bounds__(RENDER_THREADS)
+    render_kernel(SceneTables g, RenderParams p, RenderPlan plan,
                   float* __restrict__ out_rgb, int* __restrict__ out_n,
                   int* __restrict__ counters) {
-    const int i = blockIdx.x * BLOCK_X + threadIdx.x;
-    const int j = row0 + blockIdx.y * BLOCK_Y + threadIdx.y;
-    if (i >= p.width || j >= p.height) return;
-    const int pid = j * p.width + i;
-    const int local = pid - p.pixel_base;
-    if (local < 0 || local >= p.pixel_count) return;
-    const float pi = (float)i, pj = (float)j;
+    Tables<STAGED> sc;
+    sc.sph_f = g.sph_f;
+    sc.sph_m = g.sph_m;
+    sc.quad_f = g.quad_f;
+    sc.quad_m = g.quad_m;
+    sc.med_f = g.med_f;
+    sc.med_i = g.med_i;
+    sc.mat_f = g.mat_f;
+    sc.mat_i = g.mat_i;
+    sc.tex_f = g.tex_f;
+    sc.tex_i = g.tex_i;
+    sc.img_f = g.img_f;
+    sc.bvh_f = g.bvh_f;
+    sc.bvh_i = g.bvh_i;
+    sc.prim_i = g.prim_i;
+    if constexpr (STAGED) {
+        extern __shared__ __align__(16) unsigned char staged[];
+        unsigned char* at = staged;
+        sc.sph_f = static_cast<const float4*>(
+            stage(g.sph_f, 32 * p.n_spheres, at));
+        sc.sph_m = static_cast<const int*>(stage(g.sph_m, 4 * p.n_spheres, at));
+        sc.quad_f = static_cast<const float4*>(
+            stage(g.quad_f, 64 * p.n_quads, at));
+        sc.quad_m = static_cast<const int*>(stage(g.quad_m, 4 * p.n_quads, at));
+        sc.med_f = static_cast<const float*>(stage(g.med_f, 96 * p.n_media, at));
+        sc.med_i = static_cast<const int*>(stage(g.med_i, 8 * p.n_media, at));
+        sc.mat_f = static_cast<const float*>(
+            stage(g.mat_f, 20 * plan.mat_rows, at));
+        sc.mat_i = static_cast<const int*>(
+            stage(g.mat_i, 8 * plan.mat_rows, at));
+        sc.tex_f = static_cast<const float*>(
+            stage(g.tex_f, 16 * plan.tex_rows, at));
+        sc.tex_i = static_cast<const int*>(
+            stage(g.tex_i, 12 * plan.tex_rows, at));
+        __syncthreads();
+    }
+
+    const int G = plan.group;
+    const long long t = (long long)blockIdx.x * RENDER_THREADS + threadIdx.x;
+    const int lane = (int)(t % G);
+    const long long local = t / G;
+    // every thread runs every round: a group's shuffles need all its lanes
+    const bool pix_ok = local < p.pixel_count;
+    const int pid = p.pixel_base + (pix_ok ? (int)local : 0);
+    const float pi = (float)(pid % p.width), pj = (float)(pid / p.width);
 
     float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
     int n = 0;
     WalkCount wc = {0, 0, 0};
-    for (int si = 0; si < p.spp; ++si) {
-        const uint32_t s_glob = (uint32_t)(si + p.sample_offset);
-        Path s;
-        camera_ray(p, (uint32_t)pid, pi, pj, s_glob, s.ray);
-        s.tp_r = s.tp_g = s.tp_b = 1.0f;
-        s.rad_r = s.rad_g = s.rad_b = 0.0f;
-        for (int d = 0;; ++d) {
-            ++n;
-            const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
-                                  (uint32_t)d);
-            int rec;
-            if (!trace_bounce<MODE_RENDER, NOISE, IMAGE, BVH>(
-                    sc, p, s, d + 1 < p.max_depth, rngb, rec, wc))
-                break;
+    for (int s0 = 0; s0 < p.spp; s0 += G) {
+        float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
+        if (pix_ok && s0 + lane < p.spp) {
+            const uint32_t s_glob = (uint32_t)(s0 + lane + p.sample_offset);
+            Path s;
+            camera_ray(p, (uint32_t)pid, pi, pj, s_glob, s.ray);
+            s.tp_r = s.tp_g = s.tp_b = 1.0f;
+            s.rad_r = s.rad_g = s.rad_b = 0.0f;
+            for (int d = 0;; ++d) {
+                ++n;
+                const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
+                                      (uint32_t)d);
+                int rec;
+                if (!trace_bounce<MODE_RENDER, NOISE, IMAGE, BVH>(
+                        sc, p, s, d + 1 < p.max_depth, rngb, rec, wc))
+                    break;
+            }
+            rad_r = s.rad_r;
+            rad_g = s.rad_g;
+            rad_b = s.rad_b;
         }
-        acc_r = acc_r + s.rad_r;
-        acc_g = acc_g + s.rad_g;
-        acc_b = acc_b + s.rad_b;
+        // add the round's samples s0 .. s0+G-1 in sample order
+        const int live = p.spp - s0 < G ? p.spp - s0 : G;
+        for (int k = 0; k < G; ++k) {
+            const float vr = __shfl_sync(FULL_MASK, rad_r, k, G);
+            const float vg = __shfl_sync(FULL_MASK, rad_g, k, G);
+            const float vb = __shfl_sync(FULL_MASK, rad_b, k, G);
+            if (k < live) {
+                acc_r = acc_r + vr;
+                acc_g = acc_g + vg;
+                acc_b = acc_b + vb;
+            }
+        }
     }
+    for (int off = G >> 1; off > 0; off >>= 1) {
+        n += __shfl_xor_sync(FULL_MASK, n, off, G);
+        if constexpr (BVH) {
+            wc.visits += __shfl_xor_sync(FULL_MASK, wc.visits, off, G);
+            wc.spheres += __shfl_xor_sync(FULL_MASK, wc.spheres, off, G);
+            wc.quads += __shfl_xor_sync(FULL_MASK, wc.quads, off, G);
+        }
+    }
+    if (!pix_ok || lane != 0) return;
     const float inv = (float)(1.0 / (double)p.spp);
     out_rgb[3 * local] = acc_r * inv;
     out_rgb[3 * local + 1] = acc_g * inv;
     out_rgb[3 * local + 2] = acc_b * inv;
     out_n[local] = n;
-    put_counts<BVH>(counters, local, wc);
+    put_counts<BVH>(counters, (size_t)local, wc);
 }
 
 // Path recorder (replaces the Pallas kernel's record mode,
@@ -902,14 +1021,18 @@ rt::SceneTables make_tables(RT_TABLE_ARGS, const void* img_f) {
     return sc;
 }
 
+// The pixel range is non-empty and inside the frame, spp >= 1.
+bool range_ok(const rt::RenderParams& p) {
+    return p.width >= 1 && p.height >= 1 && p.pixel_count >= 1
+           && p.pixel_base >= 0 && p.spp >= 1
+           && (long long)p.pixel_base + p.pixel_count
+                  <= (long long)p.width * p.height;
+}
+
 // Grid of 8x8 pixel blocks covering the frame rows of the pixel range;
 // false if the range is empty or outside the frame.
 bool pixel_grid(const rt::RenderParams& p, int& row0, dim3& grid) {
-    if (p.width < 1 || p.height < 1 || p.pixel_count < 1 || p.pixel_base < 0
-        || p.spp < 1
-        || (long long)p.pixel_base + p.pixel_count
-               > (long long)p.width * p.height)
-        return false;
+    if (!range_ok(p)) return false;
     row0 = p.pixel_base / p.width;
     const int row1 = (p.pixel_base + p.pixel_count - 1) / p.width;
     grid = dim3((p.width + rt::BLOCK_X - 1) / rt::BLOCK_X,
@@ -917,62 +1040,79 @@ bool pixel_grid(const rt::RenderParams& p, int& row0, dim3& grid) {
     return true;
 }
 
-}  // namespace
-
-template <bool NOISE, bool IMAGE, bool BVH>
-void launch_render(const rt::SceneTables& sc, const rt::RenderParams& p,
-                   int row0, dim3 grid, void* out_rgb, void* out_n,
-                   void* counters, void* stream) {
-    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
-    rt::render_kernel<NOISE, IMAGE, BVH>
-        <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-            sc, p, row0, static_cast<float*>(out_rgb),
-            static_cast<int*>(out_n), static_cast<int*>(counters));
-}
-
+// The render kernel's instantiation for the flags of the params and plan.
 template <bool NOISE, bool IMAGE>
-void launch_render(const rt::SceneTables& sc, const rt::RenderParams& p,
-                   int row0, dim3 grid, void* out_rgb, void* out_n,
-                   void* counters, void* stream) {
-    if (p.use_bvh)
-        launch_render<NOISE, IMAGE, true>(sc, p, row0, grid, out_rgb, out_n,
-                                          counters, stream);
-    else
-        launch_render<NOISE, IMAGE, false>(sc, p, row0, grid, out_rgb, out_n,
-                                           counters, stream);
+const void* render_fn(bool bvh, bool staged) {
+    if (bvh) return (const void*)rt::render_kernel<NOISE, IMAGE, true, false>;
+    if (staged)
+        return (const void*)rt::render_kernel<NOISE, IMAGE, false, true>;
+    return (const void*)rt::render_kernel<NOISE, IMAGE, false, false>;
 }
+
+const void* render_fn(int noise, int image, int bvh, int staged) {
+    if (noise && image) return render_fn<true, true>(bvh, staged);
+    if (noise) return render_fn<true, false>(bvh, staged);
+    if (image) return render_fn<false, true>(bvh, staged);
+    return render_fn<false, false>(bvh, staged);
+}
+
+}  // namespace
 
 // Launch the render kernel on `stream` over pixels
 // [params->pixel_base, params->pixel_base + params->pixel_count). `params`
-// is a host pointer; its has_noise/has_image/use_bvh flags pick the
-// instantiation and `img_f` is the (3, img_h * img_w) image table.
-// `counters` is null, or (pixel_count, 3) int32 that a BVH instantiation
-// fills with each pixel's walk counts. Does not synchronise. Returns
-// cudaGetLastError().
+// and `plan` are host pointers (rt::RenderParams, rt::RenderPlan): the
+// params' has_noise/has_image/use_bvh flags and the plan's stage_bytes pick
+// the instantiation, the plan's group the threads a pixel; `img_f` is the
+// (3, img_h * img_w) image table. `counters` is null, or (pixel_count, 3)
+// int32 that a BVH instantiation fills with each pixel's walk counts. Does
+// not synchronise. Returns cudaGetLastError().
 extern "C" int rt_render_launch(RT_TABLE_ARGS, const void* img_f,
-                                const void* params, void* out_rgb, void* out_n,
-                                void* counters, void* stream) {
-    const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
-    const rt::SceneTables sc = make_tables(RT_TABLES, img_f);
-    int row0;
-    dim3 grid;
-    if (!pixel_grid(p, row0, grid) || p.img_h < 1 || p.img_w < 1
-        || p.n_nodes < 1)
+                                const void* params, const void* plan_ptr,
+                                void* out_rgb, void* out_n, void* counters,
+                                void* stream) {
+    rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
+    rt::RenderPlan plan = *static_cast<const rt::RenderPlan*>(plan_ptr);
+    rt::SceneTables sc = make_tables(RT_TABLES, img_f);
+    const int g = plan.group;
+    if (!range_ok(p) || p.img_h < 1 || p.img_w < 1
+        || p.n_nodes < 1 || g < 1 || g > 32 || (g & (g - 1)) != 0
+        || plan.stage_bytes < 0 || plan.stage_bytes > 48 * 1024
+        || (plan.stage_bytes > 0 && p.use_bvh) || plan.mat_rows < 1
+        || plan.tex_rows < 1)
         return (int)cudaErrorInvalidValue;
+    const long long blocks =
+        ((long long)p.pixel_count * g + rt::RENDER_THREADS - 1)
+        / rt::RENDER_THREADS;
+    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+    float* rgb = static_cast<float*>(out_rgb);
+    int* n = static_cast<int*>(out_n);
+    int* cnt = static_cast<int*>(counters);
+    void* args[] = {&sc, &p, &plan, &rgb, &n, &cnt};
     (void)cudaGetLastError();  // clear a stale error of an earlier call
-    if (p.has_noise && p.has_image)
-        launch_render<true, true>(sc, p, row0, grid, out_rgb, out_n, counters,
-                                  stream);
-    else if (p.has_noise)
-        launch_render<true, false>(sc, p, row0, grid, out_rgb, out_n, counters,
-                                   stream);
-    else if (p.has_image)
-        launch_render<false, true>(sc, p, row0, grid, out_rgb, out_n, counters,
-                                   stream);
-    else
-        launch_render<false, false>(sc, p, row0, grid, out_rgb, out_n,
-                                    counters, stream);
-    return (int)cudaGetLastError();
+    const cudaError_t err = cudaLaunchKernel(
+        render_fn(p.has_noise, p.has_image, p.use_bvh, plan.stage_bytes > 0),
+        dim3((unsigned)blocks), dim3(rt::RENDER_THREADS), args,
+        (size_t)plan.stage_bytes, static_cast<cudaStream_t>(stream));
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The resources of the render kernel's instantiation for these flags:
+// out[0] blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
+// RENDER_THREADS threads and `stage_bytes` of shared memory), out[1]
+// registers a thread, out[2] local memory a thread in bytes (spills and
+// stack), out[3] RENDER_THREADS. Returns a CUDA error code.
+extern "C" int rt_render_occupancy(int noise, int image, int bvh,
+                                   int stage_bytes, int* out) {
+    const void* fn = render_fn(noise, image, bvh, stage_bytes > 0);
+    cudaFuncAttributes attr;
+    int err = (int)cudaFuncGetAttributes(&attr, fn);
+    if (err != 0) return err;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[0], fn, rt::RENDER_THREADS, (size_t)stage_bytes);
+    out[1] = attr.numRegs;
+    out[2] = (int)attr.localSizeBytes;
+    out[3] = rt::RENDER_THREADS;
+    return err;
 }
 
 // Launch the path recorder on `stream` over the same pixel range; `out_rec`

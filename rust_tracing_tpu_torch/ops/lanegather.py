@@ -13,7 +13,9 @@ rust_tracing_tpu/ops/tgather.py). The kernels are hand-written CUDA C++ in
   transpose of both, deterministic (no float atomics; the summation order is
   fixed by the index alone and stated in the source): ``scatter_sum_kernel``
   for tables of up to ``SCATTER_SORT_MIN_ROWS`` rows, ``segment_sum_kernel``
-  (a segment sum over the stably sorted index) for larger ones.
+  for larger ones: ``radix_sort_kernel`` (a stable LSD radix sort of the
+  index over the bits of the row count, written here, carrying the
+  cotangents along) and one pass over the sorted runs.
 
 Each takes its device from its inputs: on CUDA tensors it launches its
 kernel (or raises), on CPU tensors it runs its plain version. Out-of-range
@@ -21,6 +23,8 @@ indices gather 0 and are dropped by the sum.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -45,12 +49,19 @@ TGATHER_DENSE_MAX = 64
 SCATTER_CHUNK = 8192
 SCATTER_MAX_BLOCKS = 1024
 
-# Tables with more rows than this take the sorted segment sum: the tile
-# kernel re-reads its slice once per 3072 rows and keeps K * blocks * rows
-# partials (2.2 GB and 11.4 ms for an image's 524 288 texels at one replay
-# wavefront on an H100), the segment sum reads each element once after a
-# sort.
-SCATTER_SORT_MIN_ROWS = 8192
+# Tables with more rows than this take the segment sum: the tile kernel
+# re-reads its slice once per 3072 rows and keeps K * blocks * rows partials
+# (2.2 GB for an image's 524 288 texels at one replay wavefront), the segment
+# sum sorts the index and reads each element once. The crossover measured on
+# an H100 (chip_smoke.py, 3 f32 columns, 3.96 M indices) lies between 2048
+# rows (tile kernel faster) and 3407 (segment sum faster).
+SCATTER_SORT_MIN_ROWS = 2048
+
+# The radix sort (csrc/gather_kernel.cu): digits of at most this many bits a
+# pass (a scatter pass over 2^10 digits took 2.4x one over 2^7 on an H100),
+# and this many elements a block.
+RADIX_MAX_BITS = 8
+RADIX_TILE = 4096
 
 _ELEM = {torch.float32: 4, torch.int32: 4, torch.float64: 8, torch.int64: 8}
 
@@ -210,13 +221,75 @@ def scatter_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def radix_digits(n: int) -> tuple:
+    """Digit widths, lowest first, of the radix sort of row keys 0..n (n is
+    the key of out-of-range rows): the bits of n in as few passes of at most
+    RADIX_MAX_BITS as they need, of near-equal width."""
+    bits = max(1, int(n).bit_length())
+    passes = -(-bits // RADIX_MAX_BITS)
+    width, wider = divmod(bits, passes)
+    return tuple(width + (p < wider) for p in range(passes))
+
+
+def radix_sort_plain(idx: torch.Tensor, n: int, vals: torch.Tensor):
+    """Plain version of ``radix_sort_kernel``: the index's rows stably
+    sorted, rows outside [0, n) keyed n (last), as int32, and the ``(K, R)``
+    value columns ``vals`` in the same order."""
+    flat = idx.reshape(-1)
+    keys = torch.where((flat >= 0) & (flat < n), flat, n)
+    skey, perm = torch.sort(keys, stable=True)
+    return skey.to(torch.int32), vals[:, perm]
+
+
+def radix_sort_kernel(idx: torch.Tensor, n: int, vals: torch.Tensor):
+    """One launch of the CUDA radix sort (three kernels a pass, one call):
+    ``radix_sort_plain``'s outputs for a CUDA index and ``(K, R)`` value
+    columns of a 4- or 8-byte dtype. Does not synchronise."""
+    dev = idx.device
+    if dev.type != "cuda" or vals.device != dev:
+        raise ValueError(f"radix_sort_kernel needs CUDA tensors, got {dev} "
+                         f"and {vals.device}")
+    flat = _index(idx, dev)
+    R = flat.numel()
+    if n < 1 or R >= 1 << 31:
+        raise ValueError(f"radix_sort_kernel sorts under 2^31 indices into "
+                         f">= 1 rows, got {R} into {n}")
+    if vals.ndim != 2 or vals.shape[1] != R or vals.dtype not in _ELEM:
+        raise TypeError(f"radix_sort_kernel carries (K, {R}) values of a "
+                        f"4- or 8-byte dtype, got {tuple(vals.shape)} "
+                        f"{vals.dtype}")
+    widths = radix_digits(n)
+    vals = vals.contiguous()
+    keys = torch.empty(R, dtype=torch.int32, device=dev)
+    out = torch.empty_like(vals)
+    if R:
+        tmp_k, tmp_v = torch.empty_like(keys), torch.empty_like(vals)
+        digits = 1 << max(widths)
+        counts = torch.empty(digits * -(-R // RADIX_TILE), dtype=torch.int32,
+                             device=dev)
+        totals = torch.empty(digits, dtype=torch.int32, device=dev)
+        kernels, lib, stream = _launch_args(dev)
+        with torch.cuda.device(dev):
+            err = lib.rt_radix_sort_launch(
+                flat.data_ptr(), R, n, (ctypes.c_int * len(widths))(*widths),
+                len(widths), vals.data_ptr(), vals.shape[0],
+                _ELEM[vals.dtype], keys.data_ptr(), out.data_ptr(),
+                tmp_k.data_ptr(), tmp_v.data_ptr(), counts.data_ptr(),
+                totals.data_ptr(), stream)
+        LAUNCHES["radix_sort_kernel"] += 1
+        kernels.check(err, "radix_sort kernel")
+    return keys, out
+
+
 def segment_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
                        n: int) -> torch.Tensor:
-    """The reduction for tables with many rows: a stable sort of the index,
-    then one launch of the CUDA segment sum over it. ``ct`` f32 or f64 of
-    shape ``(K, *idx.shape)``; returns ``(K, n)``. Same bits on every call
-    (the order of each row's sum is its positions' order). Does not
-    synchronise."""
+    """The reduction for tables with many rows: ``radix_sort_kernel`` sorts
+    the index with the cotangent columns, then one launch of the CUDA
+    segment sum adds the sorted runs (two kernels: pieces of runs a warp,
+    then the runs that span warps). ``ct`` f32 or f64 of shape
+    ``(K, *idx.shape)``; returns ``(K, n)``. Same bits on every call (each
+    row's order of summation depends on the index alone). Launches only this
+    repo's kernels and the fill of ``torch.zeros``. Does not synchronise."""
     dev = ct.device
     if dev.type != "cuda":
         raise ValueError(f"segment_sum_kernel needs CUDA tensors, got {dev}")
@@ -228,15 +301,18 @@ def segment_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
         raise ValueError(f"cotangent {tuple(ct.shape)} does not match index "
                          f"{tuple(idx.shape)}")
     K = ct.shape[0]
-    ct2 = ct.reshape(K, R).contiguous()
     out = torch.zeros((K, n), dtype=ct.dtype, device=dev)
     if R and n and K:
-        sidx, perm = torch.sort(flat, stable=True)
+        skey, svals = radix_sort_kernel(flat, n, ct.reshape(K, R))
+        warps = -(-R // 32)
+        carry = torch.empty((K, warps), dtype=ct.dtype, device=dev)
+        tail_key = torch.empty(warps, dtype=torch.int32, device=dev)
         kernels, lib, stream = _launch_args(dev)
         with torch.cuda.device(dev):
             err = lib.rt_segment_sum_launch(
-                ct2.data_ptr(), sidx.data_ptr(), perm.data_ptr(), R, n, K,
-                int(ct.dtype == torch.float64), out.data_ptr(), stream)
+                svals.data_ptr(), skey.data_ptr(), R, n, K,
+                int(ct.dtype == torch.float64), out.data_ptr(),
+                carry.data_ptr(), tail_key.data_ptr(), stream)
         LAUNCHES["segment_sum_kernel"] += 1
         kernels.check(err, "segment_sum kernel")
     return out

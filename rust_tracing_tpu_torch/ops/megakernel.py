@@ -79,6 +79,26 @@ BVH_LEAF_SIZE = 16
 # Lanes x primitives per step of the plain search: bounds its temporaries.
 SEARCH_CHUNK = 1 << 23
 
+# The render kernel's launch (csrc/render_kernel.cu): blocks of
+# RENDER_THREADS threads; a group of ``samples_per_group(spp)`` consecutive
+# threads traces one pixel, at most RENDER_MAX_GROUP (a warp).
+RENDER_THREADS = 128
+RENDER_MAX_GROUP = 32
+
+# Shared memory a block of the brute-loop render kernel may stage its scene
+# tables in (``render_plan``). Registers let an H100 SM hold 8 blocks of the
+# staged kernel (63 a thread); 8 x (24 KB + the 1 KB a block reserves) fit
+# its 228 KB, so staging costs no occupancy.
+STAGE_BUDGET_BYTES = 24 * 1024
+
+# Bytes a row of each table that the brute-loop render kernel stages, in the
+# order it stages them, with the RenderParams count (or table) of its rows.
+_STAGED_ROWS = (("sph_f", 32, "n_spheres"), ("sph_m", 4, "n_spheres"),
+                ("quad_f", 64, "n_quads"), ("quad_m", 4, "n_quads"),
+                ("med_f", 96, "n_media"), ("med_i", 8, "n_media"),
+                ("mat_f", 20, "mat_f"), ("mat_i", 8, "mat_f"),
+                ("tex_f", 16, "tex_f"), ("tex_i", 12, "tex_f"))
+
 # f32 origin offset along the normal after a surface scatter.
 ORIGIN_EPS_ABS = 1e-4
 ORIGIN_EPS_REL = 2e-4
@@ -549,6 +569,86 @@ def _check_image(tables: dict, p: RenderParams, dev) -> torch.Tensor:
     return img
 
 
+class RenderPlan(ctypes.Structure):
+    """How the render kernel is launched; mirrors ``RenderPlan`` in
+    csrc/render_kernel.cu. ``group``: threads a pixel. ``stage_bytes``: 0,
+    or the shared memory a block stages the scene tables in, with
+    ``mat_rows`` and ``tex_rows`` rows of the material and texture tables."""
+
+    _fields_ = [("group", ctypes.c_int), ("stage_bytes", ctypes.c_int),
+                ("mat_rows", ctypes.c_int), ("tex_rows", ctypes.c_int)]
+
+
+def samples_per_group(spp: int) -> int:
+    """Threads that trace one pixel's samples together, a round of one
+    sample each at a time: the largest power of two up to RENDER_MAX_GROUP
+    whose last round leaves at most an eighth of ``spp`` lanes idle (1 when
+    none does: one thread a pixel)."""
+    g = RENDER_MAX_GROUP
+    while g > 1 and -(-spp // g) * g - spp > spp / 8:
+        g //= 2
+    return g
+
+
+def render_schedule(pixel_base: int, pixel_count: int, spp: int):
+    """What each thread of the render kernel's grid traces in each round,
+    as the kernel computes it: thread t is lane ``t % G`` of the group of
+    pixel ``pixel_base + t // G`` and traces sample ``r * G + t % G`` in
+    round r, or idles (-1). Returns ``(pixel, sample)``, two (threads,
+    rounds) int64 arrays. The kernel adds a pixel's radiances round by
+    round, lane by lane."""
+    g = samples_per_group(spp)
+    threads = -(-pixel_count * g // RENDER_THREADS) * RENDER_THREADS
+    t = np.arange(threads)[:, None]
+    samp = np.arange(-(-spp // g))[None, :] * g + t % g
+    live = (t // g < pixel_count) & (samp < spp)
+    return (np.where(live, pixel_base + t // g, -1),
+            np.where(live, samp, -1))
+
+
+def stage_bytes(tables: dict, p: RenderParams) -> int:
+    """Shared memory the brute-loop render kernel needs to stage the scene
+    tables it loops over: each table's rows (``_STAGED_ROWS``) at a 16-byte
+    boundary, the kernel's layout."""
+    total = 0
+    for _, row, count in _STAGED_ROWS:
+        rows = getattr(p, count) if count.startswith("n_") \
+            else tables[count].shape[0]
+        total += -(-rows * row // 16) * 16
+    return total
+
+
+def render_plan(tables: dict, p: RenderParams) -> RenderPlan:
+    """The render kernel's launch for these tables and params: the group
+    from ``p.spp``; the tables staged in shared memory when the brute loop
+    reads them and they fit STAGE_BUDGET_BYTES, else read from global
+    memory."""
+    mat_rows, tex_rows = tables["mat_f"].shape[0], tables["tex_f"].shape[0]
+    if (tables["mat_i"].shape[0] != mat_rows
+            or tables["tex_i"].shape[0] != tex_rows):
+        raise ValueError("material or texture tables disagree in rows")
+    nbytes = stage_bytes(tables, p)
+    staged = not p.use_bvh and nbytes <= STAGE_BUDGET_BYTES
+    return RenderPlan(group=samples_per_group(p.spp),
+                      stage_bytes=nbytes if staged else 0,
+                      mat_rows=mat_rows, tex_rows=tex_rows)
+
+
+def render_occupancy(p: RenderParams, plan: RenderPlan) -> dict:
+    """The card's resources for the render kernel's instantiation that
+    ``p`` and ``plan`` pick: blocks an SM holds, registers and local memory
+    (spills and stack) a thread. Needs the kernel library (a card)."""
+    from ..runtime import kernels
+
+    out = (ctypes.c_int * 4)()
+    kernels.check(kernels.load().rt_render_occupancy(
+        p.has_noise, p.has_image, p.use_bvh, plan.stage_bytes, out),
+        "render occupancy")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
+                threads=out[3], group=plan.group,
+                stage_bytes=plan.stage_bytes)
+
+
 def _counter_ptr(counters: Optional[torch.Tensor], rows: int, dev) -> int:
     """Pointer of a walk-counter buffer ((rows, 3) int32 on ``dev``), or 0."""
     if counters is None:
@@ -563,7 +663,8 @@ def _counter_ptr(counters: Optional[torch.Tensor], rows: int, dev) -> int:
 
 
 def render_kernel(tables: dict, p: RenderParams,
-                  counters: Optional[torch.Tensor] = None):
+                  counters: Optional[torch.Tensor] = None,
+                  plan: Optional[RenderPlan] = None):
     """One launch of the CUDA render kernel over pixels
     ``[p.pixel_base, p.pixel_base + p.pixel_count)``.
 
@@ -574,14 +675,17 @@ def render_kernel(tables: dict, p: RenderParams,
     BVH node visits, sphere tests and quad tests; it changes no result.
     Returns ``(rgb (count,3) f32, n (count,) i32)``: the per-pixel mean
     radiance over ``p.spp`` samples and the number of scene queries traced.
-    Launches on the current stream and does not synchronise. Tensors that
-    are not on a CUDA device are refused: the caller picks the plain version
-    for those."""
+    ``plan`` (default ``render_plan(tables, p)``) sets the threads a pixel
+    and whether the tables are staged in shared memory; it changes no
+    result. Launches on the current stream and does not synchronise.
+    Tensors that are not on a CUDA device are refused: the caller picks the
+    plain version for those."""
     dev = _check_tables(tables, p)
     if dev.type != "cuda":
         raise ValueError(f"render_kernel needs CUDA tensors, got {dev}")
     img = _check_image(tables, p, dev)
     cnt = _counter_ptr(counters, p.pixel_count, dev)
+    plan = plan or render_plan(tables, p)
     from ..runtime import kernels
 
     lib = kernels.load()
@@ -590,8 +694,9 @@ def render_kernel(tables: dict, p: RenderParams,
         n = torch.empty((p.pixel_count,), dtype=torch.int32, device=dev)
         err = lib.rt_render_launch(
             *[tables[name].data_ptr() for name in PackedScene.TABLES],
-            img.data_ptr(), ctypes.byref(p), rgb.data_ptr(), n.data_ptr(),
-            cnt, torch.cuda.current_stream(dev).cuda_stream)
+            img.data_ptr(), ctypes.byref(p), ctypes.byref(plan),
+            rgb.data_ptr(), n.data_ptr(), cnt,
+            torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["render_kernel"] += 1
     kernels.check(err, "render kernel")
     return rgb, n

@@ -38,7 +38,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 
 LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "hit_kernel": 0,
             "gather_kernel": 0, "gather_cols_kernel": 0,
-            "scatter_sum_kernel": 0, "segment_sum_kernel": 0,
+            "scatter_sum_kernel": 0, "radix_sort_kernel": 0,
+            "segment_sum_kernel": 0,
             "perlin_kernel": 0,
             # the hardware probes (probes.py, csrc/probe_kernel.cu)
             "smem_scalar_kernel": 0, "row_broadcast_kernel": 0,
@@ -113,10 +114,13 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # 13 scene tables, img_f, params (host pointer), out_rgb, out_n,
-        # counters, stream
-        lib.rt_render_launch.argtypes = [vp] * 13 + [vp] * 6
+        # 13 scene tables, img_f, params and plan (host pointers), out_rgb,
+        # out_n, counters, stream
+        lib.rt_render_launch.argtypes = [vp] * 13 + [vp] * 7
         lib.rt_render_launch.restype = ci
+        # noise, image, bvh, stage_bytes, out (4 int32, host pointer)
+        lib.rt_render_occupancy.argtypes = [ci, ci, ci, ci, vp]
+        lib.rt_render_occupancy.restype = ci
         # 13 scene tables, params (host pointer), out_rec, counters, stream
         lib.rt_record_launch.argtypes = [vp] * 13 + [vp] * 4
         lib.rt_record_launch.restype = ci
@@ -135,9 +139,14 @@ def load() -> ctypes.CDLL:
         lib.rt_scatter_sum_launch.argtypes = [vp, vp, cll, ci, ci, ci, ci,
                                               cll, vp, vp, vp]
         lib.rt_scatter_sum_launch.restype = ci
-        # ct, sidx, perm, R, n, K, is_double, out, stream
-        lib.rt_segment_sum_launch.argtypes = [vp, vp, vp, cll, ci, ci, ci, vp,
-                                              vp]
+        # idx, R, n, widths (host pointer), passes, vals, K, elem, keys_out,
+        # vals_out, keys_tmp, vals_tmp, counts, totals, stream
+        lib.rt_radix_sort_launch.argtypes = ([vp, cll, ci, vp, ci, vp, ci, ci]
+                                             + [vp] * 7)
+        lib.rt_radix_sort_launch.restype = ci
+        # svals, skey, R, n, K, is_double, out, carry, tail_key, stream
+        lib.rt_segment_sum_launch.argtypes = [vp, vp, cll, ci, ci, ci, vp, vp,
+                                              vp, vp]
         lib.rt_segment_sum_launch.restype = ci
         # rv, perm, px, py, pz, R, depth, is_double, out, stream
         lib.rt_perlin_launch.argtypes = [vp, vp, vp, vp, vp, cll, ci, ci, vp,

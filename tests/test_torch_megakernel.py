@@ -187,3 +187,53 @@ def test_bvh_sized_scene_renders():
                                         with_stats=True)
         np.testing.assert_array_equal(img, ref)
         assert rays == ref_rays and np.isfinite(img).all()
+
+
+def test_render_groups_cover_each_sample_once():
+    """The render kernel's schedule (threads a pixel from spp, rounds of
+    one sample a lane) traces every (pixel, sample) of a range exactly once
+    and adds each pixel's samples in ascending order, the plain version's
+    order, also for a range that starts mid-row."""
+    assert [tmk.samples_per_group(s) for s in (1, 3, 16, 23, 4096)] == \
+        [1, 1, 16, 8, 32]
+    for spp, base, count in ((1, 37, 300), (3, 37, 50), (23, 21, 20),
+                             (4096, 37, 3)):
+        pix, samp = tmk.render_schedule(base, count, spp)
+        assert pix.shape[0] % tmk.RENDER_THREADS == 0
+        live = pix >= 0
+        # the order of addition: round, then lane (thread) within the group
+        rnd, thr = np.nonzero(live.T)
+        p, s = pix.T[live.T], samp.T[live.T]
+        assert p.size == count * spp
+        order = np.lexsort((thr, rnd, p))
+        np.testing.assert_array_equal(p[order],
+                                      np.repeat(np.arange(base, base + count),
+                                                spp))
+        np.testing.assert_array_equal(s[order], np.tile(np.arange(spp), count))
+
+
+def test_table_staging_choice_by_bytes():
+    """The brute-loop kernel stages its tables in shared memory when their
+    16-byte aligned rows fit STAGE_BUDGET_BYTES; a larger scene and a BVH
+    launch read them from global memory."""
+    b, s = tbuilders.cornell_box()
+    cam = T.Camera.create(dataclasses.replace(s, image_width=8))
+    cornell = T.compile_scene(b, device="cpu")
+    packed, tables = tmk._packed_dev(cornell)
+    p = tmk.make_params(cam, packed, 0, 4096, 8)
+    # 18 quads x 64 B, their 18 material ids (72 -> 80 B), 4 materials
+    # (80 + 32 B) and 4 textures (64 + 48 B)
+    assert tmk.stage_bytes(tables, p) == 1152 + 80 + 80 + 32 + 64 + 48
+    plan = tmk.render_plan(tables, p)
+    assert (plan.group, plan.stage_bytes, plan.mat_rows, plan.tex_rows) == \
+        (32, 1456, 4, 4)
+    packed, tables = tmk._packed_dev(cornell, True)
+    p = tmk.make_params(cam, packed, 0, 1, 8)
+    assert tmk.render_plan(tables, p).stage_bytes == 0
+    assert tmk.render_plan(tables, p).group == 1
+    b, s = tbuilders.random_balls()
+    balls = T.compile_scene(b, device="cpu")
+    packed, tables = tmk._packed_dev(balls)
+    p = tmk.make_params(cam, packed, 0, 23, 8)
+    assert tmk.stage_bytes(tables, p) > tmk.STAGE_BUDGET_BYTES
+    assert tmk.render_plan(tables, p).stage_bytes == 0

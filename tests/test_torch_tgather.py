@@ -135,9 +135,37 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for call in (lambda: lg.gather_kernel(col, idx),
                  lambda: lg.gather_cols_kernel(col[None], idx),
                  lambda: lg.scatter_sum_kernel(col[None, :2], idx, 4),
-                 lambda: lg.segment_sum_kernel(col[None, :2], idx, 4)):
+                 lambda: lg.segment_sum_kernel(col[None, :2], idx, 4),
+                 lambda: lg.radix_sort_kernel(idx, 4, col[None, :2])):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             call()
+
+
+def test_radix_digits_from_rows():
+    """The segment sum's radix sort: as few passes of at most RADIX_MAX_BITS
+    as the bits of the largest key (n, the out-of-range rows) need; sorting
+    digit by digit, lowest first, gives its plain version's stable order."""
+    assert lg.radix_digits(1) == (1,)
+    assert lg.radix_digits(524288) == (7, 7, 6)
+    for k in (1, 9, 10, 19):
+        for n in (1 << k, (1 << k) + 1, (1 << k) - 1):
+            w = lg.radix_digits(n)
+            assert sum(w) == n.bit_length() and max(w) - min(w) <= 1
+            assert max(w) <= lg.RADIX_MAX_BITS
+            assert len(w) == -(-n.bit_length() // lg.RADIX_MAX_BITS)
+    rng = np.random.default_rng(3)
+    for n in (1, 256, 257, 70000):
+        idx = rng.integers(-3, n + 3, 5000).astype(np.int32)
+        keys = np.where((idx >= 0) & (idx < n), idx, n)
+        order, shift = np.arange(idx.size), 0
+        for width in lg.radix_digits(n):
+            digit = (keys[order] >> shift) & ((1 << width) - 1)
+            order = order[np.argsort(digit, kind="stable")]
+            shift += width
+        pos = torch.arange(idx.size, dtype=torch.float64)[None]
+        skey, spos = lg.radix_sort_plain(torch.from_numpy(idx), n, pos)
+        np.testing.assert_array_equal(spos[0].numpy(), order)
+        np.testing.assert_array_equal(skey.numpy(), keys[order])
 
 
 @pytest.mark.parametrize("dims", [(0, None), (None, 0), (1, 0)],
