@@ -6,8 +6,6 @@ device and the CUDA toolkit (``nvcc``), builds the hand-written kernels from
 ``rust_tracing_tpu_torch/csrc/`` and drives the port's main paths through the
 entry points a user would call. Every phase prints one JSON line; any failure
 exits non-zero. Without a CUDA device it exits non-zero and prints no result.
-``--only render,segment_sums`` runs those phases alone (the B1 compares and
-the main path; the reductions), for a short call, and prints no kernels line.
 
 Phases:
   device     card name and power limit (nvidia-smi), torch and CUDA versions
@@ -16,16 +14,20 @@ Phases:
   kernels    every CUDA kernel against its plain PyTorch version ON THE CARD,
              same inputs: the render kernel (B1; a group of threads a pixel,
              its resources and waves on each line) and the path recorder (B2)
-             on four scenes at a small frame (B1 also at 1 and 23 spp and
-             over a pixel range that starts mid-row) and on cornell_box at
-             600x600 (B1 with its tables staged and through __ldg);
+             on four scenes at a small frame (B1 also at 1, 2, 23 and 32
+             spp, one sample a thread up to a warp a pixel, and over a pixel
+             range that starts mid-row) and on cornell_box at 600x600 at 32
+             spp (the main path's warp a pixel; B1 with its tables staged
+             and through __ldg);
              the render kernel's noise and image families (B8) and the
-             recorder on two_perlin_spheres, simple_light and earth, and B8
-             on simple_light's own 600x337 frame; the gathers (B5, B6) and
-             their transpose (the reduction) on tables of 4 to 3407 rows and
-             3.96 M indices, and its sorted form (the radix sort and the
-             segment sum, f32 and f64, time by kernel, the crossover with
-             the tile kernel) on 1024 to 524 288 rows; the Perlin
+             recorder on two_perlin_spheres, simple_light and earth, B8 at
+             32 spp (a warp a pixel) and on simple_light's own 600x337
+             frame; the gathers (B5, B6) and their transpose (the
+             reduction) on tables of 4 to 3407 rows and 3.96 M indices, and
+             its sorted form (the radix sort and the segment sum, f32 and
+             f64, time by kernel, beside the tile kernel) on 1024 to
+             524 288 rows; the two forms timed around their crossover
+             (scatter_routes: which use_segment_sum picks); the Perlin
              turbulence kernel (B7) at 2^22 lanes
   main_path  render() of cornell_box at 600x600, 4096 spp, depth 8
   cli        the command-line entry point writes a PNG
@@ -47,11 +49,17 @@ Phases:
   profile    device time by kernel of one grad_path run (torch.profiler)
   train      fit_scene() on cornell_box 600x600 @ 16 spp: the loss falls
   grad_check the CLI's --grad-check on the card
+  grad_final (below) also runs its gradient with the reductions routed by
+             lanegather.use_segment_sum and by rows alone (the segment sum
+             past 2048 rows), ROUTE_PAIRS pairs in alternating order:
+             seconds and their medians, the reductions' device ms and each
+             form's launches
   BVH slice (final_scene):
   kernels    the render kernel and the recorder with the BVH walk (B4) against
              their plain versions (which test every primitive) on
-             final_scene at 64 px and 200x200 (depth 40) and on random_balls
-             with a forced tree; the hit kernel (B3) against its plain
+             final_scene at 64 px, 200x200 (depth 40) and 32 px at the fused
+             render's 32 spp (a warp a pixel), and on random_balls and
+             cornell_box with a forced tree; the hit kernel (B3) against its plain
              version on final_scene's 800x800 camera rays (bounce 0) and on
              the sorted lanes of a wavefront chunk (bounce 1), and on
              cornell_box's 600x600 camera rays without a tree; B3's time on
@@ -77,7 +85,7 @@ Phases:
              (a) NCCL, world size 1 (a 1x1 mesh): render_distributed of
              cornell_box 600x600 at the main path's spp, depth 8, against
              render_fast, and the sharded route's render kernel against its
-             plain version at 16 spp; (b) two ranks under gloo sharing the
+             plain version at DIST_B1_SPP; (b) two ranks under gloo sharing the
              one card (mesh 2x1), the frame at DIST_CUT_SPP against
              render_fast, and each rank's kernel against its plain version
              over its pixel range at 64 px; (d) on those two ranks,
@@ -269,7 +277,18 @@ TEXTURE_SCENES = ("two_perlin_spheres", "simple_light", "earth")
 NOISE_MEAN_TOL, IMAGE_MEAN_TOL = 0.08, 0.01
 GRAD_TEX_WIDTH, GRAD_TEX_SPP = 400, 32
 SEG_ROWS = (1024, 2048, 3407, 8192, 16384, 65536, 524288)  # 524288: earth
+# the tile kernel against the segment sum around their crossover: table rows
+# (2408: final_scene's padded quad table), columns (17: a quad table's; 8:
+# a material table's), and indices (one replay wavefront; final_scene
+# 200x200 @ 4 spp's lanes, the grad_final phase's)
+ROUTE_ROWS = (1024, 1536, 2048, 2408, 3072, 3407, 4096, 8192)
+ROUTE_COLS = (1, 3, 8, 17)
+ROUTE_INDICES = (N_INDEX, 200 * 200 * 4)
+ROUTE_PAIRS = 6         # grad_final under each route, in alternating order
 FINAL_SPP = 32          # final_scene's frame: its own 800x800, depth 40
+# B1's row at the main path's frame: the spp cut for the plain version, at
+# the same group width as the main path's 4096 spp (a warp a pixel)
+B1_MAIN_SPP = 32
 CROSS_SPP = 4
 GAMMA_RATIO_TOL = 0.1   # wavefront vs the fused render's noise and mip
 DEEP_BOUNCE = 8
@@ -277,7 +296,7 @@ DEEP_BOUNCE = 8
 # time limit fails the phase
 DIST_TIMEOUT_S = 300.0
 DIST_CUT_SPP = 64       # 2x1 and 2x2 on one shared card: correctness runs
-DIST_B1_SPP = 16        # the sharded B1 row: kernel against plain version
+DIST_B1_SPP = 32        # the sharded B1 row: kernel against plain version
 SPLIT_RTOL, SPLIT_ATOL = 3e-6, 3e-7   # the sample axis: sum of f32 means
 DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_GRAD_ATOL = 2e-5, 5e-4, 2e-5
 # live phase: cornell at 200 px, killed once its checkpoint holds this many
@@ -670,14 +689,10 @@ def compare_reductions(reps=5):
             within = bool((err <= SUM_TOL * scale).all())
             ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
             call = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
-            # the other form at the same shape: where the two cross
-            seg_ms = device_ms(lambda: lg.segment_sum_kernel(ct, idx, n),
-                               reps)
             lib = device_ms(lambda: torch.zeros(
                 (K, n), device=DEVICE).index_add_(1, idx_l, ct), reps)
             b_ms, b_by = bytes_bound(N_INDEX * (4 + 4 * K) + K * n * 4)
             res = dict(kernel="scatter_sum_kernel", rows=n, columns=K,
-                       segment_sum_ms=seg_ms,
                        indices=N_INDEX, exact_on_integers=exact,
                        bitwise_repeatable=repeat, within_tol=within,
                        max_abs_err=float(err.max().item()),
@@ -734,8 +749,7 @@ def compare_segment_sums(reps=3):
     pass over the sorted runs) against its plain version: exact on
     integer-valued cotangents, within SUM_TOL on normal ones, bitwise
     repeatable, f32 and f64; device time by kernel of the pipeline, beside
-    the tile kernel (the crossover that sets SCATTER_SORT_MIN_ROWS) and
-    index_add_, 3 columns (an image's r g b) and one replay wavefront. The
+    the tile kernel and index_add_, 3 columns (an image's r g b) and one replay wavefront. The
     call may launch only the repo's kernels and torch.zeros' fill."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4)
@@ -807,13 +821,44 @@ def compare_segment_sums(reps=3):
                 fail(f"segment_sum_kernel at {n} rows launched device work "
                      f"other than its own kernels and fills: {other}")
             out[(n, dt)] = res
-    faster = [n for n in SEG_ROWS
-              if out[(n, torch.float32)]["kernel_ms"]
-              < out[(n, torch.float32)]["tile_kernel_ms"]]
-    say("kernels", check="scatter_sort_crossover", rows=list(SEG_ROWS),
-        segment_faster_at=faster,
-        scatter_sort_min_rows=lg.SCATTER_SORT_MIN_ROWS)
     return out
+
+
+def scatter_routes(reps=5):
+    """The two forms of the reduction at the table sizes around their
+    crossover: call time (CUDA events over back-to-back calls, launches
+    included) of the tile kernel and of the segment sum at ROUTE_ROWS x
+    ROUTE_COLS x ROUTE_INDICES, f32, and f64 at 1 and 3 columns; which one
+    lanegather.use_segment_sum() picks, and what the picks lose against the faster
+    form in each cell."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    cells, lost = [], 0.0
+    for R in ROUTE_INDICES:
+        for n in ROUTE_ROWS:
+            idx = torch.randint(0, n, (R,), device=DEVICE, dtype=torch.int32,
+                                generator=gen)
+            for dt, cols in ((torch.float32, ROUTE_COLS),
+                             (torch.float64, (1, 3))):
+                for K in cols:
+                    ct = torch.randn(K, R, device=DEVICE, generator=gen,
+                                     dtype=dt)
+                    tile = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n),
+                                   reps)
+                    seg = time_ms(lambda: lg.segment_sum_kernel(ct, idx, n),
+                                  reps)
+                    sorts = lg.use_segment_sum(n, K, ct.element_size())
+                    lost += max(0.0, (seg if sorts else tile) - min(tile,
+                                                                    seg))
+                    cells.append(dict(indices=R, rows=n, columns=K,
+                                      dtype=str(dt), tile_ms=tile,
+                                      segment_ms=seg, sorts=sorts,
+                                      faster="segment" if seg < tile
+                                      else "tile"))
+    wrong = [c for c in cells if c["sorts"] != (c["faster"] == "segment")]
+    say("kernels", check="scatter_routes", cells=cells,
+        picks_slower_in=len(wrong), of=len(cells), ms_lost=lost)
+    return cells
 
 
 def compare_perlin(reps=10):
@@ -1185,6 +1230,8 @@ def phase_grad_final():
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                launches=launches, all_finite=all(finite.values()),
                sph_center_grad_absmax=float(g.sph_center.abs().max()))
+    res["routes"] = route_ab(lambda: tg.loss_and_grad(
+        scene, camera, lambda im, p: im.mean(), seed=6, linear_loss=True))
     say("grad_final", **res)
     if not rel <= LOSS_RTOL:
         fail(f"final_scene: loss {float(loss)} vs deferred mean {ref}")
@@ -1193,6 +1240,55 @@ def phase_grad_final():
     if launches["record_kernel"] < 1:
         fail("grad_final did not launch record_kernel")
     return res
+
+
+def _rows_2048(n, K, elem):
+    """A rule by rows alone, set at the 3-column crossover: the segment sum
+    past 2048 rows, whatever the columns and dtype."""
+    return n > 2048
+
+
+def route_ab(run, pairs=ROUTE_PAIRS):
+    """``run()`` with the reductions routed by lanegather.use_segment_sum
+    and by rows alone (_rows_2048): host seconds of ``pairs`` pairs of
+    runs, each pair in the other order than the one before, and their
+    medians; then one profiled run of each: the device ms of the
+    reductions' kernels and of all its device work, and the launches of
+    each form."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rules = {"use_segment_sum": lg.use_segment_sum, "rows_2048": _rows_2048}
+    out = {name: dict(seconds=[]) for name in rules}
+    try:
+        for i in range(pairs):
+            order = list(rules) if i % 2 == 0 else list(rules)[::-1]
+            for name in order:
+                lg.use_segment_sum = rules[name]
+                _, ms = once_ms(run)
+                out[name]["seconds"].append(ms / 1e3)
+        for name in rules:
+            out[name]["median_seconds"] = float(np.median(
+                out[name]["seconds"]))
+        for name, rule in rules.items():
+            lg.use_segment_sum = rule
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            ev = _kernel_events(prof)
+            out[name].update(
+                device_ms=sum(us for _, us in ev) / 1e3,
+                reduction_device_ms=sum(
+                    us for k, us in ev if any(
+                        a in k for a in ("scatter_sum", "radix_",
+                                         "segment_"))) / 1e3,
+                launches={k: kernels.LAUNCHES[k] for k in (
+                    "scatter_sum_kernel", "radix_sort_kernel",
+                    "segment_sum_kernel")})
+    finally:
+        lg.use_segment_sum = rules["use_segment_sum"]
+    return out
 
 
 def phase_exact():
@@ -2112,17 +2208,20 @@ def phase_torch_func():
 
 def b1_compares():
     """The render kernel against its plain version, four scene families at
-    a small frame (one, a few and many samples a pixel; a pixel range that
+    a small frame (one, a few and many samples a pixel: every group width
+    samples_per_group picks, 1 to 32 threads a pixel; a pixel range that
     starts mid-row), and at the main path's shapes (600x600 frame, depth 8,
-    the same tables) with spp cut so the plain version ends in seconds, its
-    tables staged in shared memory and read through __ldg."""
+    the same tables, a warp a pixel) with spp cut so the plain version ends
+    in seconds, its tables staged in shared memory and read through
+    __ldg."""
     for name, spp in (("cornell_box", 16), ("cornell_smoke", 16),
                       ("two_spheres", 16), ("random_balls", 8),
-                      ("cornell_box", 1), ("cornell_box", 23)):
+                      ("cornell_box", 1), ("cornell_box", 2),
+                      ("cornell_box", 23), ("cornell_box", 32)):
         compare(name, 64, spp, 8)
     compare("cornell_smoke", 64, 23, 8, pixel_base=5 * 64 + 17,
             pixel_count=1500)
-    return compare("cornell_box", 600, 16, 8, unstaged=True)
+    return compare("cornell_box", 600, B1_MAIN_SPP, 8, unstaged=True)
 
 
 def render_resources():
@@ -2145,20 +2244,7 @@ def render_resources():
     return out
 
 
-# phases that `--only` runs alone, for a short call while a kernel is new
-ONLY = {"segment_sums": lambda: (compare_reductions(),
-                                 compare_segment_sums()),
-        "render": lambda: phase_main_path(b1_compares())}
-
-
-def main(argv=None):
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default=None,
-                    help="comma-separated phases to run alone "
-                         f"({', '.join(ONLY)}); prints no kernels line")
-    args = ap.parse_args(argv)
+def main():
     t_start = time.perf_counter()
     card = gpu_line()
     say("device", nvidia_smi=card, torch=torch.__version__,
@@ -2170,12 +2256,6 @@ def main(argv=None):
             or "Compiling entry" in ln]
     say("build", seconds=kernels.build_seconds, sources=list(kernels.SOURCES),
         ptxas=regs, render_kernel=render_resources())
-    if args.only:
-        for name in args.only.split(","):
-            ONLY[name]()
-        say("total", seconds=time.perf_counter() - t_start)
-        print(card, flush=True)
-        return
 
     phase_exact()
 
@@ -2197,6 +2277,7 @@ def main(argv=None):
     for name in TEXTURE_SCENES:
         compare(name, 64, 16, 8)
         compare_records(name, 64, 4, 8, 0)
+    compare("simple_light", 32, 32, 8)     # the fused render's warp a pixel
     at_fused = compare("simple_light", 600, 4, 8)
 
     # the BVH walk (B4) in the render kernel and the recorder against the
@@ -2211,10 +2292,14 @@ def main(argv=None):
     compare("cornell_box", 64, 4, 8, use_bvh=True)
     compare_records("cornell_box", 64, 4, 8, 0, use_bvh=True)
     at_final = compare("final_scene", 200, 4, 40, use_bvh=True)
+    # the fused final_scene render's group width, a warp a pixel (depth
+    # cut: the plain version's sample loop takes a minute at depth 40)
+    compare("final_scene", 32, FINAL_SPP, 8, use_bvh=True)
 
     gathers = compare_gathers()
     sums = compare_reductions()
     segs = compare_segment_sums()
+    scatter_routes()
     turb = compare_perlin()
     hits0, hits_deep = phase_hits()
     cross = phase_crossover()
@@ -2273,8 +2358,9 @@ def main(argv=None):
         "ms": at_main["kernel_ms"], "plain_ms": at_main["plain_ms"],
         "bound_ms": at_main["bound_ms"], "bound_by": at_main["bound_by"],
         "library_ms": None,
-        "shape": "cornell_box 600x600 depth 8 spp 16 (main-path frame and "
-                 "tables, spp cut for the plain version)",
+        "shape": f"cornell_box 600x600 depth 8 spp {B1_MAIN_SPP} (main-path "
+                 "frame, tables and group width, spp cut for the plain "
+                 "version)",
         "main_path_ms": main["seconds"] * 1e3, "main_path_spp": main["spp"],
         "main_path_bound_ms": main["bound"],
         "main_path_occupancy": main["occupancy"],
@@ -2320,6 +2406,7 @@ def main(argv=None):
         "library_ms": rd["library_ms"],
         "shape": f"f32 cotangent (17, {N_INDEX}) into the (17, 24) quad "
                  "column table (the transpose of the B6 gather)",
+        "launches_grad_final": grad_final["launches"]["scatter_sum_kernel"],
     }, {
         "name": "segment_sum_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
@@ -2333,6 +2420,7 @@ def main(argv=None):
                  "image table, sort included; launches from grad_textures, "
                  "earth 400x225 @ 32 spp",
         "ms_by_kernel": seg["kernel_ms_by_kernel"],
+        "launches_grad_final": grad_final["launches"]["segment_sum_kernel"],
     }, {
         "name": "radix_sort_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",

@@ -61,11 +61,14 @@
 //    without elements keep the zero the wrapper allocated them.
 // So every row's order of summation is a function of the index alone: the
 // same bits on every call, exact sums on integer-valued cotangents, no float
-// atomics. Bound: bytes. Each sort pass reads the keys twice (count, place)
-// and the columns once and writes both; the sum reads the sorted keys and
+// atomics. Bytes: each sort pass reads the keys twice (count, place) and
+// the columns once and writes both; the sum reads the sorted keys and
 // columns once, in order. Moving the columns with the keys replaces a gather
 // of each cotangent at a random position (a 32-byte sector for 4 or 8 useful
-// bytes) by two streaming copies.
+// bytes) by two streaming copies. What bounds it on an H100 is not those
+// bytes (1.5-2.1 TB/s a pass): the scatter pass's cost an element grows with
+// the digit's bits (one ballot a bit; runs of one digit in the stores of
+// RADIX_TILE / 2^bits elements). Which of the two, unprofiled (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

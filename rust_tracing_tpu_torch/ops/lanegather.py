@@ -12,10 +12,11 @@ rust_tracing_tpu/ops/tgather.py). The kernels are hand-written CUDA C++ in
 - ``scatter_sum``: ``d[k, r] = sum of ct[k, i] over idx[i] == r``, the
   transpose of both, deterministic (no float atomics; the summation order is
   fixed by the index alone and stated in the source): ``scatter_sum_kernel``
-  for tables of up to ``SCATTER_SORT_MIN_ROWS`` rows, ``segment_sum_kernel``
-  for larger ones: ``radix_sort_kernel`` (a stable LSD radix sort of the
-  index over the bits of the row count, written here, carrying the
-  cotangents along) and one pass over the sorted runs.
+  for small tables, ``segment_sum_kernel`` for large ones
+  (``use_segment_sum``: by rows, columns and dtype): ``radix_sort_kernel``
+  (a stable LSD radix sort of the index over the bits of the row count,
+  written here, carrying the cotangents along) and one pass over the sorted
+  runs.
 
 Each takes its device from its inputs: on CUDA tensors it launches its
 kernel (or raises), on CPU tensors it runs its plain version. Out-of-range
@@ -49,13 +50,20 @@ TGATHER_DENSE_MAX = 64
 SCATTER_CHUNK = 8192
 SCATTER_MAX_BLOCKS = 1024
 
-# Tables with more rows than this take the segment sum: the tile kernel
-# re-reads its slice once per 3072 rows and keeps K * blocks * rows partials
-# (2.2 GB for an image's 524 288 texels at one replay wavefront), the segment
-# sum sorts the index and reads each element once. The crossover measured on
-# an H100 (chip_smoke.py, 3 f32 columns, 3.96 M indices) lies between 2048
-# rows (tile kernel faster) and 3407 (segment sum faster).
-SCATTER_SORT_MIN_ROWS = 2048
+# The tile kernel holds a row tile of this many bytes a warp in shared
+# memory (csrc/gather_kernel.cu: SS_SMEM_BYTES / SS_WARPS): 3072 f32 rows,
+# 1536 f64. A table with more rows is summed tile by tile, each tile
+# re-reading the block's slice of the index and the cotangents.
+SCATTER_TILE_BYTES = 12 * 1024
+# The segment sum reads each element a fixed number of times (its sort
+# passes); the tile kernel reads its index once and its K values once a row
+# tile. It takes the tables whose tile kernel would read an element's values
+# more than once (two or more row tiles) and more than this many bytes of
+# them in all: on an H100 (chip_smoke.py's scatter_routes, 1024-8192 rows,
+# 1-17 columns, f32 and f64) the segment sum was faster in every such cell
+# at 3.96 M indices, the tile kernel in every other (within 2 %). At 160 000
+# indices the call is mostly launches and the rule is no longer exact.
+SCATTER_SORT_MIN_BYTES = 8
 
 # The radix sort (csrc/gather_kernel.cu): digits of at most this many bits a
 # pass (a scatter pass over 2^10 digits took 2.4x one over 2^7 on an H100),
@@ -221,6 +229,15 @@ def scatter_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+def use_segment_sum(n: int, K: int, elem: int) -> bool:
+    """Whether the reduction of K columns of ``elem``-byte cotangents into
+    ``n`` rows takes the segment sum (else the tile kernel): two or more of
+    the tile kernel's row tiles, and more than SCATTER_SORT_MIN_BYTES of an
+    element's values read over them."""
+    tiles = -(-n // (SCATTER_TILE_BYTES // elem))
+    return tiles >= 2 and K * tiles * elem > SCATTER_SORT_MIN_BYTES
+
+
 def radix_digits(n: int) -> tuple:
     """Digit widths, lowest first, of the radix sort of row keys 0..n (n is
     the key of out-of-range rows): the bits of n in as few passes of at most
@@ -321,10 +338,10 @@ def segment_sum_kernel(ct: torch.Tensor, idx: torch.Tensor,
 def scatter_sum_cols(ct: torch.Tensor, idx: torch.Tensor,
                      n: int) -> torch.Tensor:
     """Transpose of ``gather_cols``: ``ct`` ``(K, *idx.shape)`` -> ``(K, n)``;
-    a kernel on CUDA (by table size), the plain version on the CPU."""
+    a kernel on CUDA (``use_segment_sum``), the plain version on the CPU."""
     if ct.device.type == "cpu":
         return scatter_sum_plain(ct, idx, n)
-    if n > SCATTER_SORT_MIN_ROWS:
+    if use_segment_sum(n, ct.shape[0], ct.element_size()):
         return segment_sum_kernel(ct, idx, n)
     return scatter_sum_kernel(ct, idx, n)
 

@@ -590,22 +590,6 @@ def samples_per_group(spp: int) -> int:
     return g
 
 
-def render_schedule(pixel_base: int, pixel_count: int, spp: int):
-    """What each thread of the render kernel's grid traces in each round,
-    as the kernel computes it: thread t is lane ``t % G`` of the group of
-    pixel ``pixel_base + t // G`` and traces sample ``r * G + t % G`` in
-    round r, or idles (-1). Returns ``(pixel, sample)``, two (threads,
-    rounds) int64 arrays. The kernel adds a pixel's radiances round by
-    round, lane by lane."""
-    g = samples_per_group(spp)
-    threads = -(-pixel_count * g // RENDER_THREADS) * RENDER_THREADS
-    t = np.arange(threads)[:, None]
-    samp = np.arange(-(-spp // g))[None, :] * g + t % g
-    live = (t // g < pixel_count) & (samp < spp)
-    return (np.where(live, pixel_base + t // g, -1),
-            np.where(live, samp, -1))
-
-
 def stage_bytes(tables: dict, p: RenderParams) -> int:
     """Shared memory the brute-loop render kernel needs to stage the scene
     tables it loops over: each table's rows (``_STAGED_ROWS``) at a 16-byte

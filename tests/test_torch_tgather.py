@@ -142,9 +142,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_radix_digits_from_rows():
-    """The segment sum's radix sort: as few passes of at most RADIX_MAX_BITS
-    as the bits of the largest key (n, the out-of-range rows) need; sorting
-    digit by digit, lowest first, gives its plain version's stable order."""
+    """The segment sum's host-side choices. Which reductions take it: two
+    or more of the tile kernel's row tiles (3072 f32 rows, 1536 f64) and
+    more than 8 bytes of an element's values read over them. Its radix
+    sort: as few passes of at most RADIX_MAX_BITS as the bits of the largest
+    key (n, the out-of-range rows) need; sorting digit by digit, lowest
+    first, gives its plain version's stable order."""
+    use = lg.use_segment_sum
+    assert not any(use(n, K, 4) for n in (1, 2048, 2408, 3072)
+                   for K in (1, 3, 17))
+    assert not use(3073, 1, 4) and not use(6144, 1, 4)
+    assert use(3073, 3, 4) and use(6145, 1, 4) and use(524288, 1, 4)
+    assert not use(1536, 3, 8) and use(1537, 1, 8)
     assert lg.radix_digits(1) == (1,)
     assert lg.radix_digits(524288) == (7, 7, 6)
     for k in (1, 9, 10, 19):
