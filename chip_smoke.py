@@ -62,9 +62,13 @@ Phases:
              cornell_box with a forced tree; the hit kernel (B3) against its plain
              version on final_scene's 800x800 camera rays (bounce 0) and on
              the sorted lanes of a wavefront chunk (bounce 1), and on
-             cornell_box's 600x600 camera rays without a tree; B3's time on
-             a whole chunk (4 spp x 800x800 lanes) at bounce 0 and at bounce
-             8, sorted, sorted and cut to its live prefix, and unsorted
+             cornell_box's 600x600 camera rays without a tree; on
+             COUNTER_LANES lanes of each final_scene state, B3's per-lane
+             walk counters against the plain walk's
+             (megakernel.walk_wide_plain); B3's time on a whole chunk (4 spp
+             x 800x800 lanes) at bounce 0 and at bounce 8, sorted, sorted
+             and cut to its live prefix, and unsorted, with its bound from
+             its own walk counters
   crossover  the render kernel brute force against the BVH walk at 4 spp:
              random_balls 600x337 and final_scene 200x200 (depth 40)
   wavefront_path
@@ -73,7 +77,9 @@ Phases:
              every segment, the tensor integrator and render_deferred, all
              equal bit for bit; then render() of final_scene at 800x800,
              depth 40, 32 spp, and the fused render (B1+B4+B8) of the same
-             frame with its bound from its walk counters
+             frame with its bound from its walk counters; that frame equals
+             the brute loop's render of it bit for bit (pixels and ray
+             counts)
   profile    device time by kernel of one chunk of that frame (the
              wavefront) and the device's busy share
   grad_final loss_and_grad() of final_scene at 200x200, 4 spp, depth 8
@@ -159,7 +165,9 @@ Tolerances and their reasons.
   primitives in, and the plain version tests every primitive. So every
   pixel must be equal bit for bit, every ray count and every record equal;
   what box pruning could still drop (a hit exactly on its node box's face)
-  is counted in those numbers, not hidden by a tolerance.
+  is counted in those numbers, not hidden by a tolerance. The walk's
+  counters are integers: every lane's must equal the plain walk's, which
+  does the kernel's slab and primitive arithmetic in f32 in its order.
 - wavefront_path: the wavefront permutes and cuts lanes and shades with the
   replay: equal to the tensor integrator and to deferred shading bit for bit
   (as f32) with equal ray counts. Against the fused render (hash-lattice
@@ -256,9 +264,12 @@ FLOP_PER_NOISE_SHADE = 7 * (15 + 8 * (14 + 3 * 11 + 3)) + 6
 FLOP_PER_IMAGE_SHADE = 45
 # The BVH walk's slab test, counted from csrc/render_kernel.cu
 # (closest_surface<MODE, true>): 6 subtractions, 6 multiplies, 12 min/max and
-# one compare a node visited. A visited leaf's primitive tests count
+# one compare a node box tested. A visited leaf's primitive tests count
 # FLOP_PER_PRIM_TEST each, from the kernels' own counters.
 OPS_PER_SLAB = 25
+# lanes of final_scene whose per-lane walk counters must equal the plain
+# walk's (megakernel.walk_wide_plain), camera rays and a sorted chunk
+COUNTER_LANES = 4096
 
 PIX_ATOL, PIX_RTOL = 1e-5, 1e-5
 MAX_DIVERGED_SHARE = 0.005
@@ -400,8 +411,8 @@ def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0), walk=None):
     ``shades`` = (bounces shaded by a noise texture, by an image texture)
     in this run's paths (``texture_shades``); ``walk`` as for
     ``search_flop``."""
-    n_bytes = sum(t.numel() * t.element_size() for k, t in tables.items()
-                  if shade or k != "img_f")
+    read = mk.PackedScene.TABLES + (("img_f",) if shade else ())
+    n_bytes = sum(tables[k].numel() * tables[k].element_size() for k in read)
     if shade:
         n_bytes += p.pixel_count * 16
     else:
@@ -429,13 +440,13 @@ def scene_inputs(name, width, spp, depth, seed=0, sample_offset=0,
     return scene, camera, tables, p
 
 
-def render_spills(noise, image, bvh, staged):
+def spills(kernel, *flags):
     """Spill stores in bytes that ptxas reported (-Xptxas -v, the build log)
-    for the render kernel's instantiation with these template flags."""
-    flags = "".join(f"Lb{int(f)}E" for f in (noise, image, bvh, staged))
+    for ``kernel``'s instantiation with these template flags."""
+    mangled = f"{kernel}I" + "".join(f"Lb{int(f)}E" for f in flags)
     lines = kernels.build_log.splitlines()
     for i, ln in enumerate(lines):
-        if "Compiling entry" in ln and f"render_kernelI{flags}" in ln:
+        if "Compiling entry" in ln and mangled in ln:
             for nxt in lines[i + 1:i + 4]:
                 if "spill stores" in nxt:
                     return int(nxt.split("bytes spill stores")[0]
@@ -451,8 +462,9 @@ def occupancy(p, plan):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     resident = sms * occ["blocks_per_sm"] * mk.RENDER_THREADS // 32
     return dict(occ, warps=warps, waves=warps / resident,
-                spill_stores=render_spills(p.has_noise, p.has_image,
-                                           p.use_bvh, plan.stage_bytes > 0))
+                spill_stores=spills(
+                    "render_kernel", p.has_noise, p.has_image, p.use_bvh,
+                    plan.stage_bytes > 0))
 
 
 def texture_shades(tables, p):
@@ -539,6 +551,8 @@ def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False,
         else (0, 0)
     walk = walk_counts(counters) if use_bvh else None
     b_ms, b_by = bound_ms(tables, p, n_rays, shades=shades, walk=walk)
+    if walk is not None:
+        extra["walk_per_ray"] = [w / n_rays for w in walk]
     res = dict(
         kernel="render_kernel", has_noise=p.has_noise, has_image=p.has_image,
         use_bvh=p.use_bvh, nodes=p.n_nodes, walk=walk,
@@ -909,8 +923,9 @@ def hit_bound_ms(tables, p, n_lanes, rays, walk):
     read once, 33 bytes of lane input and 4 of record a lane) over the
     memory rate and operations (the search as ``search_flop``, plus 120 a
     live ray for its set-up and media) over the float32 rate."""
-    n_bytes = sum(t.numel() * t.element_size() for k, t in tables.items()
-                  if k != "img_f") + n_lanes * (7 * 4 + 4 + 4 + 1 + 4)
+    n_bytes = sum(tables[k].numel() * tables[k].element_size()
+                  for k in mk.PackedScene.TABLES) + n_lanes * (7 * 4 + 4 + 4
+                                                              + 1 + 4)
     flop = search_flop(rays, p, walk) + rays * FLOP_PER_BOUNCE_SHADE
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_flop = flop / PEAK_FP32_FLOPS * 1e3
@@ -923,7 +938,8 @@ def check_hits(label, tables, p, lanes, n_pix, bounce, compare=True,
     counters. ``compare``: against its plain version on the same lanes
     (every record equal) and on a random permutation of them (the records
     permute). ``timed``: its time by CUDA events and the bound from the
-    counters. Returns (result, records)."""
+    counters (with the walk also the counters a ray and the kernel's
+    resources). Returns (result, records)."""
     args = hit_args(lanes, n_pix)
     n = args[0].shape[0]
     counters = torch.zeros((n, 3), dtype=torch.int32, device=DEVICE)
@@ -958,12 +974,53 @@ def check_hits(label, tables, p, lanes, n_pix, bounce, compare=True,
             lambda: mk.hit_kernel(tables, p, *args, bounce), 5)
         res["bound_ms"], res["bound_by"] = hit_bound_ms(tables, p, n, rays,
                                                         walk)
+        if p.use_bvh:
+            res["walk_per_ray"] = [w / max(rays, 1) for w in walk]
+            res["occupancy"] = mk.search_occupancy("hit_kernel", True)
     say("kernels", **res)
     if compare and (res["records_differ"] or res["permuted_records_differ"]):
         fail(f"hit_kernel ({label}): {res['records_differ']} records differ "
              f"from the plain version, {res['permuted_records_differ']} "
              "after a permutation")
     return res, rec_k
+
+
+def check_walk_counters(label, tables, p, lanes, n_pix, bounce):
+    """hit_kernel<true>'s per-lane walk counters against the plain walk's
+    (megakernel.walk_wide_plain: the kernel's visiting order, stack and tie
+    rule in numpy f32) on COUNTER_LANES live lanes drawn with a seed: equal
+    lane by lane, so the card ran the designed traversal and not only one
+    that finds the same winners. Where the kernel's record is a sphere or a
+    quad (no medium in front), the plain walk's winner must be the same."""
+    live = lanes.alive.nonzero()[:, 0]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(bounce)
+    pick = live[torch.randperm(live.numel(), device=DEVICE,
+                               generator=gen)[:COUNTER_LANES]].sort().values
+    sub = [a[pick].contiguous() for a in hit_args(lanes, n_pix)]
+    n = pick.numel()
+    counters = torch.zeros((n, 3), dtype=torch.int32, device=DEVICE)
+    rec = mk.hit_kernel(tables, p, *sub, bounce, counters).cpu().numpy()
+    host = {k: tables[k].cpu() for k in ("wbvh", "wsph_f", "wsph_i",
+                                         "wquad_f", "wquad_i")}
+    t0 = time.perf_counter()
+    rec_w, _, cnt_w = mk.walk_wide_plain(host, *[a.cpu() for a in sub[:7]])
+    plain_s = time.perf_counter() - t0
+    cnt = counters.cpu().numpy()
+    surface = ((rec >> 24) == 1) | ((rec >> 24) == 2)
+    res = dict(kernel="hit_kernel", check=f"walk counters, {label}",
+               bounce=bounce, lanes=n,
+               lanes_counters_differ=int((cnt != cnt_w).any(1).sum()),
+               surface_records_differ=int((rec[surface]
+                                           != rec_w[surface]).sum()),
+               surface_records=int(surface.sum()),
+               walk_per_ray=[float(x) for x in cnt.mean(0)], plain_s=plain_s)
+    say("kernels", **res)
+    if res["lanes_counters_differ"] or res["surface_records_differ"]:
+        fail(f"hit_kernel walk ({label}): counters differ from the plain "
+             f"walk's in {res['lanes_counters_differ']} lanes, surface "
+             f"winners in {res['surface_records_differ']}")
+    return res
 
 
 def phase_hits():
@@ -983,10 +1040,14 @@ def phase_hits():
         lanes0 = wf.initial_lanes(cam, seed, n_pix, 0, 1)
         check_hits("final_scene camera rays, 1 spp", tables, p, lanes0,
                    n_pix, 0)
+        check_walk_counters("final_scene camera rays", tables, p, lanes0,
+                            n_pix, 0)
         lanes1 = wf.sort_lanes(wf.step(scene, lanes0, seed, 0, n_pix, 0),
                                lo, inv)
         check_hits("final_scene sorted lanes of a wavefront chunk", tables,
                    p, lanes1, n_pix, 1)
+        check_walk_counters("final_scene sorted bounce-1 lanes", tables, p,
+                            lanes1, n_pix, 1)
         del lanes0, lanes1
 
         cscene, ccam = texture_scene("cornell_box")
@@ -1137,14 +1198,31 @@ def phase_wavefront():
     p = mk.make_params(camera, packed, 0, FINAL_SPP, camera.max_depth)
     counters = torch.zeros((p.pixel_count, 3), dtype=torch.int32,
                            device=DEVICE)
-    mk.render_kernel(tables, p, counters)
+    rgb_w, n_w = mk.render_kernel(tables, p, counters)
     walk = walk_counts(counters)
+    fused_kernel_ms = time_ms(lambda: mk.render_kernel(tables, p), 3)
     shades = texture_shades(tables, p)
     f_bound, f_by = bound_ms(tables, p, f_stats.rays, shades=shades,
                              walk=walk)
+    # the full-frame gate: the brute loop's render of the same frame
+    b_packed, b_tables = mk._packed_dev(scene, False)
+    p_b = mk.make_params(camera, b_packed, 0, FINAL_SPP, camera.max_depth)
+    (rgb_b, n_b), brute_ms = once_ms(lambda: mk.render_kernel(b_tables, p_b))
+    gate = dict(
+        pixels_differ=int((rgb_w != rgb_b).any(-1).sum().item()),
+        ray_counts_differ=int((n_w != n_b).sum().item()),
+        render_image_differs=int(
+            (rgb_w.reshape(fused.shape).cpu().numpy() != fused).any(-1)
+            .sum()),
+        brute_ms=brute_ms, spp=FINAL_SPP)
     res.update(fused_seconds=f_stats.seconds, fused_rays=f_stats.rays,
-               fused_walk=walk, fused_shades=shades, fused_bound_ms=f_bound,
+               fused_kernel_ms=fused_kernel_ms,
+               fused_walk=walk, fused_walk_per_ray=[w / f_stats.rays
+                                                    for w in walk],
+               fused_shades=shades, fused_bound_ms=f_bound,
                fused_bound_by=f_by,
+               fused_vs_brute=gate,
+               fused_occupancy=occupancy(p, mk.render_plan(tables, p)),
                fused_roofline_share=f_bound / (f_stats.seconds * 1e3),
                fused_mrays_per_s=f_stats.rays_per_sec / 1e6,
                fused_launches=f_launches, fused_gamma_mean=gamma_mean(fused),
@@ -1153,6 +1231,12 @@ def phase_wavefront():
     say("wavefront_path", **res)
     if f_launches["render_kernel"] < 1 or not np.isfinite(fused).all():
         fail("the fused final_scene render did not launch render_kernel")
+    if any(gate[k] for k in ("pixels_differ", "ray_counts_differ",
+                             "render_image_differs")):
+        fail(f"fused final_scene: the walk's frame differs from the brute "
+             f"loop's in {gate['pixels_differ']} pixels and "
+             f"{gate['ray_counts_differ']} ray counts (render() image: "
+             f"{gate['render_image_differs']} pixels)")
     if abs(res["gamma_mean_ratio"] - 1.0) > GAMMA_RATIO_TOL:
         fail(f"final_scene gamma mean {res['gamma_mean']} vs the fused "
              f"render's {res['fused_gamma_mean']}")
@@ -2225,8 +2309,9 @@ def b1_compares():
 
 
 def render_resources():
-    """Registers, local memory and blocks an SM of every render kernel
-    instantiation (staged: at the full staging budget)."""
+    """Registers, local memory, shared memory and blocks an SM of every
+    render kernel instantiation (staged: at the full staging budget), and
+    of the recorder's and the hit kernel's, with and without the walk."""
     out = {}
     for noise in (0, 1):
         for image in (0, 1):
@@ -2239,8 +2324,16 @@ def render_resources():
                 out[f"noise{noise}_image{image}_{route}"] = dict(
                     {k: occ[k] for k in ("registers", "local_bytes",
                                          "blocks_per_sm")},
-                    spill_stores=render_spills(noise, image, route == "bvh",
-                                               route == "staged"))
+                    shared_bytes=plan.stage_bytes,
+                    spill_stores=spills("render_kernel", noise, image,
+                                        route == "bvh", route == "staged"))
+    for kernel in ("record_kernel", "hit_kernel"):
+        for bvh in (False, True):
+            occ = mk.search_occupancy(kernel, bvh)
+            out[f"{kernel}_{'bvh' if bvh else 'brute'}"] = dict(
+                {k: occ[k] for k in ("registers", "local_bytes",
+                                     "blocks_per_sm")},
+                spill_stores=spills(kernel, bvh))
     return out
 
 
@@ -2471,9 +2564,12 @@ def main():
         "bound_ms": hits0["bound_ms"], "bound_by": hits0["bound_by"],
         "library_ms": None,
         "shape": f"hit_kernel<BVH>: final_scene, the main path's first chunk "
-                 f"({hits0['lanes']} lanes, bounce 0); bounce {DEEP_BOUNCE} "
-                 f"sorted {hits_deep['sorted']['kernel_ms']:.4f} ms, "
-                 f"unsorted {hits_deep['unsorted']['kernel_ms']:.4f} ms",
+                 f"({hits0['lanes']} lanes, bounce 0)",
+        "walk_per_ray": hits0["walk_per_ray"],
+        "occupancy": hits0["occupancy"],
+        "bounce8": {k: {f: v[f] for f in (
+            "lanes", "kernel_ms", "bound_ms", "walk_per_ray")}
+            for k, v in hits_deep.items()},
         "main_path_ms": final["seconds"] * 1e3,
         "main_path_spp": FINAL_SPP,
     }, {
@@ -2490,8 +2586,14 @@ def main():
                  "the plain version); launches from the fused 800x800 "
                  f"render; brute loop at this shape "
                  f"{cross['final_scene']['brute_ms']:.3f} ms",
+        "walk_per_ray": at_final["walk_per_ray"],
         "main_path_ms": final["fused_seconds"] * 1e3,
         "main_path_spp": FINAL_SPP,
+        "main_path_kernel_ms": final["fused_kernel_ms"],
+        "main_path_bound_ms": final["fused_bound_ms"],
+        "main_path_walk_per_ray": final["fused_walk_per_ray"],
+        "main_path_vs_brute": final["fused_vs_brute"],
+        "occupancy": final["fused_occupancy"],
     }, {
         "name": "render_kernel_sharded", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",

@@ -38,17 +38,21 @@
 //    they fit the host's byte budget (megakernel.STAGE_BUDGET_BYTES, small
 //    enough that registers, not shared memory, bound the blocks an SM holds)
 //    and reads them with plain loads: the threads of a warp read the same row
-//    at once, a broadcast. Larger tables, the BVH instantiations, the image
-//    and the tree are read from global memory through the read-only path
-//    (`__ldg`, vector loads of whole rows), bounded by device memory only.
-//  - BVH (B4): each thread walks the skip-link tree with its own node
-//    pointer. The TPU kernel walks one pointer per 1024-lane tile and descends
-//    wherever any lane's box test passes (its vector unit has no per-lane
-//    control flow); a GPU thread descends only where its own ray hits the box.
-//    The wavefront (ops/wavefront.py) sorts rays before hit_kernel so that a
-//    warp's threads walk the same subtrees. Bound: operations (slab tests and
-//    primitive tests); the tree of final_scene is 511 nodes and 3407 stream
-//    entries, read through L1 and L2.
+//    at once, a broadcast. Larger tables, the BVH instantiations' tree and
+//    scene rows and the image are read from global memory through the
+//    read-only path (`__ldg`, vector loads of whole rows).
+//  - BVH (B4): each thread walks the card's tree, the reference's binary
+//    tree collapsed into nodes of BVH_WIDTH children (ops/megakernel.py::
+//    widen_kernel_bvh, pack_wide), near child first with a short stack (see
+//    closest_surface). The TPU kernel walks one skip-link pointer per
+//    1024-lane tile and descends wherever any lane's box test passes (its
+//    vector unit has no per-lane control flow); a GPU thread descends only
+//    where its own ray hits the box. The tree is read through L1 (`__ldg`),
+//    a node's children's boxes in one run of 16-byte units; the leaf rows
+//    lie in global memory in leaf order, each a run of whole rows with no
+//    index to chase. The wavefront (ops/wavefront.py) sorts rays before
+//    hit_kernel so that a warp's threads walk the same subtrees. Bound:
+//    operations (slab tests and primitive tests).
 //  - Camera, spp, depth, primitive counts, seed, pixel range and sample offset
 //    are runtime arguments: one compiled library serves every scene and camera.
 //  - Bound: operations. The kernel reads a few KB of tables and writes 16 bytes
@@ -90,15 +94,11 @@ struct RenderParams {
     int has_noise, has_image;  // pick the render kernel's instantiation
     int img_h, img_w;          // the mipped image table's shape
     int use_bvh;               // pick the BVH instantiation (B4)
-    int n_nodes;               // rows of bvh_f / bvh_i
+    int n_nodes;               // nodes of the binary tree (>= 1)
 };
 
-// The scene's tables. STAGED: the brute loop's rows (spheres, quads, media,
-// materials, textures) lie in shared memory and `ld` is a plain load; else
-// `ld` reads global memory through the read-only path. The image and the
-// tree are never staged: they are read with __ldg directly.
-template <bool STAGED>
-struct Tables {
+// The scene's tables, as the host passes them.
+struct SceneTables {
     const float4* sph_f;  // (S,8)  cx cy cz r2 | inv_r mvx mvy mvz
     const int* sph_m;     // (S,)
     const float4* quad_f; // (Q,16) q(3) u(3) v(3) n(3) w(3) d
@@ -110,10 +110,20 @@ struct Tables {
     const float* tex_f;   // (T,4)  rgb_r rgb_g rgb_b scale
     const int* tex_i;     // (T,3)  type even odd
     const float* img_f;   // (3, IH*IW) mipped image texels r g b; render only
-    const float4* bvh_f;  // (N,8)  min x y z, max x | max y z, 0, 0
-    const int4* bvh_i;    // (N,4)  skip, leaf start, leaf count, sphere count
-    const int2* prim_i;   // (P,2)  kind (0 sphere, 1 quad), index; leaf order
+    const float4* wbvh;   // the card's tree: wide nodes, then leaf headers
+    const float4* wsph_f; // (S,8)  sphere rows in leaf order
+    const int* wsph_i;    // (S,)   their packed sphere index
+    const float4* wquad_f;// (Q,16) quad rows in leaf order
+    const int* wquad_i;   // (Q,)   their packed quad index
+};
 
+// The tables as a kernel reads them. STAGED: the brute loop's rows
+// (spheres, quads, media, materials, textures) lie in shared memory and `ld`
+// is a plain load; else `ld` reads global memory through the read-only
+// path. The image, the tree and the leaf rows are never staged: they are
+// read with __ldg directly.
+template <bool STAGED>
+struct Tables : SceneTables {
     template <typename T>
     __device__ __forceinline__ T ld(const T* q) const {
         if constexpr (STAGED)
@@ -122,7 +132,6 @@ struct Tables {
             return __ldg(q);
     }
 };
-using SceneTables = Tables<false>;
 
 // What a trace computes. RENDER shades and accumulates radiance; RECORD
 // (record_kernel: winner ids per bounce) and HIT (hit_kernel: one-bounce
@@ -154,11 +163,24 @@ struct Hit {
                     // RENDER, except in the BVH walk, whose ties read them
 };
 
-// Work of the BVH walk of one thread: nodes whose box it tested, spheres and
-// quads it tested. Written out only where the caller asks (the bound).
+// Work of the BVH walk of one thread: node boxes it tested (a wide node's
+// children each), spheres and quads it tested. Written out only where the
+// caller asks (the bound).
 struct WalkCount {
     int visits, spheres, quads;
 };
+
+// The card's tree (ops/megakernel.py::widen_kernel_bvh, pack_wide): one
+// table of 16-byte units. A node is NODE_UNITS units: its children's min x,
+// y, z and max x, y, z rows of BVH_WIDTH f32 each, then their BVH_WIDTH
+// refs; a ref is a node's unit offset (>= 0), ~unit of a leaf header
+// (sphere row start, sphere count, quad row start, quad count), or
+// EMPTY_SLOT after the last child. WALK_STACK bounds the stack: the host
+// refuses a tree deeper than it holds ((BVH_WIDTH - 1) x depth entries).
+constexpr int BVH_WIDTH = 4;
+constexpr int NODE_UNITS = 7 * BVH_WIDTH / 4;
+constexpr int WALK_STACK = 48;
+constexpr int EMPTY_SLOT = (int)0x80000000;
 
 // The BVH walk's acceptance rule (TIE): a primitive wins when its t is
 // smaller, or equal with a lower (kind, idx). The brute loop visits spheres
@@ -173,7 +195,7 @@ __device__ __forceinline__ bool beats(float t, int kind, int idx,
 }
 
 // sphere.rs:59-89 + moving-centre lerp: strict bounds, near root preferred.
-template <int MODE, bool TIE = false, class Tab>
+template <int MODE, class Tab>
 __device__ __forceinline__ void sphere_test(const Tab& sc, int i,
                                             const Ray& r, float a_len,
                                             float inv_a, Hit& h) {
@@ -191,14 +213,8 @@ __device__ __forceinline__ void sphere_test(const Tab& sc, int i,
     const float sq = sqrtf(fmaxf(disc, 0.0f));
     const float r1 = (-half_b - sq) * inv_a;
     const float rr2 = (-half_b + sq) * inv_a;
-    bool ok1, ok2;
-    if constexpr (TIE) {
-        ok1 = (r1 > T_MIN) && beats(r1, 1, i, h);
-        ok2 = (rr2 > T_MIN) && beats(rr2, 1, i, h);
-    } else {
-        ok1 = (r1 > T_MIN) && (r1 < h.t_best);
-        ok2 = (rr2 > T_MIN) && (rr2 < h.t_best);
-    }
+    const bool ok1 = (r1 > T_MIN) && (r1 < h.t_best);
+    const bool ok2 = (rr2 > T_MIN) && (rr2 < h.t_best);
     if (!(ok1 || ok2)) return;
     const float root = ok1 ? r1 : rr2;
     h.t_best = root;
@@ -207,14 +223,14 @@ __device__ __forceinline__ void sphere_test(const Tab& sc, int i,
     h.ny = (r.oy + root * r.dy - ccy) * inv_r;
     h.nz = (r.oz + root * r.dz - ccz) * inv_r;
     h.is_med = false;
-    if (MODE != MODE_RENDER || TIE) {
+    if (MODE != MODE_RENDER) {
         h.kind = 1;
         h.idx = i;
     }
 }
 
 // quad.rs:96-133: inclusive bounds, no back-face culling.
-template <int MODE, bool TIE = false, class Tab>
+template <int MODE, class Tab>
 __device__ __forceinline__ void quad_test(const Tab& sc, int i,
                                           const Ray& r, Hit& h) {
     const float4 a = sc.ld(sc.quad_f + 4 * i);      // qx qy qz ux
@@ -225,12 +241,7 @@ __device__ __forceinline__ void quad_test(const Tab& sc, int i,
     const float denom = nx * r.dx + ny * r.dy + nz * r.dz;
     const float safe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
     const float t = (e.w - (nx * r.ox + ny * r.oy + nz * r.oz)) / safe;
-    bool closer;
-    if constexpr (TIE)
-        closer = beats(t, 2, i, h);
-    else
-        closer = t < h.t_best;
-    if (!((fabsf(denom) >= QUAD_DENOM_EPS) && (t >= T_MIN) && closer))
+    if (!((fabsf(denom) >= QUAD_DENOM_EPS) && (t >= T_MIN) && (t < h.t_best)))
         return;
     const float hx = r.ox + t * r.dx - a.x;
     const float hy = r.oy + t * r.dy - a.y;
@@ -251,28 +262,109 @@ __device__ __forceinline__ void quad_test(const Tab& sc, int i,
     h.ny = ny;
     h.nz = nz;
     h.is_med = false;
-    if (MODE != MODE_RENDER || TIE) {
+    if (MODE != MODE_RENDER) {
         h.kind = 2;
         h.idx = i;
     }
 }
 
+// The walk's sphere test of leaf row k (the sphere test's f32 operations in
+// its order): the tie rule `beats` decides, and only the winner's t, kind
+// and packed index are kept; its normal and material are read once the
+// walk ends (closest_surface).
+template <class Tab>
+__device__ __forceinline__ void leaf_sphere(const Tab& sc, int k, const Ray& r,
+                                            float a_len, float inv_a, Hit& h) {
+    const float4 s0 = __ldg(sc.wsph_f + 2 * k);
+    const float4 s1 = __ldg(sc.wsph_f + 2 * k + 1);
+    const int i = __ldg(sc.wsph_i + k);
+    const float ccx = s0.x + s1.y * r.time;
+    const float ccy = s0.y + s1.z * r.time;
+    const float ccz = s0.z + s1.w * r.time;
+    const float ocx = r.ox - ccx, ocy = r.oy - ccy, ocz = r.oz - ccz;
+    const float half_b = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - s0.w;
+    const float disc = half_b * half_b - a_len * c;
+    if (!(disc > 0.0f)) return;
+    const float sq = sqrtf(fmaxf(disc, 0.0f));
+    const float r1 = (-half_b - sq) * inv_a;
+    const float rr2 = (-half_b + sq) * inv_a;
+    const bool ok1 = (r1 > T_MIN) && beats(r1, 1, i, h);
+    const bool ok2 = (rr2 > T_MIN) && beats(rr2, 1, i, h);
+    if (!(ok1 || ok2)) return;
+    h.t_best = ok1 ? r1 : rr2;
+    h.kind = 1;
+    h.idx = i;
+}
+
+// The walk's quad test of leaf row k (the quad test's operations).
+template <class Tab>
+__device__ __forceinline__ void leaf_quad(const Tab& sc, int k, const Ray& r,
+                                          Hit& h) {
+    const float4 a = __ldg(sc.wquad_f + 4 * k);      // qx qy qz ux
+    const float4 b = __ldg(sc.wquad_f + 4 * k + 1);  // uy uz vx vy
+    const float4 c = __ldg(sc.wquad_f + 4 * k + 2);  // vz nx ny nz
+    const float4 e = __ldg(sc.wquad_f + 4 * k + 3);  // wx wy wz d
+    const int i = __ldg(sc.wquad_i + k);
+    const float nx = c.y, ny = c.z, nz = c.w;
+    const float denom = nx * r.dx + ny * r.dy + nz * r.dz;
+    const float safe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
+    const float t = (e.w - (nx * r.ox + ny * r.oy + nz * r.oz)) / safe;
+    if (!((fabsf(denom) >= QUAD_DENOM_EPS) && (t >= T_MIN)
+          && beats(t, 2, i, h)))
+        return;
+    const float hx = r.ox + t * r.dx - a.x;
+    const float hy = r.oy + t * r.dy - a.y;
+    const float hz = r.oz + t * r.dz - a.z;
+    const float ux = a.w, uy = b.x, uz = b.y;
+    const float vx = b.z, vy = b.w, vz = c.x;
+    const float wx = e.x, wy = e.y, wz = e.z;
+    const float alpha = wx * (hy * vz - hz * vy) + wy * (hz * vx - hx * vz)
+                        + wz * (hx * vy - hy * vx);
+    const float beta = wx * (uy * hz - uz * hy) + wy * (uz * hx - ux * hz)
+                       + wz * (ux * hy - uy * hx);
+    if (!((alpha >= 0.0f) && (alpha <= 1.0f) && (beta >= 0.0f)
+          && (beta <= 1.0f)))
+        return;
+    h.t_best = t;
+    h.kind = 2;
+    h.idx = i;
+}
+
 // Closest surface. Brute force (BVH false): all spheres, then all quads; a
 // later equal t never replaces an earlier winner (`t < t_best`).
 //
-// BVH (B4, megakernel.py:712-776): a stackless walk of the kernel BVH
-// (ops/megakernel.py::build_kernel_bvh), one node pointer per thread. A node
-// whose box the ray enters before t_best goes on to the next node in
-// preorder (its left child, or the next subtree after a leaf); a missed box
-// jumps to its skip link past the whole subtree. A leaf tests its run of the
-// primitive stream with two typed loops, spheres then quads. The slab test
-// is the reference's (:742-756), with 1/d clamped at 1e-30 (:725-727), but
-// closed (`tmx >= tmn`, as ops/bvh_traverse.py::_slab_hit): a leaf of
-// coplanar quads has a box thinner than one f32 step of t, whose entry and
-// exit round to the same t, and the reference's strict test drops it. The
-// TIE rule makes the winner the brute loop's whatever order the tree visits
-// primitives in, so visiting more boxes never changes it; chip_smoke.py
-// counts any record that still differs from the brute search.
+// BVH (B4, megakernel.py:712-776): a walk of the card's tree, near child
+// first. A wide node's children are slab-tested one after another (their
+// boxes side by side: one node read serves them all); the hit ones are
+// ordered by entry t, equal t by slot, the nearest taken next and the rest
+// pushed far first on a stack of (ref, entry t) in local memory. A popped
+// entry is skipped when its entry t exceeds t_best, the same closed test
+// `tmx >= tmn` again, since tmx takes min(.., t_best). A leaf tests its
+// spheres then its quads, rows in leaf order. The slab test is the
+// reference's (:742-756), with 1/d clamped at 1e-30 (:725-727), but closed
+// (`tmx >= tmn`, as ops/bvh_traverse.py::_slab_hit): a leaf of coplanar
+// quads has a box thinner than one f32 step of t, whose entry and exit round
+// to the same t, and the reference's strict test drops it. Every box is a
+// node box of the binary tree widened outward (megakernel.BOX_PAD), so a
+// primitive's f32 hit lies inside its leaf's box even where it grazes a face
+// or an edge, and the TIE rule makes the winner the brute loop's whatever
+// order the tree visits primitives in; chip_smoke.py counts any record and
+// pixel that still differs from the brute search, and holds the counters to
+// the plain walk's (megakernel.walk_wide_plain).
+//
+// What bounds it on this card: not operations (the binary skip-link walk it
+// replaced ran final_scene's fused frame at 1.4 % of them) but the latency
+// of dependent loads and the warp's divergence. Near-first order shrinks
+// t_best early, so fewer boxes and leaves pass; single-primitive leaves
+// (megakernel.BVH_CARD_LEAF_SIZE) turn primitive tests, with their square
+// root and division, into slab tests; a node's children are one node read
+// through L1 (final_scene's 237 KB tree fits no block's shared memory, and
+// a 17 KB tree staged there measured slower than through L1); a leaf's rows
+// are read by
+// their leaf-order row, not through an index that must arrive first; the
+// winner's normal and material are read once, after the walk, not at every
+// closer hit.
 template <int MODE, bool BVH = false, class Tab>
 __device__ __forceinline__ void closest_surface(const Tab& sc,
                                                 const RenderParams& p,
@@ -295,37 +387,115 @@ __device__ __forceinline__ void closest_surface(const Tab& sc,
         const float inv_dx = 1.0f / (fabsf(r.dx) < 1e-30f ? 1e-30f : r.dx);
         const float inv_dy = 1.0f / (fabsf(r.dy) < 1e-30f ? 1e-30f : r.dy);
         const float inv_dz = 1.0f / (fabsf(r.dz) < 1e-30f ? 1e-30f : r.dz);
-        int ptr = 0;
-        while (ptr < p.n_nodes) {
-            const float4 b0 = __ldg(sc.bvh_f + 2 * ptr);      // min xyz, max x
-            const float4 b1 = __ldg(sc.bvh_f + 2 * ptr + 1);  // max y z
-            const int4 node = __ldg(sc.bvh_i + ptr);  // skip start count scount
-            ++wc.visits;
-            const float t0x = (b0.x - r.ox) * inv_dx;
-            const float t1x = (b0.w - r.ox) * inv_dx;
-            const float t0y = (b0.y - r.oy) * inv_dy;
-            const float t1y = (b1.x - r.oy) * inv_dy;
-            const float t0z = (b0.z - r.oz) * inv_dz;
-            const float t1z = (b1.y - r.oz) * inv_dz;
-            const float tmn =
-                fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                      fmaxf(fminf(t0z, t1z), T_MIN));
-            const float tmx =
-                fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                      fminf(fmaxf(t0z, t1z), h.t_best));
-            if (!(tmx >= tmn)) {
-                ptr = node.x;
-                continue;
+        int stack_ref[WALK_STACK];
+        float stack_t[WALK_STACK];
+        int sp = 0;
+        int cur = 0;  // the root node
+        for (;;) {
+            if (cur >= 0) {
+                const float* f = reinterpret_cast<const float*>(sc.wbvh + cur);
+                const int* fi = reinterpret_cast<const int*>(f);
+                float tk[BVH_WIDTH];
+                int sk[BVH_WIDTH], rk[BVH_WIDTH];
+                int nh = 0;
+#pragma unroll
+                for (int c = 0; c < BVH_WIDTH; ++c) {
+                    rk[c] = __ldg(fi + 6 * BVH_WIDTH + c);
+                    tk[c] = INFINITY;
+                    sk[c] = c + BVH_WIDTH;  // a miss sorts after every hit
+                    if (rk[c] != EMPTY_SLOT) {
+                        ++wc.visits;
+                        const float t0x = (__ldg(f + c) - r.ox) * inv_dx;
+                        const float t1x =
+                            (__ldg(f + 3 * BVH_WIDTH + c) - r.ox) * inv_dx;
+                        const float t0y =
+                            (__ldg(f + BVH_WIDTH + c) - r.oy) * inv_dy;
+                        const float t1y =
+                            (__ldg(f + 4 * BVH_WIDTH + c) - r.oy) * inv_dy;
+                        const float t0z =
+                            (__ldg(f + 2 * BVH_WIDTH + c) - r.oz) * inv_dz;
+                        const float t1z =
+                            (__ldg(f + 5 * BVH_WIDTH + c) - r.oz) * inv_dz;
+                        const float tmn =
+                            fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                                  fmaxf(fminf(t0z, t1z), T_MIN));
+                        const float tmx =
+                            fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                                  fminf(fmaxf(t0z, t1z), h.t_best));
+                        if (tmx >= tmn) {
+                            tk[c] = tmn;
+                            sk[c] = c;
+                            ++nh;
+                        }
+                    }
+                }
+                // odd-even transposition sort by (entry t, slot): registers
+#pragma unroll
+                for (int round = 0; round < BVH_WIDTH; ++round) {
+#pragma unroll
+                    for (int i = round & 1; i + 1 < BVH_WIDTH; i += 2) {
+                        if (tk[i + 1] < tk[i]
+                            || (tk[i + 1] == tk[i] && sk[i + 1] < sk[i])) {
+                            const float t = tk[i];
+                            tk[i] = tk[i + 1];
+                            tk[i + 1] = t;
+                            const int s = sk[i];
+                            sk[i] = sk[i + 1];
+                            sk[i + 1] = s;
+                            const int q = rk[i];
+                            rk[i] = rk[i + 1];
+                            rk[i + 1] = q;
+                        }
+                    }
+                }
+                if (nh > 0) {
+#pragma unroll
+                    for (int i = BVH_WIDTH - 1; i >= 1; --i) {
+                        if (i < nh) {
+                            stack_ref[sp] = rk[i];
+                            stack_t[sp] = tk[i];
+                            ++sp;
+                        }
+                    }
+                    cur = rk[0];
+                    continue;
+                }
+            } else {
+                const int4 leaf =
+                    __ldg(reinterpret_cast<const int4*>(sc.wbvh) + ~cur);
+                for (int k = leaf.x; k < leaf.x + leaf.y; ++k)
+                    leaf_sphere(sc, k, r, a_len, inv_a, h);
+                for (int k = leaf.z; k < leaf.z + leaf.w; ++k)
+                    leaf_quad(sc, k, r, h);
+                wc.spheres += leaf.y;
+                wc.quads += leaf.w;
             }
-            const int mid = node.y + node.w, end = node.y + node.z;
-            for (int k = node.y; k < mid; ++k)
-                sphere_test<MODE, true>(sc, __ldg(sc.prim_i + k).y, r, a_len,
-                                        inv_a, h);
-            for (int k = mid; k < end; ++k)
-                quad_test<MODE, true>(sc, __ldg(sc.prim_i + k).y, r, h);
-            wc.spheres += node.w;
-            wc.quads += node.z - node.w;
-            ++ptr;
+            // pop the nearest entry still in reach
+            while (sp > 0 && stack_t[sp - 1] > h.t_best) --sp;
+            if (sp == 0) break;
+            --sp;
+            cur = stack_ref[sp];
+        }
+        // the winner's normal and material, from its own row with the
+        // sphere and quad tests' operations
+        if constexpr (MODE != MODE_HIT) {
+            if (h.kind == 1) {
+                const float4 s0 = sc.ld(sc.sph_f + 2 * h.idx);
+                const float4 s1 = sc.ld(sc.sph_f + 2 * h.idx + 1);
+                const float ccx = s0.x + s1.y * r.time;
+                const float ccy = s0.y + s1.z * r.time;
+                const float ccz = s0.z + s1.w * r.time;
+                h.nx = (r.ox + h.t_best * r.dx - ccx) * s1.x;
+                h.ny = (r.oy + h.t_best * r.dy - ccy) * s1.x;
+                h.nz = (r.oz + h.t_best * r.dz - ccz) * s1.x;
+                h.mat = sc.ld(sc.sph_m + h.idx);
+            } else if (h.kind == 2) {
+                const float4 c = sc.ld(sc.quad_f + 4 * h.idx + 2);
+                h.nx = c.y;
+                h.ny = c.z;
+                h.nz = c.w;
+                h.mat = sc.ld(sc.quad_m + h.idx);
+            }
         }
     }
 }
@@ -757,8 +927,9 @@ __device__ __forceinline__ void put_counts(int* counters, size_t i,
 
 // How the host launches render_kernel; mirrors ops/megakernel.py::RenderPlan.
 // group: threads a pixel (1, 2, 4, 8, 16 or 32). stage_bytes: 0 (tables read
-// through __ldg), or the shared memory a block stages its tables in; then
-// mat_rows and tex_rows rows of the material and texture tables are staged.
+// through __ldg), or the shared memory a block of the brute loop stages its
+// tables in; then mat_rows and tex_rows rows of the material and texture
+// tables are staged.
 struct RenderPlan {
     int group, stage_bytes, mat_rows, tex_rows;
 };
@@ -782,27 +953,15 @@ __device__ __forceinline__ const void* stage(const void* src, int bytes,
 // out_rgb (pixel_count,3): mean radiance over spp samples, f32 sum in sample
 // order times f32(1/spp). out_n (pixel_count,): scene queries traced.
 // Thread t of the grid works for local pixel t / G as lane t % G (see the
-// header); the group's lane 0 writes the pixel.
+// header); the group's lane 0 writes the pixel. STAGED (brute loop only):
+// the tables lie in shared memory.
 template <bool NOISE, bool IMAGE, bool BVH, bool STAGED>
 __global__ void __launch_bounds__(RENDER_THREADS)
     render_kernel(SceneTables g, RenderParams p, RenderPlan plan,
                   float* __restrict__ out_rgb, int* __restrict__ out_n,
                   int* __restrict__ counters) {
-    Tables<STAGED> sc;
-    sc.sph_f = g.sph_f;
-    sc.sph_m = g.sph_m;
-    sc.quad_f = g.quad_f;
-    sc.quad_m = g.quad_m;
-    sc.med_f = g.med_f;
-    sc.med_i = g.med_i;
-    sc.mat_f = g.mat_f;
-    sc.mat_i = g.mat_i;
-    sc.tex_f = g.tex_f;
-    sc.tex_i = g.tex_i;
-    sc.img_f = g.img_f;
-    sc.bvh_f = g.bvh_f;
-    sc.bvh_i = g.bvh_i;
-    sc.prim_i = g.prim_i;
+    static_assert(!(BVH && STAGED), "the walk's tables are not staged");
+    Tables<STAGED> sc{g};
     if constexpr (STAGED) {
         extern __shared__ __align__(16) unsigned char staged[];
         unsigned char* at = staged;
@@ -905,8 +1064,9 @@ __global__ void __launch_bounds__(RENDER_THREADS)
 // shading); it writes 4 bytes per (pixel, sample, bounce).
 template <bool BVH>
 __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
-    record_kernel(SceneTables sc, RenderParams p, int row0,
+    record_kernel(SceneTables g, RenderParams p, int row0,
                   int* __restrict__ out, int* __restrict__ counters) {
+    const Tables<false> sc{g};
     const int i = blockIdx.x * BLOCK_X + threadIdx.x;
     const int j = row0 + blockIdx.y * BLOCK_Y + threadIdx.y;
     if (i >= p.width || j >= p.height) return;
@@ -943,25 +1103,31 @@ __global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
 // `hit_kernel_call` :1533-1561): the search half of trace_bounce<MODE_HIT>,
 // surfaces (brute or the BVH walk) then media, for the sorted deferred
 // wavefront (ops/wavefront.py), which shades the winners in tensor code.
-// One thread per lane over the structure-of-arrays inputs, in lane order:
-// the wavefront sorted the lanes so that a warp holds rays that walk the same
-// subtrees. The medium draws come from the counter RNG addressed by (seed,
-// pix[lane], samp[lane], bounce): launch geometry never enters it, so a
-// permutation of the lanes permutes the output and changes nothing else.
+// The medium draws come from the counter RNG addressed by (seed, pix[lane],
+// samp[lane], bounce): launch geometry never enters it, so a permutation of
+// the lanes permutes the output and changes nothing else.
 // out[lane] = alive && hit ? kind<<24 | idx : 0 (:1027-1031).
 // Bound: operations (slab and primitive tests); it reads 37 bytes a lane and
 // writes 4.
 constexpr int HIT_BLOCK = 128;
 
+// One thread a lane, in lane order: a warp holds consecutive lanes, which
+// the wavefront sorted to walk the same subtrees. (A persistent grid that
+// strides over the lanes measured 1.1-1.2x slower on a final_scene chunk at
+// 17 waves and no faster at one: a persistent block's lanes are fixed in
+// advance and its slowest rays hold its slot, where the hardware hands a
+// freed slot to the next block; PERF.md §6.) Each lane's record depends on
+// its own inputs only.
 template <bool BVH>
 __global__ void __launch_bounds__(HIT_BLOCK)
-    hit_kernel(SceneTables sc, RenderParams p, const float* __restrict__ ox,
+    hit_kernel(SceneTables g, RenderParams p, const float* __restrict__ ox,
                const float* __restrict__ oy, const float* __restrict__ oz,
                const float* __restrict__ dx, const float* __restrict__ dy,
                const float* __restrict__ dz, const float* __restrict__ time,
                const int* __restrict__ pix, const int* __restrict__ samp,
                const bool* __restrict__ alive, long long n, int bounce,
                int* __restrict__ out, int* __restrict__ counters) {
+    const Tables<false> sc{g};
     const long long i = (long long)blockIdx.x * HIT_BLOCK + threadIdx.x;
     if (i >= n) return;
     WalkCount wc = {0, 0, 0};
@@ -992,15 +1158,15 @@ __global__ void __launch_bounds__(HIT_BLOCK)
 
 namespace {
 
-// The 13 scene tables of ops/megakernel.py::PackedScene.TABLES, in order.
+// The 15 scene tables of ops/megakernel.py::PackedScene.TABLES, in order.
 #define RT_TABLE_ARGS                                                        \
     const void *sph_f, const void *sph_m, const void *quad_f,                \
         const void *quad_m, const void *med_f, const void *med_i,            \
         const void *mat_f, const void *mat_i, const void *tex_f,             \
-        const void *tex_i, const void *bvh_f, const void *bvh_i,             \
-        const void *prim_i
+        const void *tex_i, const void *wbvh, const void *wsph_f,             \
+        const void *wsph_i, const void *wquad_f, const void *wquad_i
 #define RT_TABLES sph_f, sph_m, quad_f, quad_m, med_f, med_i, mat_f, mat_i,  \
-                  tex_f, tex_i, bvh_f, bvh_i, prim_i
+                  tex_f, tex_i, wbvh, wsph_f, wsph_i, wquad_f, wquad_i
 
 rt::SceneTables make_tables(RT_TABLE_ARGS, const void* img_f) {
     rt::SceneTables sc;
@@ -1015,9 +1181,11 @@ rt::SceneTables make_tables(RT_TABLE_ARGS, const void* img_f) {
     sc.tex_f = static_cast<const float*>(tex_f);
     sc.tex_i = static_cast<const int*>(tex_i);
     sc.img_f = static_cast<const float*>(img_f);
-    sc.bvh_f = static_cast<const float4*>(bvh_f);
-    sc.bvh_i = static_cast<const int4*>(bvh_i);
-    sc.prim_i = static_cast<const int2*>(prim_i);
+    sc.wbvh = static_cast<const float4*>(wbvh);
+    sc.wsph_f = static_cast<const float4*>(wsph_f);
+    sc.wsph_i = static_cast<const int*>(wsph_i);
+    sc.wquad_f = static_cast<const float4*>(wquad_f);
+    sc.wquad_i = static_cast<const int*>(wquad_i);
     return sc;
 }
 
@@ -1054,6 +1222,30 @@ const void* render_fn(int noise, int image, int bvh, int staged) {
     if (noise) return render_fn<true, false>(bvh, staged);
     if (image) return render_fn<false, true>(bvh, staged);
     return render_fn<false, false>(bvh, staged);
+}
+
+// record_kernel (which 1) or hit_kernel (which 2), with or without the walk.
+const void* search_fn(int which, int bvh) {
+    if (which == 1)
+        return bvh ? (const void*)rt::record_kernel<true>
+                   : (const void*)rt::record_kernel<false>;
+    return bvh ? (const void*)rt::hit_kernel<true>
+               : (const void*)rt::hit_kernel<false>;
+}
+
+// out[0] blocks an SM holds with `threads` threads and `smem` bytes of
+// dynamic shared memory, out[1] registers a thread, out[2] local memory a
+// thread in bytes (spills and stack), out[3] threads.
+int resources(const void* fn, int threads, int smem, int* out) {
+    cudaFuncAttributes attr;
+    int err = (int)cudaFuncGetAttributes(&attr, fn);
+    if (err != 0) return err;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn,
+                                                             threads, smem);
+    out[1] = attr.numRegs;
+    out[2] = (int)attr.localSizeBytes;
+    out[3] = threads;
+    return err;
 }
 
 }  // namespace
@@ -1096,23 +1288,22 @@ extern "C" int rt_render_launch(RT_TABLE_ARGS, const void* img_f,
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// The resources of the render kernel's instantiation for these flags:
-// out[0] blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor at
-// RENDER_THREADS threads and `stage_bytes` of shared memory), out[1]
-// registers a thread, out[2] local memory a thread in bytes (spills and
-// stack), out[3] RENDER_THREADS. Returns a CUDA error code.
+// The resources of the render kernel's instantiation for these flags (at
+// RENDER_THREADS threads and `stage_bytes` of shared memory): see
+// resources(). Returns a CUDA error code.
 extern "C" int rt_render_occupancy(int noise, int image, int bvh,
                                    int stage_bytes, int* out) {
-    const void* fn = render_fn(noise, image, bvh, stage_bytes > 0);
-    cudaFuncAttributes attr;
-    int err = (int)cudaFuncGetAttributes(&attr, fn);
-    if (err != 0) return err;
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[0], fn, rt::RENDER_THREADS, (size_t)stage_bytes);
-    out[1] = attr.numRegs;
-    out[2] = (int)attr.localSizeBytes;
-    out[3] = rt::RENDER_THREADS;
-    return err;
+    return resources(render_fn(noise, image, bvh, stage_bytes > 0),
+                     rt::RENDER_THREADS, stage_bytes, out);
+}
+
+// The resources of record_kernel (which 1) or hit_kernel (which 2) with or
+// without the walk: see resources(). Returns a CUDA error code.
+extern "C" int rt_search_occupancy(int which, int bvh, int* out) {
+    if (which != 1 && which != 2) return (int)cudaErrorInvalidValue;
+    return resources(search_fn(which, bvh),
+                     which == 1 ? rt::BLOCK_X * rt::BLOCK_Y : rt::HIT_BLOCK,
+                     0, out);
 }
 
 // Launch the path recorder on `stream` over the same pixel range; `out_rec`
@@ -1128,23 +1319,22 @@ extern "C" int rt_record_launch(RT_TABLE_ARGS, const void* params,
         return (int)cudaErrorInvalidValue;
     const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int* out = static_cast<int*>(out_rec);
+    int* cnt = static_cast<int*>(counters);
     (void)cudaGetLastError();
     if (p.use_bvh)
-        rt::record_kernel<true><<<grid, block, 0, st>>>(
-            sc, p, row0, static_cast<int*>(out_rec),
-            static_cast<int*>(counters));
+        rt::record_kernel<true><<<grid, block, 0, st>>>(sc, p, row0, out, cnt);
     else
-        rt::record_kernel<false><<<grid, block, 0, st>>>(
-            sc, p, row0, static_cast<int*>(out_rec),
-            static_cast<int*>(counters));
+        rt::record_kernel<false><<<grid, block, 0, st>>>(sc, p, row0, out,
+                                                         cnt);
     return (int)cudaGetLastError();
 }
 
-// Launch the one-bounce hit kernel on `stream` over `n` lanes: ox..time f32,
-// pix and samp int32, alive bool, each (n,); `out` (n,) int32 records;
-// `counters` null or (n, 3) int32 as for the render. Only `params`' counts,
-// seed and BVH fields are read. Does not synchronise. Returns
-// cudaGetLastError().
+// Launch the one-bounce hit kernel on `stream` over `n` lanes, one thread a
+// lane: ox..time f32, pix and samp int32, alive bool, each (n,); `out` (n,)
+// int32 records; `counters` null or (n, 3) int32 as for the render. Only
+// `params`' counts, seed and BVH fields are read. Does not synchronise.
+// Returns cudaGetLastError().
 extern "C" int rt_hit_launch(RT_TABLE_ARGS, const void* params,
                              const void* ox, const void* oy, const void* oz,
                              const void* dx, const void* dy, const void* dz,

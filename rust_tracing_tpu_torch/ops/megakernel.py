@@ -18,8 +18,10 @@ kernel's record mode): the same trace, writing the winner record
 (ops/replay.py, grad.py); and the one-bounce hit kernel (``hit_kernel``, the
 reference kernel's hit mode), the search of the sorted deferred wavefront
 (ops/wavefront.py). Past ``BVH_KERNEL_THRESHOLD`` primitives (or with
-``use_bvh``) all three walk the kernel BVH (``build_kernel_bvh``, the
-reference kernel's BVH branch) instead of testing every primitive.
+``use_bvh``) all three walk a BVH instead of testing every primitive: the
+reference kernel's BVH branch, over the card's tree (``widen_kernel_bvh``
+of a ``build_kernel_bvh`` tree, laid out by ``pack_wide``; its plain walk
+is ``walk_wide_plain``).
 
 Three layers live here:
 
@@ -75,6 +77,28 @@ BVH_KERNEL_THRESHOLD = 1024
 
 # Leaf runs of the kernel BVH hold up to this many primitives.
 BVH_LEAF_SIZE = 16
+
+# The card's tree (``widen_kernel_bvh``): the kernel BVH collapsed into nodes
+# of BVH_WIDTH children, walked near child first with a stack of WALK_STACK
+# entries a thread (csrc/render_kernel.cu mirrors all three). The binary
+# tree it collapses has leaves of BVH_CARD_LEAF_SIZE primitives. Width and
+# leaf size are the card's own, chosen by measurement (PERF.md §6): on
+# final_scene's fused frame single-primitive leaves beat leaves of 2, 4, 8
+# and 16, and 4-wide nodes beat 8-wide ones at every leaf size. The walk
+# reads the tree through the read-only path: final_scene's (237 KB) fits no
+# block's shared memory, and its leaf-16 tree (17 KB) staged there measured
+# slower than through L1.
+BVH_WIDTH = 4
+BVH_CARD_LEAF_SIZE = 1
+WALK_STACK = 48
+EMPTY_SLOT = -(1 << 31)
+# The card's boxes are the binary tree's, widened outward by this share of
+# the scene's scale (its largest coordinate plus its diagonal) and rounded
+# outward to f32: a primitive's f32 hit may lie a few ulps of that scale
+# outside its exact box, and the slab test's own f32 rounding moves the
+# box's faces by as much, so an exact box can drop a winner that grazes a
+# face or edge. A larger box only adds visits.
+BOX_PAD = 2.0 ** -17
 
 # Lanes x primitives per step of the plain search: bounds its temporaries.
 SEARCH_CHUNK = 1 << 23
@@ -141,6 +165,12 @@ class PackedScene:
     bvh_f: np.ndarray   # (N,6) f32: node min xyz, max xyz
     bvh_i: np.ndarray   # (N,4) i32: skip start count scount (count 0: inner)
     prim_i: np.ndarray  # (P,2) i32: kind (0 sphere, 1 quad) idx, leaf order
+    # the card's tree (``pack_wide``; one zero row each without a tree)
+    wbvh: np.ndarray    # (U,4) i32: wide nodes and leaf headers
+    wsph_f: np.ndarray  # (S,8) f32: sphere rows in leaf order
+    wsph_i: np.ndarray  # (S,) i32: their packed indices
+    wquad_f: np.ndarray  # (Q,16) f32: quad rows in leaf order
+    wquad_i: np.ndarray  # (Q,) i32
     n_spheres: int = 0
     n_quads: int = 0
     n_media: int = 0
@@ -153,10 +183,12 @@ class PackedScene:
     n_nodes: int = 1
 
     # the kernels' pointer arguments, in order (the render kernel also takes
-    # ``img_f``). On the device ``bvh_f`` is padded to (N,8): two 16-byte
-    # loads a node.
+    # ``img_f``). The binary tree's tables (``bvh_f``, ``bvh_i``,
+    # ``prim_i``) are the reference's layout, from which the card's
+    # derives: no kernel reads them.
     TABLES = ("sph_f", "sph_m", "quad_f", "quad_m", "med_f", "med_i",
-              "mat_f", "mat_i", "tex_f", "tex_i", "bvh_f", "bvh_i", "prim_i")
+              "mat_f", "mat_i", "tex_f", "tex_i", "wbvh", "wsph_f", "wsph_i",
+              "wquad_f", "wquad_i")
 
 
 def _np(t) -> np.ndarray:
@@ -165,10 +197,11 @@ def _np(t) -> np.ndarray:
 
 
 def pack_scene(scene, bvh=None) -> PackedScene:
-    """Pack a CompiledScene (and a ``KernelBVH`` of it, if given) into the
-    kernel's tables. Derived quantities (r^2, 1/r, quad normal, w, d) are
-    computed in float64 from the scene's f32 leaves and rounded once, exactly
-    as the reference pack does."""
+    """Pack a CompiledScene (and a ``KernelBVH`` of it, if given, with the
+    card's tree: ``widen_kernel_bvh`` of the scene's kernel BVH with leaves
+    of BVH_CARD_LEAF_SIZE) into the kernel's tables. Derived quantities
+    (r^2, 1/r, quad normal, w, d) are computed in float64 from the scene's
+    f32 leaves and rounded once, exactly as the reference pack does."""
     f64 = lambda a: _np(a).astype(np.float64)
     sv = _np(scene.sph_valid)
     qv = _np(scene.quad_valid)
@@ -248,23 +281,31 @@ def pack_scene(scene, bvh=None) -> PackedScene:
     img_f = np.ascontiguousarray(
         img.reshape(-1, 3).T.astype(np.float32).reshape(3, ih, iw))
 
-    # the kernel BVH (megakernel.py:204-213); one zero row each without it
+    # the kernel BVH (megakernel.py:204-213) and the card's tree; one zero
+    # row each without them
     if bvh is not None:
         bvh_f = np.concatenate([bvh.node_min, bvh.node_max],
                                -1).astype(np.float32)
         bvh_i = np.stack([bvh.skip, bvh.leaf_start, bvh.leaf_count,
                           bvh.leaf_scount], -1).astype(np.int32)
         prim_i = bvh.prim_stream.astype(np.int32)
+        wide = pack_wide(widen_kernel_bvh(
+            build_kernel_bvh(scene, BVH_CARD_LEAF_SIZE)), sph_f, quad_f)
     else:
         bvh_f = np.zeros((1, 6), np.float32)
         bvh_i = np.zeros((1, 4), np.int32)
         prim_i = np.zeros((1, 2), np.int32)
+        wide = dict(wbvh=np.zeros((1, 4), np.int32),
+                    wsph_f=np.zeros((1, SPH_F), np.float32),
+                    wsph_i=np.zeros(1, np.int32),
+                    wquad_f=np.zeros((1, QUAD_F), np.float32),
+                    wquad_i=np.zeros(1, np.int32))
 
     return PackedScene(
         sph_f=sph_f, sph_m=sph_m, quad_f=quad_f, quad_m=quad_m,
         med_f=med_f, med_i=med_i, mat_f=mat_f, mat_i=mat_i,
         tex_f=tex_f, tex_i=tex_i, img_f=img_f,
-        bvh_f=bvh_f, bvh_i=bvh_i, prim_i=prim_i,
+        bvh_f=bvh_f, bvh_i=bvh_i, prim_i=prim_i, **wide,
         n_spheres=S, n_quads=Q, n_media=M,
         has_checker=bool((tex_types == TEX_CHECKER).any()),
         has_noise=bool((tex_types == TEX_NOISE).any()),
@@ -287,16 +328,10 @@ class KernelBVH:
     prim_stream: np.ndarray  # (P,2) i32: kind idx, leaf order, spheres first
 
 
-def build_kernel_bvh(scene,
-                     leaf_size: int = BVH_LEAF_SIZE) -> Optional[KernelBVH]:
-    """Median-split BVH over the scene's valid primitives, flattened in
-    preorder with skip links, whose leaves hold runs of up to ``leaf_size``
-    primitives stored contiguously in a reordered stream, spheres first: the
-    kernel tests a leaf with two typed loops (megakernel.py:255-349).
-
-    The split axis is the box's largest extent. The tree decides which
-    primitives a ray tests, never which one wins. None for a scene without
-    primitives."""
+def prim_boxes(scene):
+    """(box_min, box_max, kind, index) of the scene's valid primitives in
+    float64 (models/bvh.py::primitive_boxes over the packed indices: kind 0
+    sphere, 1 quad)."""
     from ..models import bvh as bvh_mod
 
     sv = _np(scene.sph_valid)
@@ -312,7 +347,20 @@ def build_kernel_bvh(scene,
         num_spheres = int(sv.sum())
         num_quads = int(qv.sum())
 
-    box_min, box_max, ptype, pidx = bvh_mod.primitive_boxes(_B)
+    return bvh_mod.primitive_boxes(_B)
+
+
+def build_kernel_bvh(scene,
+                     leaf_size: int = BVH_LEAF_SIZE) -> Optional[KernelBVH]:
+    """Median-split BVH over the scene's valid primitives, flattened in
+    preorder with skip links, whose leaves hold runs of up to ``leaf_size``
+    primitives stored contiguously in a reordered stream, spheres first: the
+    kernel tests a leaf with two typed loops (megakernel.py:255-349).
+
+    The split axis is the box's largest extent. The tree decides which
+    primitives a ray tests, never which one wins. None for a scene without
+    primitives."""
+    box_min, box_max, ptype, pidx = prim_boxes(scene)
     n = len(pidx)
     if n == 0:
         return None
@@ -361,6 +409,258 @@ def build_kernel_bvh(scene,
         leaf_scount=np.asarray(lscount, np.int32),
         prim_stream=np.asarray(stream, np.int32).reshape(-1, 2),
     )
+
+
+@dataclasses.dataclass
+class WideBVH:
+    """The kernel BVH collapsed into nodes of up to W = BVH_WIDTH children
+    (``widen_kernel_bvh``): the card's tree. Child slots are packed to the
+    front of a node; a missing child is ``EMPTY_SLOT``."""
+
+    lo: np.ndarray       # (N,3,W) f32: each child's box min, rows x y z
+    hi: np.ndarray       # (N,3,W) f32: each child's box max
+    ref: np.ndarray      # (N,W) i32: wide node j >= 0, leaf ~l, EMPTY_SLOT
+    leaf: np.ndarray     # (L,4) i32: sphere row start, count, quad row
+    #                      start, count (rows in leaf order)
+    sph_idx: np.ndarray  # (S,) i32: packed sphere index of each leaf row
+    quad_idx: np.ndarray  # (Q,) i32: packed quad index of each leaf row
+    depth: int           # inner nodes on the longest root-to-leaf path
+
+
+def _f32_toward(x: np.ndarray, inf: float) -> np.ndarray:
+    """float64 ``x`` rounded to f32 toward ``inf`` (+inf or -inf)."""
+    y = x.astype(np.float32)
+    off = (y > x) if inf < 0 else (y < x)
+    return np.where(off, np.nextafter(y, np.float32(inf)), y)
+
+
+def widen_kernel_bvh(bvh: KernelBVH) -> WideBVH:
+    """Collapse the binary kernel BVH into a tree of up to BVH_WIDTH
+    children a node, for the card's walk (csrc/render_kernel.cu,
+    ``closest_surface<MODE, true>``).
+
+    A wide node takes the two children of a binary inner node and replaces
+    the inner child of largest surface area (the first of equal ones) by its
+    own two children, in place, until it holds BVH_WIDTH or only leaves.
+    Every wide child is a node of the binary tree, with that node's box
+    widened by BOX_PAD of the scene's scale and rounded outward to f32.
+    Leaves are the binary leaves, numbered in preorder, so their rows stay
+    contiguous runs in the binary stream's order, spheres first."""
+    width = BVH_WIDTH
+    scale = (np.abs(np.concatenate([bvh.node_min[0], bvh.node_max[0]])).max()
+             + np.linalg.norm(bvh.node_max[0] - bvh.node_min[0]))
+    pad = BOX_PAD * scale
+    lo_b = _f32_toward(bvh.node_min - pad, -np.inf)
+    hi_b = _f32_toward(bvh.node_max + pad, np.inf)
+    ext = bvh.node_max - bvh.node_min
+    area = (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+            + ext[:, 2] * ext[:, 0])
+    lcount, skip = bvh.leaf_count, bvh.skip
+
+    def children(i):
+        kids = [i + 1, int(skip[i + 1])]
+        while len(kids) < width:
+            inner = [k for k in kids if lcount[k] == 0]
+            if not inner:
+                break
+            j = max(inner, key=lambda k: (area[k], -kids.index(k)))
+            at = kids.index(j)
+            kids[at:at + 1] = [j + 1, int(skip[j + 1])]
+        return kids
+
+    nodes, leaves = [], []
+
+    def build(kids, depth):
+        me = len(nodes)
+        nodes.append(None)
+        refs, deepest = [], depth
+        for k in kids:
+            if lcount[k] > 0:
+                refs.append(~len(leaves))
+                leaves.append(k)
+            else:
+                j, d = build(children(k), depth + 1)
+                refs.append(j)
+                deepest = max(deepest, d)
+        nodes[me] = (kids, refs)
+        return me, deepest
+
+    _, depth = build([0] if lcount[0] > 0 else children(0), 1)
+    N, L = len(nodes), len(leaves)
+    lo = np.zeros((N, 3, width), np.float32)
+    hi = np.zeros((N, 3, width), np.float32)
+    ref = np.full((N, width), EMPTY_SLOT, np.int32)
+    for j, (kids, refs) in enumerate(nodes):
+        lo[j, :, :len(kids)] = lo_b[kids].T
+        hi[j, :, :len(kids)] = hi_b[kids].T
+        ref[j, :len(kids)] = refs
+    leaf = np.zeros((L, 4), np.int32)
+    sph, quad = [], []
+    for l, k in enumerate(leaves):
+        s, c, sc = (int(bvh.leaf_start[k]), int(bvh.leaf_count[k]),
+                    int(bvh.leaf_scount[k]))
+        leaf[l] = (len(sph), sc, len(quad), c - sc)
+        sph.extend(bvh.prim_stream[s:s + sc, 1])
+        quad.extend(bvh.prim_stream[s + sc:s + c, 1])
+    return WideBVH(lo=lo, hi=hi, ref=ref, leaf=leaf,
+                   sph_idx=np.asarray(sph, np.int32),
+                   quad_idx=np.asarray(quad, np.int32), depth=depth)
+
+
+def pack_wide(wide: WideBVH, sph_f: np.ndarray, quad_f: np.ndarray) -> dict:
+    """The card's tables of a wide tree: ``wbvh``, one int32 table of
+    16-byte units, the nodes (each 7W/4 units: the children's min x, y, z,
+    max x, y, z rows of W f32 each, then their W refs) followed by the leaf
+    headers (one unit each); a ref is the unit offset of a wide node, or
+    ``~unit`` of a leaf header. And the leaf rows: the packed sphere and
+    quad rows gathered in leaf order (``wsph_f``, ``wquad_f``) with their
+    packed indices (``wsph_i``, ``wquad_i``: the tie key and the winner's
+    row)."""
+    N, _, W = wide.lo.shape
+    if (W - 1) * wide.depth > WALK_STACK:
+        raise ValueError(f"a tree {wide.depth} nodes deep needs "
+                         f"{(W - 1) * wide.depth} stack entries, the walk has "
+                         f"{WALK_STACK}")
+    units = 7 * W // 4
+    words = np.zeros((N * 7 * W + 4 * len(wide.leaf),), np.int32)
+    body = words[:N * 7 * W].reshape(N, 7, W)
+    body[:, 0:3] = wide.lo.view(np.int32)
+    body[:, 3:6] = wide.hi.view(np.int32)
+    body[:, 6] = np.where(wide.ref >= 0, wide.ref * units,
+                          np.where(wide.ref == EMPTY_SLOT, EMPTY_SLOT,
+                                   ~(N * units + ~wide.ref)))
+    words[N * 7 * W:] = wide.leaf.reshape(-1)
+
+    def rows(table, idx, width):
+        out = table[idx] if len(idx) else np.zeros((1, width), np.float32)
+        return np.ascontiguousarray(out)
+
+    return dict(wbvh=words.reshape(-1, 4),
+                wsph_f=rows(sph_f, wide.sph_idx, SPH_F),
+                wsph_i=wide.sph_idx if len(wide.sph_idx) else
+                np.zeros(1, np.int32),
+                wquad_f=rows(quad_f, wide.quad_idx, QUAD_F),
+                wquad_i=wide.quad_idx if len(wide.quad_idx) else
+                np.zeros(1, np.int32))
+
+
+def walk_wide_plain(tables: dict, ox, oy, oz, dx, dy, dz, time):
+    """The card's walk of the wide tree, ray by ray in numpy f32, reading
+    the device tables (``wbvh``, the leaf rows) as the kernel does: the
+    plain version of its visiting order and counters. Children are taken
+    in order of slab entry t, equal t by slot; a node popped from the stack
+    is skipped when its entry t exceeds t_best; a primitive wins with the
+    tie rule (smaller t, or equal t and lower (kind, idx)). numpy does not
+    contract multiply-adds, and rounds each f32 operation as the kernel
+    does.
+
+    Returns (rec (n,) int32 ``kind<<24 | idx`` of the closest surface, 0 on
+    a miss; t (n,) f32; counters (n,3) int32: child boxes tested, spheres
+    tested, quads tested)."""
+    f32 = np.float32
+    width = BVH_WIDTH
+    words = _np(tables["wbvh"]).reshape(-1)
+    fw = words.view(np.float32)
+    sph, sid = _np(tables["wsph_f"]), _np(tables["wsph_i"])
+    quad, qid = _np(tables["wquad_f"]), _np(tables["wquad_i"])
+    ray = [_np(a).astype(np.float32) for a in (ox, oy, oz, dx, dy, dz, time)]
+    n = len(ray[0])
+    rec = np.zeros(n, np.int32)
+    t_out = np.full(n, np.inf, np.float32)
+    counts = np.zeros((n, 3), np.int32)
+    t_min, tiny, eps = f32(T_MIN), f32(1e-30), f32(QUAD_DENOM_EPS)
+    for k in range(n):
+        o = np.array([ray[0][k], ray[1][k], ray[2][k]], np.float32)
+        d = np.array([ray[3][k], ray[4][k], ray[5][k]], np.float32)
+        tm = ray[6][k]
+        inv = f32(1.0) / np.where(np.abs(d) < tiny, tiny, d)
+        a_len = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        inv_a = f32(1.0) / max(a_len, tiny)
+        t_best, best = f32(np.inf), 0
+        visits = n_sph = n_quad = 0
+        stack, cur = [], 0
+        while True:
+            if cur >= 0:
+                base = 4 * int(cur)
+                ref = words[base + 6 * width:base + 7 * width]
+                m = int((ref != EMPTY_SLOT).sum())
+                box = fw[base:base + 6 * width].reshape(6, width)[:, :m]
+                t0 = (box[0:3] - o[:, None]) * inv[:, None]
+                t1 = (box[3:6] - o[:, None]) * inv[:, None]
+                mn, mx = np.minimum(t0, t1), np.maximum(t0, t1)
+                tmn = np.maximum(np.maximum(mn[0], mn[1]),
+                                 np.maximum(mn[2], t_min))
+                tmx = np.minimum(np.minimum(mx[0], mx[1]),
+                                 np.minimum(mx[2], t_best))
+                visits += m
+                hits = sorted((c for c in range(m) if tmx[c] >= tmn[c]),
+                              key=lambda c: (tmn[c], c))
+                if hits:
+                    stack.extend((int(ref[c]), tmn[c])
+                                 for c in reversed(hits[1:]))
+                    cur = int(ref[hits[0]])
+                    continue
+            else:
+                s0, cs, q0, cq = (int(v) for v in
+                                  words[4 * ~cur:4 * ~cur + 4])
+                cand = []
+                if cs:
+                    s = sph[s0:s0 + cs]
+                    ocx = o[0] - (s[:, 0] + s[:, 5] * tm)
+                    ocy = o[1] - (s[:, 1] + s[:, 6] * tm)
+                    ocz = o[2] - (s[:, 2] + s[:, 7] * tm)
+                    half_b = ocx * d[0] + ocy * d[1] + ocz * d[2]
+                    c = ocx * ocx + ocy * ocy + ocz * ocz - s[:, 3]
+                    disc = half_b * half_b - a_len * c
+                    sq = np.sqrt(np.maximum(disc, f32(0.0)))
+                    r1 = (-half_b - sq) * inv_a
+                    r2 = (-half_b + sq) * inv_a
+                    t = np.where(r1 > t_min, r1,
+                                 np.where(r2 > t_min, r2, f32(np.inf)))
+                    t = np.where(disc > f32(0.0), t, f32(np.inf))
+                    cand += [(t[j], (1 << 24) | int(sid[s0 + j]))
+                             for j in range(cs)]
+                if cq:
+                    q = quad[q0:q0 + cq]
+                    nx, ny, nz = q[:, 9], q[:, 10], q[:, 11]
+                    denom = nx * d[0] + ny * d[1] + nz * d[2]
+                    safe = np.where(np.abs(denom) < tiny, tiny, denom)
+                    t = (q[:, 15] - (nx * o[0] + ny * o[1] + nz * o[2])) / safe
+                    hx = o[0] + t * d[0] - q[:, 0]
+                    hy = o[1] + t * d[1] - q[:, 1]
+                    hz = o[2] + t * d[2] - q[:, 2]
+                    ux, uy, uz = q[:, 3], q[:, 4], q[:, 5]
+                    vx, vy, vz = q[:, 6], q[:, 7], q[:, 8]
+                    wx, wy, wz = q[:, 12], q[:, 13], q[:, 14]
+                    alpha = (wx * (hy * vz - hz * vy)
+                             + wy * (hz * vx - hx * vz)
+                             + wz * (hx * vy - hy * vx))
+                    beta = (wx * (uy * hz - uz * hy)
+                            + wy * (uz * hx - ux * hz)
+                            + wz * (ux * hy - uy * hx))
+                    ok = ((np.abs(denom) >= eps) & (t >= t_min)
+                          & (alpha >= 0) & (alpha <= 1)
+                          & (beta >= 0) & (beta <= 1))
+                    t = np.where(ok, t, f32(np.inf))
+                    cand += [(t[j], (2 << 24) | int(qid[q0 + j]))
+                             for j in range(cq)]
+                for t, key in cand:  # the kernel's order: spheres, quads
+                    if t < t_best or (t == t_best and key < best):
+                        t_best, best = t, key
+                n_sph += cs
+                n_quad += cq
+            cur = None
+            while stack:
+                r, t = stack.pop()
+                if not t > t_best:
+                    cur = r
+                    break
+            if cur is None:
+                break
+        rec[k] = best if np.isfinite(t_best) else 0
+        t_out[k] = t_best
+        counts[k] = (visits, n_sph, n_quad)
+    return rec, t_out, counts
 
 
 def n_prims(scene) -> int:
@@ -435,6 +735,9 @@ def _packed_dev(scene, use_bvh: bool = False) -> Tuple[PackedScene, dict]:
     dev = scene.device
     host = {name: getattr(packed, name)
             for name in PackedScene.TABLES + ("img_f",)}
+    # the reference tree's nodes, two 16-byte rows each as the reference
+    # kernel reads them: no kernel of the port reads them, only the check of
+    # the pack against the reference's (tests/test_torch_bvh.py)
     host["bvh_f"] = np.pad(packed.bvh_f, ((0, 0), (0, 2)))
     tables = {name: torch.from_numpy(a).to(dev).contiguous()
               for name, a in host.items()}
@@ -531,9 +834,11 @@ _TABLE_SPEC = {
     "mat_i": (torch.int32, (2,), None),
     "tex_f": (torch.float32, (4,), None),
     "tex_i": (torch.int32, (3,), None),
-    "bvh_f": (torch.float32, (8,), "n_nodes"),
-    "bvh_i": (torch.int32, (4,), "n_nodes"),
-    "prim_i": (torch.int32, (2,), None),
+    "wbvh": (torch.int32, (4,), None),
+    "wsph_f": (torch.float32, (SPH_F,), None),
+    "wsph_i": (torch.int32, (), None),
+    "wquad_f": (torch.float32, (QUAD_F,), None),
+    "wquad_i": (torch.int32, (), None),
 }
 
 
@@ -572,8 +877,9 @@ def _check_image(tables: dict, p: RenderParams, dev) -> torch.Tensor:
 class RenderPlan(ctypes.Structure):
     """How the render kernel is launched; mirrors ``RenderPlan`` in
     csrc/render_kernel.cu. ``group``: threads a pixel. ``stage_bytes``: 0,
-    or the shared memory a block stages the scene tables in, with
-    ``mat_rows`` and ``tex_rows`` rows of the material and texture tables."""
+    or the shared memory a block of the brute loop stages the scene tables
+    in, with ``mat_rows`` and ``tex_rows`` rows of the material and texture
+    tables."""
 
     _fields_ = [("group", ctypes.c_int), ("stage_bytes", ctypes.c_int),
                 ("mat_rows", ctypes.c_int), ("tex_rows", ctypes.c_int)]
@@ -606,7 +912,7 @@ def render_plan(tables: dict, p: RenderParams) -> RenderPlan:
     """The render kernel's launch for these tables and params: the group
     from ``p.spp``; the tables staged in shared memory when the brute loop
     reads them and they fit STAGE_BUDGET_BYTES, else read from global
-    memory."""
+    memory (the BVH walk's always)."""
     mat_rows, tex_rows = tables["mat_f"].shape[0], tables["tex_f"].shape[0]
     if (tables["mat_i"].shape[0] != mat_rows
             or tables["tex_i"].shape[0] != tex_rows):
@@ -631,6 +937,20 @@ def render_occupancy(p: RenderParams, plan: RenderPlan) -> dict:
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
                 threads=out[3], group=plan.group,
                 stage_bytes=plan.stage_bytes)
+
+
+def search_occupancy(kernel: str, use_bvh: bool) -> dict:
+    """The card's resources for ``record_kernel`` or ``hit_kernel``, with or
+    without the BVH walk: blocks an SM holds, registers and local memory a
+    thread, threads a block. Needs the kernel library (a card)."""
+    from ..runtime import kernels
+
+    out = (ctypes.c_int * 4)()
+    which = {"record_kernel": 1, "hit_kernel": 2}[kernel]
+    kernels.check(kernels.load().rt_search_occupancy(
+        which, int(use_bvh), out), f"{kernel} occupancy")
+    return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
+                threads=out[3])
 
 
 def _counter_ptr(counters: Optional[torch.Tensor], rows: int, dev) -> int:

@@ -114,19 +114,22 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # 13 scene tables, img_f, params and plan (host pointers), out_rgb,
+        # 15 scene tables, img_f, params and plan (host pointers), out_rgb,
         # out_n, counters, stream
-        lib.rt_render_launch.argtypes = [vp] * 13 + [vp] * 7
+        lib.rt_render_launch.argtypes = [vp] * 15 + [vp] * 7
         lib.rt_render_launch.restype = ci
         # noise, image, bvh, stage_bytes, out (4 int32, host pointer)
         lib.rt_render_occupancy.argtypes = [ci, ci, ci, ci, vp]
         lib.rt_render_occupancy.restype = ci
-        # 13 scene tables, params (host pointer), out_rec, counters, stream
-        lib.rt_record_launch.argtypes = [vp] * 13 + [vp] * 4
+        # kernel (1 record, 2 hit), bvh, out (4 int32, host pointer)
+        lib.rt_search_occupancy.argtypes = [ci, ci, vp]
+        lib.rt_search_occupancy.restype = ci
+        # 15 scene tables, params (host pointer), out_rec, counters, stream
+        lib.rt_record_launch.argtypes = [vp] * 15 + [vp] * 4
         lib.rt_record_launch.restype = ci
-        # 13 scene tables, params, ox oy oz dx dy dz time pix samp alive, n,
+        # 15 scene tables, params, ox oy oz dx dy dz time pix samp alive, n,
         # bounce, out, counters, stream
-        lib.rt_hit_launch.argtypes = [vp] * 13 + [vp] * 11 + [cll, ci, vp,
+        lib.rt_hit_launch.argtypes = [vp] * 15 + [vp] * 11 + [cll, ci, vp,
                                                               vp, vp]
         lib.rt_hit_launch.restype = ci
         # col, n, idx, R, elem, out, stream

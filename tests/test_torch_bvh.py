@@ -189,6 +189,28 @@ def test_closest_hit_bvh_matches_jax():
                                atol=4 * np.spacing(np.abs(jt)).max())
     assert not math.isnan(float(th.t.sum()))
 
+    # the card's walk (its plain version: the wide tree, near child first)
+    # on the same rays: where the reference's winner is a surface, the same
+    # material at the same t (4 ulp); where it misses, a miss. Rays whose
+    # reference winner is a medium event in front are not compared.
+    packed, tables = tmk._packed_dev(tscene, True)
+    rec, t_w, _ = tmk.walk_wide_plain(
+        {k: tables[k] for k in ("wbvh", "wsph_f", "wsph_i", "wquad_f",
+                                "wquad_i")},
+        *org.T, *dirs.T, tim)
+    kind, idx = rec >> 24, rec & 0xFFFFFF
+    mat = np.where(kind == 1, packed.sph_m[np.where(kind == 1, idx, 0)],
+                   packed.quad_m[np.where(kind == 2, idx, 0)])
+    surf = np.asarray(jh.hit) & np.asarray(jh.is_surface)
+    miss = ~np.asarray(jh.hit)
+    assert surf.sum() > n // 4 and miss.sum() > 0
+    np.testing.assert_array_equal(kind[miss], 0)
+    assert (kind[surf] > 0).all()
+    np.testing.assert_array_equal(mat[surf], np.asarray(jh.mat_id)[surf])
+    js = np.asarray(jh.t)[surf]
+    np.testing.assert_allclose(t_w[surf], js, rtol=0,
+                               atol=4 * np.spacing(np.abs(js)).max())
+
 
 def test_closest_hit_bvh_keeps_thin_quads():
     """cornell_box's walls are quads whose padded boxes are thinner than one
