@@ -28,7 +28,12 @@ Phases:
              f64, time by kernel, beside the tile kernel) on 1024 to
              524 288 rows; the two forms timed around their crossover
              (scatter_routes: which use_segment_sum picks); the Perlin
-             turbulence kernel (B7) at 2^22 lanes
+             turbulence kernel (B7) at 2^22 lanes (its shared-memory
+             wavefront floor, and two_perlin_spheres' first replay bounce)
+             and its backward kernel (perlin_backward_kernel: positions bit
+             for bit, also on 2^22 - 37 lanes; d_ranvec within its
+             summation bound and near the plain version's own error; two
+             launches equal)
   main_path  render() of cornell_box at 600x600, 4096 spp, depth 8
   cli        the command-line entry point writes a PNG
   deferred_path
@@ -42,7 +47,8 @@ Phases:
              through B8
   grad_textures
              loss_and_grad() of two_perlin_spheres and earth at 400x225,
-             32 spp, depth 8 w.r.t. every float leaf
+             32 spp, depth 8 w.r.t. every float leaf (two_perlin_spheres
+             through perlin_backward_kernel)
   grad_path  loss_and_grad() of cornell_box at 600x600, 200 spp, depth 8
              w.r.t. every float scene leaf (the record/replay gradient), then
              the L2 loss of the same workload
@@ -257,6 +263,13 @@ FLOP_PER_CAMERA_RAY = 60
 # and per corner 14 (3 weight products, 3 offsets, 5 of the dot product, 3
 # of the accumulation); 7 octaves x 8 corners.
 TURB_OPS = 7 * (15 + 8 * 14)
+# Its backward, counted from perlin_backward_kernel: pass 1 is the forward's
+# octave sum, then the sign and g * sign (2); pass 2 per octave 15 as above,
+# 9 of the Hermite derivatives 6u(1-u), 1 of the octave's cotangent and 9
+# of the position sums, and per corner 35 (3 offsets, 5 of the dot, 2 of
+# the weight, 18 of the noise gradient, 4 of the ranvec terms, 3 of the
+# table adds).
+TURB_BWD_OPS = TURB_OPS + 2 + 7 * (15 + 9 + 1 + 9 + 8 * 35)
 # B8's hash turbulence adds per corner three hashes of ~11 integer
 # operations each (3 multiplies, 3 adds, the 5-step mixer) and 3 of the
 # gradient's scale; its marble 6 more. The image arm's polynomial UV is ~45.
@@ -357,21 +370,52 @@ def _kernel_events(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, reps):
-    """Mean device time of one call of ``fn``, in ms: the summed duration
-    of the device work it launches, from torch.profiler, over ``reps`` calls
-    after a warm-up. Unlike CUDA events around a loop of calls, this does
-    not include the host's time between launches."""
+# The profiler's device clock drifts early against its host clock as a
+# process ages (~5 ms after ~8 min), and it drops device work stamped before
+# its trace's start: a profile first waits this long, and one that lost a
+# kernel is taken again (profiled_events).
+PROFILE_SETTLE_S = 0.05
+PROFILE_TRIES = 3
+PROFILES = {"taken": 0, "dropped": 0}
+
+
+def profiled_events(fn, reps):
+    """(name, device microseconds) of the device work of ``reps`` calls of
+    ``fn`` after a warm-up, from torch.profiler. The calls launch the same
+    work each time, so every name must come ``reps`` times a whole number:
+    a profile where one does not lost some of it, and is taken again, up to
+    PROFILE_TRIES times; then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(us for _, us in _kernel_events(prof)) / 1e3 / reps
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = _kernel_events(prof)
+        counts = {}
+        for name, _ in events:
+            counts[name] = counts.get(name, 0) + 1
+        short = {n: c for n, c in counts.items() if c % reps}
+        PROFILES["taken"] += 1
+        if events and not short:
+            return events
+        PROFILES["dropped"] += 1
+        say("profile_dropped", reps=reps, events=len(events),
+            short={_kernel_name(n): c for n, c in short.items()})
+    fail(f"the profiler lost device work in {PROFILE_TRIES} profiles running")
+
+
+def device_ms(fn, reps):
+    """Mean device time of one call of ``fn``, in ms: the summed duration
+    of the device work it launches over ``reps`` calls (profiled_events).
+    Unlike CUDA events around a loop of calls, this does not include the
+    host's time between launches."""
+    return sum(us for _, us in profiled_events(fn, reps)) / 1e3 / reps
 
 
 def once_ms(fn):
@@ -740,17 +784,8 @@ def pipeline_ms(fn, reps):
     """Device ms of one call of ``fn``, in all and by kernel (torch.profiler
     over ``reps`` calls after a warm-up), and the device work it launched
     that is neither one of the segment sum's kernels nor a fill."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     by, other = {}, set()
-    for name, us in _kernel_events(prof):
+    for name, us in profiled_events(fn, reps):
         key = _kernel_name(name)
         by[key] = by.get(key, 0.0) + us / 1e3 / reps
         if not any(a in name for a in SEG_ALLOWED):
@@ -875,26 +910,124 @@ def scatter_routes(reps=5):
     return cells
 
 
-def compare_perlin(reps=10):
-    """The turbulence kernel (B7) against its plain version at the replay
-    wavefront's size: bit for bit, f32 (and f64 on fewer lanes). Positions
-    from a seeded numpy draw over [-300, 300]^3: negative lattice cells and
-    final_scene's coordinate range."""
+def sm_clock_mhz():
+    """The card's maximum SM clock (nvidia-smi), in MHz."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def _load_wavefronts(addr, banks, lanes):
+    """Wavefronts of one warp-wide shared-memory load per row of ``addr``
+    (a row = a warp's 32 lane addresses, in units of the access width):
+    ``lanes`` lanes are served together (32 for a 32-bit load, 8 for a
+    128-bit one), and a group of them costs the largest number of distinct
+    addresses any one of its ``banks`` banks (bank groups) holds; equal
+    addresses broadcast."""
+    a = addr.reshape(-1, lanes).sort(dim=1).values
+    first = torch.ones_like(a, dtype=torch.int32)
+    first[:, 1:] = (a[:, 1:] != a[:, :-1]).to(torch.int32)
+    per_bank = torch.zeros((a.shape[0], banks), dtype=torch.int32,
+                           device=a.device)
+    per_bank.scatter_add_(1, (a % banks).long(), first)
+    return int(per_bank.max(dim=1).values.sum())
+
+
+def smem_wavefronts(tabs, pos, depth=pf.DEPTH):
+    """Shared-memory wavefronts of perlin_kernel's gathers (f32) for these
+    lanes, by warps of 32 consecutive lanes: (counted, conflict_free).
+    Each octave a lane reads 3 packed permutation words (32-bit, word
+    a * 256 + (i & 255) of axis a) and 8 replicated gradient rows (128-bit,
+    slot 8 h + lane % 8). Conflict-free, a warp-octave costs 3 x 1 + 8 x 4
+    wavefronts. The staging (~0.6 % more) is left out."""
+    perms = tabs[1:]
+    R = pos[0].numel() // 32 * 32
+    xyz = [p.reshape(-1)[:R] for p in pos]
+    slot_lane = (torch.arange(R, device=xyz[0].device) % 8).to(torch.int32)
+    counted = 0
+    s = 1.0
+    for _ in range(depth):
+        cells = [torch.floor(p * s).to(torch.int32) & 255 for p in xyz]
+        hs = []
+        for a, (c, q) in enumerate(zip(cells, perms)):
+            counted += _load_wavefronts(a * 256 + c, 32, 32)
+            hs.append((q[c.long()], q[((c + 1) & 255).long()]))
+        for di in (0, 1):
+            for dj in (0, 1):
+                for dk in (0, 1):
+                    h = hs[0][di] ^ hs[1][dj] ^ hs[2][dk]
+                    counted += _load_wavefronts(h * 8 + slot_lane, 8, 8)
+        s *= 2.0
+    return counted, R // 32 * depth * (3 + 8 * 4)
+
+
+def real_bounce_lanes():
+    """Tables and positions of two_perlin_spheres' first replay bounce at
+    the texture gradient's frame (GRAD_TEX_WIDTH @ GRAD_TEX_SPP): the first
+    turbulence call of its deferred render."""
+    from rust_tracing_tpu_torch.ops import textures
+
+    seen = []
+    orig = textures.perlin_fused.turbulence
+
+    def keep(*a, **k):
+        if not seen:
+            seen.append([t.detach().clone() for t in a[:7]])
+        return orig(*a, **k)
+
+    scene, camera = texture_scene("two_perlin_spheres", width=GRAD_TEX_WIDTH,
+                                  spp=GRAD_TEX_SPP, depth=GRAD_DEPTH)
+    textures.perlin_fused.turbulence = keep
+    try:
+        rt.render(scene, camera, seed=6)
+    finally:
+        textures.perlin_fused.turbulence = orig
+    return seen[0][:4], seen[0][4:]
+
+
+def turb_inputs(dtype=torch.float32, lanes=TURB_LANES):
+    """The turbulence compares' inputs: seeded tables, positions over
+    [-300, 300]^3 (negative lattice cells and final_scene's coordinate
+    range), a seeded normal cotangent."""
     rv, px, py, pz = perlin.make_tables(5)
-    tabs = (torch.from_numpy(rv).float().to(DEVICE),
+    tabs = (torch.from_numpy(rv).to(dtype).to(DEVICE),
             *[torch.from_numpy(q).to(DEVICE) for q in (px, py, pz)])
     pts = np.random.default_rng(7).uniform(-TURB_RANGE, TURB_RANGE,
-                                           (3, TURB_LANES)).astype(np.float32)
-    pos = [torch.from_numpy(a).to(DEVICE) for a in pts]
+                                           (3, lanes)).astype(np.float32)
+    pos = [torch.from_numpy(a).to(dtype).to(DEVICE) for a in pts]
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        lanes).astype(np.float32)).to(dtype).to(DEVICE)
+    return tabs, pos, g
+
+
+def smem_floor_ms(wavefronts):
+    """One wavefront a clock on every SM at the card's maximum SM clock."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return wavefronts / (n_sm * sm_clock_mhz() * 1e6) * 1e3
+
+
+def compare_perlin(reps=10):
+    """The turbulence kernel (B7) against its plain version at the replay
+    wavefront's size: bit for bit, f32 (and f64 on fewer lanes); timed
+    there and on two_perlin_spheres' first replay bounce; its shared-memory wavefront floor beside the
+    operation bound."""
+    tabs, pos, _ = turb_inputs()
     got = pf.turbulence_kernel(*tabs, *pos)
     ref, plain_ms = once_ms(lambda: pf.turbulence_plain(*tabs, *pos))
-    pos64 = [a[:65536].double() for a in pos]
-    same64 = torch.equal(pf.turbulence_kernel(*tabs, *pos64),
-                         pf.turbulence_plain(*tabs, *pos64))
+    tabs64, pos64, _ = turb_inputs(torch.float64, 65536)
+    same64 = torch.equal(pf.turbulence_kernel(*tabs64, *pos64),
+                         pf.turbulence_plain(*tabs64, *pos64))
     ms = device_ms(lambda: pf.turbulence_kernel(*tabs, *pos), reps)
     call = time_ms(lambda: pf.turbulence_kernel(*tabs, *pos), reps)
     t_ops = TURB_LANES * TURB_OPS / PEAK_FP32_FLOPS * 1e3
     t_bytes, _ = bytes_bound(TURB_LANES * 16 + 4 * 256 * 4)
+    counted, free = smem_wavefronts(tabs, pos)
+    rb_tabs, rb_pos = real_bounce_lanes()
+    rb_ms = device_ms(lambda: pf.turbulence_kernel(*rb_tabs, *rb_pos), reps)
+    rb_same = torch.equal(pf.turbulence_kernel(*rb_tabs, *rb_pos),
+                          pf.turbulence_plain(*rb_tabs, *rb_pos))
+    rb_counted, rb_free = smem_wavefronts(rb_tabs, rb_pos)
     res = dict(kernel="perlin_kernel", lanes=TURB_LANES, range=TURB_RANGE,
                ops_per_lane=TURB_OPS,
                differ=int((got != ref).sum().item()),
@@ -904,12 +1037,117 @@ def compare_perlin(reps=10):
                kernel_ms=ms, call_ms=call, plain_ms=plain_ms,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops > t_bytes else "bytes",
-               bound_ops_ms=t_ops, bound_bytes_ms=t_bytes, library_ms=None)
+               bound_ops_ms=t_ops, bound_bytes_ms=t_bytes, library_ms=None,
+               sm_clock_mhz=sm_clock_mhz(),
+               smem_wavefronts=counted, smem_wavefronts_conflict_free=free,
+               smem_floor_ms=smem_floor_ms(counted),
+               smem_floor_conflict_free_ms=smem_floor_ms(free),
+               real_bounce=dict(
+                   scene="two_perlin_spheres", width=GRAD_TEX_WIDTH,
+                   spp=GRAD_TEX_SPP, lanes=rb_pos[0].numel(),
+                   kernel_ms=rb_ms, bitwise_equal=rb_same,
+                   smem_floor_ms=smem_floor_ms(rb_counted),
+                   smem_floor_conflict_free_ms=smem_floor_ms(rb_free)))
     say("kernels", **res)
-    if res["differ"] or not same64 or not res["finite"]:
+    if res["differ"] or not same64 or not res["finite"] or not rb_same:
         fail(f"perlin_kernel: {res['differ']} of {TURB_LANES} lanes differ "
-             f"from the plain version (f64 equal: {same64})")
+             f"from the plain version (f64 equal: {same64}, real bounce "
+             f"equal: {rb_same})")
     return res
+
+
+def _bwd_sum_tolerance(R, depth, dtype):
+    """Largest number of additions a d_ranvec term goes through in the
+    backward kernel: its group's sum in lane order (<= 31), the warp
+    table's chain (one add a step of the warp: iterations x depth x 8), the
+    block's warp tables (7) and the partials in block order (blocks - 1).
+    |kernel - exact| <= that many units of roundoff x the row's sum of
+    |terms| (the standard bound for a sum in any tree)."""
+    blocks = kernels.load().rt_perlin_backward_blocks(R)
+    iters = -(-R // (blocks * 256))
+    adds = 31 + iters * depth * 8 + 7 + blocks - 1
+    unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
+    return adds, adds * unit
+
+
+# d_ranvec's error against the exact sum may be at most this many times the
+# plain version's own (the same terms summed in f32 in another fixed order;
+# seen: 1.035x f32, 1.017x f64). A lost or doubled term of typical size
+# (|g| ~ 1, weights ~ 0.1) is ~1e3 times the roundoff of either.
+BWD_PLAIN_ERR_MULTIPLE = 4.0
+
+
+def compare_perlin_backward(reps=10):
+    """The turbulence backward kernel against its plain version on the
+    forward compare's inputs: d_px, d_py, d_pz bit for bit (f32 at 2^22
+    lanes and at 2^22 - 37, where the last block's loop runs lanes past R;
+    f64 at 65 536); d_ranvec against the plain version's own terms summed
+    in float64, within the summation bound of _bwd_sum_tolerance and within
+    BWD_PLAIN_ERR_MULTIPLE times the plain version's error; two launches
+    equal bit for bit; timed at 2^22 lanes, with its bound."""
+    out = []
+    for dtype, lanes in ((torch.float32, TURB_LANES),
+                         (torch.float32, TURB_LANES - 37),
+                         (torch.float64, 65536)):
+        tabs, pos, g = turb_inputs(dtype, lanes)
+        got = pf.turbulence_backward_kernel(*tabs, *pos, g)
+        again = pf.turbulence_backward_kernel(*tabs, *pos, g)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ref, plain_ms = once_ms(
+            lambda: pf.turbulence_backward_plain(*tabs, *pos, g))
+        differ = sum(int((a != b).sum()) for a, b in zip(got[1:], ref[1:]))
+        _, _, _, terms = perlin.turbulence_vjp_c(tabs[0], *tabs[1:], *pos, g)
+        exact = torch.zeros((256, 3), dtype=torch.float64, device=DEVICE)
+        mag = torch.zeros_like(exact)
+        for h, c in terms:
+            idx, c64 = h.reshape(-1).long(), c.reshape(3, -1).double().t()
+            exact.index_add_(0, idx, c64)
+            mag.index_add_(0, idx, c64.abs())
+        del terms
+        adds, rel = _bwd_sum_tolerance(lanes, pf.DEPTH, dtype)
+        err = (got[0].double() - exact).abs()
+        unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
+        plain_err = float((ref[0].double() - exact).abs().max())
+        # a floor of one unit of the largest entry, should the plain sum be
+        # exact
+        near_plain = float(err.max()) <= BWD_PLAIN_ERR_MULTIPLE * max(
+            plain_err, unit * float(exact.abs().max()))
+        res = dict(kernel="perlin_backward_kernel", dtype=str(dtype),
+                   lanes=lanes, d_p_differ=differ, repeat_bitwise=repeat,
+                   d_ranvec_max_abs_err=float(err.max()),
+                   d_ranvec_err_over_bound=float((err / (rel * mag)).max()),
+                   d_ranvec_adds_bound=adds,
+                   d_ranvec_plain_max_abs_err=plain_err,
+                   d_ranvec_err_over_plain=float(err.max()) / plain_err
+                   if plain_err else None,
+                   d_ranvec_plain_multiple=BWD_PLAIN_ERR_MULTIPLE,
+                   d_ranvec_absmax=float(exact.abs().max()),
+                   plain_ms=plain_ms,
+                   finite=all(bool(torch.isfinite(t).all()) for t in got))
+        if not out:
+            res["kernel_ms"] = device_ms(
+                lambda: pf.turbulence_backward_kernel(*tabs, *pos, g), reps)
+            res["kernel_ms_positions_only"] = device_ms(
+                lambda: pf.turbulence_backward_kernel(*tabs, *pos, g,
+                                                      want_rv=False), reps)
+            t_ops = lanes * TURB_BWD_OPS / PEAK_FP32_FLOPS * 1e3
+            t_bytes, _ = bytes_bound(lanes * 28 + 3 * 256 * 4 * 2
+                                     + 3 * 256 * 4)
+            res.update(ops_per_lane=TURB_BWD_OPS, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops > t_bytes else "bytes",
+                       bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
+                       max_abs_err=res["d_ranvec_max_abs_err"],
+                       library_ms=None)
+        say("kernels", **res)
+        if (differ or not repeat or not res["finite"]
+                or not (err <= rel * mag).all() or not near_plain):
+            fail(f"perlin_backward_kernel ({dtype}, {lanes} lanes): {differ} "
+                 f"position gradients differ from the plain version, repeat "
+                 f"equal {repeat}, d_ranvec error "
+                 f"{res['d_ranvec_err_over_bound']} of its bound, "
+                 f"{res['d_ranvec_err_over_plain']} x the plain version's")
+        out.append(res)
+    return out[0]
 
 
 def hit_args(lanes, n_pix, samp_base=0):
@@ -1589,8 +1827,11 @@ def phase_grad_textures():
             fail(f"{name}: non-finite gradient leaves: {finite}")
         if not res["leaf_grad_absmax"] > 0:
             fail(f"{name}: the {leaf} gradient is zero")
-        if name == "two_perlin_spheres" and launches["perlin_kernel"] < 1:
-            fail("grad_textures did not launch perlin_kernel")
+        if name == "two_perlin_spheres" and (
+                launches["perlin_kernel"] < 1
+                or launches["perlin_backward_kernel"] < 1):
+            fail("grad_textures did not launch perlin_kernel and "
+                 "perlin_backward_kernel")
         if name == "earth" and (launches["segment_sum_kernel"] < 1
                                 or launches["radix_sort_kernel"] < 1):
             fail("grad_textures did not reduce the image gradient through "
@@ -1996,12 +2237,19 @@ def phase_distributed(main):
             env=env, capture_output=True, text=True,
             timeout=DIST_TIMEOUT_S)
         tr_s = time.perf_counter() - t0
-        # the CLI alone, with the occupancy report and a profiler trace
-        buf = io.StringIO()
+        # the CLI alone, with the occupancy report and a profiler trace, in
+        # a process of its own as a user runs it: in this process, minutes
+        # old by now, the profiler's device timestamps have drifted ~5 ms
+        # early against its host clock, and it drops device work stamped
+        # before the trace's start, as the first kernels of a short
+        # profiled render are
         prof_dir = os.path.join(tmp, "prof")
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(args + ["--report-occupancy", "--profile",
-                                  prof_dir, "-o", os.path.join(tmp, "plain")])
+        alone = subprocess.run(
+            [sys.executable, "-m", "rust_tracing_tpu_torch", *args,
+             "--report-occupancy", "--profile", prof_dir, "-o",
+             os.path.join(tmp, "plain")],
+            env=env, capture_output=True, text=True, timeout=DIST_TIMEOUT_S)
+        rc = alone.returncode
         tr_png = os.path.join(tmp, "tr.png")
         same = (res.returncode == 0 and rc == 0 and os.path.exists(tr_png)
                 and open(tr_png, "rb").read()
@@ -2009,7 +2257,7 @@ def phase_distributed(main):
         trace = os.path.join(prof_dir, "trace_rank0.json")
         traced = (os.path.exists(trace)
                   and "render_kernel" in open(trace).read())
-        occ = [ln for ln in buf.getvalue().splitlines()
+        occ = [ln for ln in alone.stdout.splitlines()
                if ln.startswith("occupancy per bounce")]
         say("distributed", check="cli_torchrun", rc=res.returncode,
             seconds=tr_s, png_equals_cli=same,
@@ -2017,8 +2265,9 @@ def phase_distributed(main):
                        if ln.startswith(("Mesh", "distributed"))],
             profile_has_render_kernel=traced, occupancy=occ)
         if not same:
-            fail(f"torchrun --distributed CLI: rc {res.returncode}, PNG "
-                 f"equal {same}\n{res.stdout[-2000:]}{res.stderr[-2000:]}")
+            fail(f"torchrun --distributed CLI: rc {res.returncode}, CLI "
+                 f"alone rc {rc}, PNG equal {same}\n{res.stdout[-2000:]}"
+                 f"{res.stderr[-2000:]}{alone.stderr[-2000:]}")
         if not (traced and occ):
             fail("the CLI's --profile trace holds no render_kernel, or "
                  "--report-occupancy printed nothing")
@@ -2394,6 +2643,7 @@ def main():
     segs = compare_segment_sums()
     scatter_routes()
     turb = compare_perlin()
+    turb_bwd = compare_perlin_backward()
     hits0, hits_deep = phase_hits()
     cross = phase_crossover()
 
@@ -2442,6 +2692,7 @@ def main():
     seg = segs[(524288, torch.float32)]
     srt = segs[(524288, "sort")]
     gl = grad["launches"]
+    say("profiler", **PROFILES)
     print(json.dumps({"kernels": [{
         "name": "render_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",
@@ -2540,6 +2791,26 @@ def main():
                  f"{TURB_RANGE}]^3 (the replay wavefront's budget); "
                  "launches from deferred_path, simple_light 600x337 @ 1024 "
                  "spp",
+        "smem_floor_ms": turb["smem_floor_ms"],
+        "smem_floor_conflict_free_ms": turb["smem_floor_conflict_free_ms"],
+        "sm_clock_mhz": turb["sm_clock_mhz"],
+        "real_bounce": turb["real_bounce"],
+    }, {
+        "name": "perlin_backward_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/perlin_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/perlin_tpu.py:164",
+        "launches": grad_tex["two_perlin_spheres"]["launches"][
+            "perlin_backward_kernel"],
+        "max_abs_err": turb_bwd["max_abs_err"],
+        "ms": turb_bwd["kernel_ms"], "plain_ms": turb_bwd["plain_ms"],
+        "bound_ms": turb_bwd["bound_ms"], "bound_by": turb_bwd["bound_by"],
+        "library_ms": None,
+        "shape": f"f32, {TURB_LANES} lanes over [-{TURB_RANGE}, "
+                 f"{TURB_RANGE}]^3, both outputs (d_px/d_py/d_pz bit for "
+                 "bit; max_abs_err of d_ranvec against its terms summed in "
+                 "float64); replaces the reference's jvp (XLA, no Pallas "
+                 "kernel); launches from grad_textures, two_perlin_spheres "
+                 f"{GRAD_TEX_WIDTH}x225 @ {GRAD_TEX_SPP} spp",
     }, {
         "name": "render_kernel_textures", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",

@@ -1,22 +1,25 @@
-"""Fused Perlin turbulence: CUDA kernel wrapper and autograd Function.
+"""Fused Perlin turbulence: CUDA kernel wrappers and autograd Functions.
 
 Counterpart of rust_tracing_tpu/ops/perlin_tpu.py, whose Pallas kernel
 (``_kernel``, called through ``turbulence``) fuses the whole 7-octave
 turbulence of the exact table noise into one dispatch. Here it is the
 hand-written CUDA kernel of ``csrc/perlin_kernel.cu`` (kernel B7): one thread
-per lane, the four 256-entry tables staged in shared memory, seven octaves x
-eight corners in registers. Its plain version is ``ops/perlin.py::
-turbulence_c``, which it equals bit for bit (same f32 or f64 operations in
-the same order, built without multiply-add contraction).
+per lane, the gradient rows replicated in shared memory so that a warp's
+128-bit loads meet no bank conflict, seven octaves x eight corners in
+registers. Its plain version is ``ops/perlin.py::turbulence_c``, which it
+equals bit for bit (same f32 or f64 operations in the same order, built
+without multiply-add contraction). The backward is a kernel too
+(``perlin_backward_kernel``, which the reference leaves to XLA); its plain
+version is ``turbulence_backward_plain``.
 
 ``turbulence`` is a ``torch.autograd.Function``:
 
 - forward: the kernel for CUDA tensors, the plain version for CPU tensors;
-- backward: the gradient of the plain version, recomputed by
-  ``torch.func.vjp`` (the reference's primitive delegates its jvp to the
-  XLA formulation the same way and has no backward kernel), so that it
-  also runs under vmap (jacrev's batched cotangents). Gradients
-  reach ``px, py, pz`` and ``ranvec``; the permutation tables are integers;
+- backward: ``_TurbulenceBackward``, the backward kernel for CUDA tensors
+  and its plain version for CPU tensors. It saves only the inputs.
+  Gradients reach ``px, py, pz`` and ``ranvec``; the permutation tables are
+  integers. Its vmap rule (jacrev's batched cotangents) runs one call a
+  batch row. It is not differentiable twice;
 - jvp: the plain version's jvp (``torch.func.jvp``), as the reference's
   ``_turb_jvp`` takes its tangent from the XLA formulation;
 - vmap: the reference's batching rule ``_turb_batch``, for batched points:
@@ -30,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..runtime.kernels import LAUNCHES
-from . import perlin
+from . import lanegather, perlin
 
 DEPTH = 7
 
@@ -54,30 +57,40 @@ def _check(ranvec, perms, pts):
     return dev, dtype
 
 
+def _tables(ranvec, perms, dtype):
+    """The kernels' table arguments: ranvec (256, 3) in the positions'
+    type, the permutations as int32; copies only where those differ."""
+    return ((ranvec.detach().to(dtype).contiguous(),)
+            + tuple(q.to(torch.int32).contiguous() for q in perms))
+
+
+def _cuda_only(name, dev, depth):
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if depth < 1:
+        raise ValueError(f"depth must be >= 1, got {depth}")
+
+
 def turbulence_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
                       depth: int = DEPTH) -> torch.Tensor:
     """One launch of the CUDA turbulence kernel over every lane of
-    ``px, py, pz`` (any shape, f32 or f64 CUDA tensors). Returns a tensor of
-    their shape. Launches on the current stream and does not synchronise.
-    CPU tensors are refused: the caller picks the plain version for those."""
+    ``px, py, pz`` (any shape, f32 or f64 CUDA tensors). Returns a tensor
+    of their shape. Launches on the current stream and does not
+    synchronise. CPU tensors are refused: the caller picks the plain
+    version for those."""
     dev, dtype = _check(ranvec, (perm_x, perm_y, perm_z), (px, py, pz))
-    if dev.type != "cuda":
-        raise ValueError(f"turbulence_kernel needs CUDA tensors, got {dev}")
-    if depth < 1:
-        raise ValueError(f"depth must be >= 1, got {depth}")
+    _cuda_only("turbulence_kernel", dev, depth)
     from ..runtime import kernels
 
     flat = [p.reshape(-1).contiguous() for p in (px, py, pz)]
-    rv = ranvec.detach().to(dtype).t().contiguous()          # (3, 256)
-    perms = torch.stack([q.to(torch.int32) for q in (perm_x, perm_y, perm_z)]
-                        ).contiguous()                         # (3, 256)
+    tabs = _tables(ranvec, (perm_x, perm_y, perm_z), dtype)
     out = torch.empty(flat[0].shape, dtype=dtype, device=dev)
     R = flat[0].numel()
     if R:
         lib = kernels.load()
         with torch.cuda.device(dev):
             err = lib.rt_perlin_launch(
-                rv.data_ptr(), perms.data_ptr(), *[f.data_ptr() for f in flat],
+                *[t.data_ptr() for t in tabs], *[f.data_ptr() for f in flat],
                 R, int(depth), int(dtype == torch.float64), out.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream)
         LAUNCHES["perlin_kernel"] += 1
@@ -90,6 +103,103 @@ def turbulence_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
     """Plain version of ``turbulence_kernel`` (ops/perlin.py)."""
     return perlin.turbulence_c(ranvec.to(px.dtype), perm_x, perm_y, perm_z,
                                px, py, pz, depth=depth)
+
+
+def turbulence_backward_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
+                               g, depth: int = DEPTH, want_p: bool = True,
+                               want_rv: bool = True):
+    """One call of the CUDA backward (``perlin_backward_kernel`` and, when
+    ``want_rv``, the partials' sum): the turbulence's vector-Jacobian
+    product for the cotangent ``g`` (the positions' shape). Returns
+    ``(d_ranvec, d_px, d_py, d_pz)``, None where not asked; ``d_ranvec``
+    is (256, 3) in the positions' type. Same bits on every call. Launches
+    on the current stream and does not synchronise; CPU tensors are
+    refused."""
+    dev, dtype = _check(ranvec, (perm_x, perm_y, perm_z), (px, py, pz, g))
+    _cuda_only("turbulence_backward_kernel", dev, depth)
+    from ..runtime import kernels
+
+    flat = [p.reshape(-1).contiguous() for p in (px, py, pz, g)]
+    tabs = _tables(ranvec, (perm_x, perm_y, perm_z), dtype)
+    R = flat[0].numel()
+    d_p = [torch.empty(flat[0].shape, dtype=dtype, device=dev)
+           for _ in range(3)] if want_p else [None] * 3
+    # no lanes, no launch: d_ranvec is then 0
+    d_rv = ((torch.empty if R else torch.zeros)(
+        (perlin.POINT_COUNT, 3), dtype=dtype, device=dev)
+        if want_rv else None)
+    if R and (want_p or want_rv):
+        lib = kernels.load()
+        blocks = lib.rt_perlin_backward_blocks(R)
+        partial = (torch.empty((blocks, perlin.POINT_COUNT, 3), dtype=dtype,
+                               device=dev) if want_rv else None)
+
+        def ptr(t):
+            return t.data_ptr() if t is not None else None
+
+        with torch.cuda.device(dev):
+            err = lib.rt_perlin_backward_launch(
+                *[t.data_ptr() for t in tabs], *[f.data_ptr() for f in flat],
+                R, int(depth), int(dtype == torch.float64), int(want_p),
+                int(want_rv), *[ptr(t) for t in d_p], ptr(partial),
+                ptr(d_rv), torch.cuda.current_stream(dev).cuda_stream)
+        LAUNCHES["perlin_backward_kernel"] += 1
+        kernels.check(err, "perlin backward kernel")
+    d_p = [d.reshape(px.shape) if d is not None else None for d in d_p]
+    return (d_rv, *d_p)
+
+
+def turbulence_backward_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
+                              g, depth: int = DEPTH, want_p: bool = True,
+                              want_rv: bool = True):
+    """Plain version of ``turbulence_backward_kernel``: the per-lane
+    formulas of ``perlin.turbulence_vjp_c``, whose ``ranvec`` terms are
+    summed by the gathers' deterministic transpose
+    (``lanegather.scatter_sum_cols``, what ``ops/tgather.py``'s backward
+    runs), never ``index_put_``. ``d_px, d_py, d_pz`` equal the kernel's bit
+    for bit; ``d_ranvec`` adds the same terms in another order."""
+    dx, dy, dz, terms = perlin.turbulence_vjp_c(
+        ranvec.detach().to(px.dtype), perm_x, perm_y, perm_z, px, py, pz, g,
+        depth, want_terms=want_rv)
+    d_rv = None
+    if want_rv:
+        d_rv = torch.zeros((perlin.POINT_COUNT, 3), dtype=px.dtype,
+                           device=px.device)
+        for h, c in terms:
+            d_rv = d_rv + lanegather.scatter_sum_cols(
+                c.reshape(3, -1), h.reshape(-1), perlin.POINT_COUNT).t()
+    return (d_rv,) + ((dx, dy, dz) if want_p else (None, None, None))
+
+
+class _TurbulenceBackward(torch.autograd.Function):
+    """The turbulence's backward as a Function: the kernel for CUDA tensors,
+    its plain version for CPU tensors. Under vmap (jacrev's batched
+    cotangents) its rule runs one call a batch row. Returns the requested
+    gradients only, in the order d_ranvec, d_px, d_py, d_pz."""
+
+    @staticmethod
+    def forward(ranvec, perm_x, perm_y, perm_z, px, py, pz, g, depth,
+                want_p, want_rv):
+        run = (turbulence_backward_plain if px.device.type == "cpu"
+               else turbulence_backward_kernel)
+        got = run(ranvec, perm_x, perm_y, perm_z, px, py, pz, g, depth,
+                  want_p, want_rv)
+        return tuple(t for t in got if t is not None)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, ranvec, perm_x, perm_y, perm_z, px, py, pz, g,
+             depth, want_p, want_rv):
+        args = (ranvec, perm_x, perm_y, perm_z, px, py, pz, g)
+        rows = [_TurbulenceBackward.apply(
+            *[a if d is None else a.select(d, b)
+              for a, d in zip(args, in_dims[:8])],
+            depth, want_p, want_rv) for b in range(info.batch_size)]
+        out = tuple(torch.stack(col) for col in zip(*rows))
+        return out, (0,) * len(out)
 
 
 class _Turbulence(torch.autograd.Function):
@@ -111,20 +221,17 @@ class _Turbulence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ranvec, perm_x, perm_y, perm_z, px, py, pz = ctx.saved_tensors
-        leaves = (ranvec, px, py, pz)
-        asked = [i for i, j in enumerate((0, 4, 5, 6))
-                 if ctx.needs_input_grad[j]]
-
-        def plain(*vals):
-            full = list(leaves)
-            for i, v in zip(asked, vals):
-                full[i] = v
-            return turbulence_plain(full[0], perm_x, perm_y, perm_z,
-                                    *full[1:], ctx.depth)
-
-        _, vjp = torch.func.vjp(plain, *[leaves[i] for i in asked])
-        got = dict(zip(asked, vjp(g)))
-        d_rv, d_px, d_py, d_pz = (got.get(i) for i in range(4))
+        want_rv = ctx.needs_input_grad[0]
+        want_p = any(ctx.needs_input_grad[4:7])
+        if not (want_rv or want_p):
+            return (None,) * 8
+        got = list(_TurbulenceBackward.apply(
+            ranvec, perm_x, perm_y, perm_z, px, py, pz, g, ctx.depth, want_p,
+            want_rv))
+        d_rv = got.pop(0).to(ranvec.dtype) if want_rv else None
+        d_px, d_py, d_pz = (
+            got[i] if want_p and ctx.needs_input_grad[4 + i] else None
+            for i in range(3))
         return d_rv, None, None, None, d_px, d_py, d_pz, None
 
     @staticmethod

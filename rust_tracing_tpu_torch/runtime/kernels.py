@@ -40,7 +40,7 @@ LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "hit_kernel": 0,
             "gather_kernel": 0, "gather_cols_kernel": 0,
             "scatter_sum_kernel": 0, "radix_sort_kernel": 0,
             "segment_sum_kernel": 0,
-            "perlin_kernel": 0,
+            "perlin_kernel": 0, "perlin_backward_kernel": 0,
             # the hardware probes (probes.py, csrc/probe_kernel.cu)
             "smem_scalar_kernel": 0, "row_broadcast_kernel": 0,
             "gather_probe_kernel": 0, "gather_2d_kernel": 0,
@@ -151,10 +151,18 @@ def load() -> ctypes.CDLL:
         lib.rt_segment_sum_launch.argtypes = [vp, vp, cll, ci, ci, ci, vp, vp,
                                               vp, vp]
         lib.rt_segment_sum_launch.restype = ci
-        # rv, perm, px, py, pz, R, depth, is_double, out, stream
-        lib.rt_perlin_launch.argtypes = [vp, vp, vp, vp, vp, cll, ci, ci, vp,
-                                         vp]
+        # rv, perm_x, perm_y, perm_z, px, py, pz, R, depth, is_double, out,
+        # stream
+        lib.rt_perlin_launch.argtypes = [vp] * 7 + [cll, ci, ci, vp, vp]
         lib.rt_perlin_launch.restype = ci
+        # rv, perm_x, perm_y, perm_z, px, py, pz, g, R, depth, is_double,
+        # want_p, want_rv, d_px, d_py, d_pz, partial, d_rv, stream
+        lib.rt_perlin_backward_launch.argtypes = ([vp] * 8
+                                                  + [cll, ci, ci, ci, ci]
+                                                  + [vp] * 6)
+        lib.rt_perlin_backward_launch.restype = ci
+        lib.rt_perlin_backward_blocks.argtypes = [cll]
+        lib.rt_perlin_backward_blocks.restype = ci
         # probes: tab, n, space, out, total, stream
         lib.rt_probe_smem_scalar_launch.argtypes = [vp, ci, ci, vp, cll, vp]
         lib.rt_probe_row_broadcast_launch.argtypes = [vp, ci, ci, vp, cll,

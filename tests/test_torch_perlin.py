@@ -177,3 +177,116 @@ def test_turbulence_vmap_and_jacfwd_match_jax(tables):
                                                        jnp.asarray(tan))
     np.testing.assert_allclose(dt.numpy(), np.asarray(jdt), rtol=1e-12,
                                atol=1e-12)
+
+
+def _lattice_points(seed, n=N):
+    """Lanes of every kind the backward must get right: random points, points
+    on an integer lattice plane of one axis (u = 0 there at every octave: the
+    floor's step and the Hermite weight's zero slope), whole lattice points
+    and the origin (the octave sum is 0 there: abs's derivative is 0)."""
+    p = _points(seed, 3.0, n)
+    q = n // 4
+    p[0, :q] = np.round(p[0, :q])               # x on a lattice plane
+    p[:, q:2 * q] = np.round(p[:, q:2 * q])     # lattice points: acc == 0
+    p[:, 2 * q:2 * q + 8] = 0.0                 # masked lanes
+    return p
+
+
+def test_turbulence_backward_plain_matches_jax_on_lattice(tables):
+    """turbulence_backward_plain against jax.vjp of the reference's
+    turbulence_c at lanes on lattice planes, lattice points and the origin
+    (where acc == 0), with random lanes beside them; tolerance as in
+    test_turbulence_gradients_match_jax (1e-5 of the largest |g|: the two
+    frameworks' sums add in different orders). On a lattice point each
+    octave's noise is exactly 0; jnp.abs differentiates as
+    select(acc >= 0, g, -g) there, and so does the port."""
+    rv, px, py, pz = tables
+    p = _lattice_points(10)
+    ct = np.random.default_rng(11).normal(size=N).astype(np.float32)
+    tt = _torch_tabs(tables)
+    pos = [torch.from_numpy(a) for a in p]
+    with torch.no_grad():
+        acc = tperlin.octave_sum_c(tt[0], *tt[1:], *pos, depth=3)
+    q = N // 4
+    assert (acc[q:2 * q] == 0).all() and (acc[:q] != 0).all()
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda r, x, y, z: jperlin.turbulence_c(
+            r, jnp.asarray(px), jnp.asarray(py), jnp.asarray(pz), x, y, z,
+            depth=3), jnp.asarray(rv), *[jnp.asarray(a) for a in p])
+        ref = [np.asarray(g) for g in vjp(jnp.asarray(ct))]
+    got = perlin_fused.turbulence_backward_plain(*tt, *pos,
+                                                 torch.from_numpy(ct), depth=3)
+    for name, g, r in zip(("ranvec", "px", "py", "pz"), got, ref):
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=1e-5 * np.abs(r).max(), err_msg=name)
+    assert (got[1][q:2 * q] != 0).any()
+
+
+def test_turbulence_backward_plain_matches_autograd(tables):
+    """The explicit backward against torch.autograd of turbulence_plain (the
+    Function's backward before the kernel, a recompute under torch.func.vjp)
+    in float64 at depth 7, w.r.t. each leaf alone and all together: the
+    derivative of u*u*(3-2u) written as 6u(1-u) and the corner sums in
+    another order differ only by float64 rounding, so 1e-12 of the largest
+    |g|. Where the octave sum is 0, torch.abs's derivative is 0 and the
+    reference's (and the port's) is +1: there the autograd side takes the
+    reference's rule, and on every other lane the old backward's values
+    hold as they are."""
+    rv, px, py, pz = tables
+    p = _lattice_points(12, 256).astype(np.float64)
+    ct = torch.from_numpy(np.random.default_rng(13).normal(size=256))
+    tt = (torch.from_numpy(rv.astype(np.float64)),) + _torch_tabs(tables)[1:]
+    leaves = [tt[0].clone().requires_grad_()] + [
+        torch.from_numpy(a).requires_grad_() for a in p]
+    got = perlin_fused.turbulence_backward_plain(
+        *tt, *[torch.from_numpy(a) for a in p], ct)
+    acc = tperlin.octave_sum_c(leaves[0], *tt[1:], *leaves[1:])
+    nonzero = (acc != 0).detach()
+    old = torch.autograd.grad(torch.abs(acc), leaves[1:], ct,
+                              retain_graph=True)
+    ref = torch.autograd.grad(torch.where(acc >= 0, acc, -acc), leaves, ct)
+    for name, g, r in zip(("ranvec", "px", "py", "pz"), got, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
+                                   atol=1e-12 * r.abs().max().item(),
+                                   err_msg=name)
+    assert not nonzero.all()
+    for g, r in zip(got[1:], old):
+        np.testing.assert_allclose(g[nonzero].numpy(), r[nonzero].numpy(),
+                                   rtol=0, atol=1e-12 * r.abs().max().item())
+    # the Function asks the backward only for what autograd needs
+    for k in range(4):
+        xs = [t.detach().requires_grad_(i == k) for i, t in
+              enumerate(leaves)]
+        o = perlin_fused.turbulence(xs[0], *tt[1:], *xs[1:])
+        (g,) = torch.autograd.grad(o, [xs[k]], ct)
+        np.testing.assert_array_equal(g.numpy(), got[k].numpy())
+
+
+def test_turbulence_jacrev_matches_jax(tables):
+    """torch.func.jacrev of the Function w.r.t. the positions and ranvec (16
+    lanes, depth 3, float64): the backward's vmap rule under jacrev's
+    batched cotangents, against jax.jacrev of the reference primitive, to
+    float64 rounding."""
+    rv, px, py, pz = tables
+    p = _points(14, 3.0, 16).astype(np.float64)
+    tt, jt = _torch_tabs(tables), [jnp.asarray(a) for a in tables]
+    rv64 = rv.astype(np.float64)
+
+    def tf(r, x):
+        return perlin_fused.turbulence(r, *tt[1:], x,
+                                       *[torch.from_numpy(a) for a in p[1:]],
+                                       depth=3)
+
+    def jf(r, x):
+        return perlin_tpu.turbulence(r, *jt[1:], x,
+                                     *[jnp.asarray(a) for a in p[1:]],
+                                     depth=3)
+
+    got = torch.func.jacrev(tf, argnums=(0, 1))(torch.from_numpy(rv64),
+                                                torch.from_numpy(p[0]))
+    ref = jax.jit(jax.jacrev(jf, argnums=(0, 1)))(jnp.asarray(rv64),
+                                                  jnp.asarray(p[0]))
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        assert np.abs(r).max() > 0
+        np.testing.assert_allclose(g.numpy(), r, rtol=1e-12, atol=1e-12)
