@@ -13,21 +13,29 @@ Phases:
   exact      closed-form cases through the render kernel
   kernels    every CUDA kernel against its plain PyTorch version ON THE CARD,
              same inputs: the render kernel (B1; a group of threads a pixel,
-             its resources and waves on each line) and the path recorder (B2)
-             on four scenes at a small frame (B1 also at 1, 2, 23 and 32
-             spp, one sample a thread up to a warp a pixel, and over a pixel
-             range that starts mid-row) and on cornell_box at 600x600 at 32
-             spp (the main path's warp a pixel; B1 with its tables staged
-             and through __ldg);
+             its resources and waves on each line) and the path recorder (B2;
+             a thread a (pixel, sample)) on four scenes at a small frame (B1
+             also at 1, 2, 23 and 32 spp, one sample a thread up to a warp a
+             pixel, and over a pixel range that starts mid-row) and on
+             cornell_box at 600x600 at 32 spp (the main path's warp a pixel;
+             B1 with its tables staged and through __ldg); B2 also at the
+             gradient's 23-spp slice (timed, with its resources and waves),
+             over a range that starts and ends mid-row, at 1 spp, and on
+             simple_light's own 600x337 frame;
              the render kernel's noise and image families (B8) and the
              recorder on two_perlin_spheres, simple_light and earth, B8 at
              32 spp (a warp a pixel) and on simple_light's own 600x337
              frame; the gathers (B5, B6) and their transpose (the
-             reduction) on tables of 4 to 3407 rows and 3.96 M indices, and
+             reduction, bit for bit its order in tensor code) on tables of 4
+             to 3407 rows and 3.96 M indices, at 3.96 M - 37 indices with
+             out-of-range ones, in f64, and on the cornell gradient's first
+             replay bounce (its tex_rgb reduction and its quads' index, each
+             beside a random index of the same shape), the match kernel
+             (mid-size tables) against its plain version, and
              its sorted form (the radix sort and the segment sum, f32 and
-             f64, time by kernel, beside the tile kernel) on 1024 to
-             524 288 rows; the two forms timed around their crossover
-             (scatter_routes: which use_segment_sum picks); the Perlin
+             f64, time by kernel, beside the match kernel) on 1024 to
+             524 288 rows; the three forms timed around their crossovers
+             (scatter_routes: which scatter_sum_cols picks); the Perlin
              turbulence kernel (B7) at 2^22 lanes (its shared-memory
              wavefront floor, and two_perlin_spheres' first replay bounce)
              and its backward kernel (perlin_backward_kernel: positions bit
@@ -53,6 +61,8 @@ Phases:
              w.r.t. every float scene leaf (the record/replay gradient), then
              the L2 loss of the same workload
   profile    device time by kernel of one grad_path run (torch.profiler)
+  census     that run's reduction calls by (route, columns, rows, indices,
+             dtype): calls and device ms; fails if none took the tile kernel
   train      fit_scene() on cornell_box 600x600 @ 16 spp: the loss falls
   grad_check the CLI's --grad-check on the card
   grad_final (below) also runs its gradient with the reductions routed by
@@ -65,7 +75,8 @@ Phases:
              their plain versions (which test every primitive) on
              final_scene at 64 px, 200x200 (depth 40) and 32 px at the fused
              render's 32 spp (a warp a pixel), and on random_balls and
-             cornell_box with a forced tree; the hit kernel (B3) against its plain
+             cornell_box with a forced tree; the recorder's walk counters on
+             final_scene and cornell_box (a pixel range) at 16 px; the hit kernel (B3) against its plain
              version on final_scene's 800x800 camera rays (bounce 0) and on
              the sorted lanes of a wavefront chunk (bounce 1), and on
              cornell_box's 600x600 camera rays without a tree; on
@@ -139,7 +150,9 @@ Tolerances and their reasons.
   SHARE of other pixels (<= 0.5 %), of pixels whose ray count differs
   (<= 0.5 %) and the ratio of the mean images (within 1e-3 of 1). Seen on
   an H100: 0; a build with contraction left on shows 1.2 % on random_balls.
-- Recorder: records are integers, and every record must be equal.
+- Recorder: records are integers, and every record must be equal. With
+  the BVH walk, its per-pixel walk counters (summed over the samples with
+  integer atomics) must equal the plain walk's over the same paths.
 - Gathers: a gather copies bits; equal to the plain version and to
   torch.index_select bit for bit.
 - Reduction (both forms): with integer-valued cotangents every partial sum
@@ -147,7 +160,10 @@ Tolerances and their reasons.
   normal-valued cotangents the two add the same terms in different orders,
   so each row may differ by at most 1e-6 of the sum of |cotangent| over the
   row (f32 rounding of a blocked sum stays far below). Two calls must give
-  the same bits. The radix sort is stable: equal to torch.sort(stable=True) and a
+  the same bits, and the tile kernel must equal its order in tensor code
+  (lanegather.scatter_sum_ordered_plain: each lane's stream in element
+  order, the lanes by a fixed butterfly, the warps and blocks in order) bit
+  for bit. The radix sort is stable: equal to torch.sort(stable=True) and a
   gather of the columns, bit for bit. The segment sum may launch nothing
   but its own kernels and torch.zeros' fill.
 - grad_path: the loss (the image mean, linear_loss) must equal the mean of
@@ -301,11 +317,12 @@ TEXTURE_SCENES = ("two_perlin_spheres", "simple_light", "earth")
 NOISE_MEAN_TOL, IMAGE_MEAN_TOL = 0.08, 0.01
 GRAD_TEX_WIDTH, GRAD_TEX_SPP = 400, 32
 SEG_ROWS = (1024, 2048, 3407, 8192, 16384, 65536, 524288)  # 524288: earth
-# the tile kernel against the segment sum around their crossover: table rows
-# (2408: final_scene's padded quad table), columns (17: a quad table's; 8:
-# a material table's), and indices (one replay wavefront; final_scene
-# 200x200 @ 4 spp's lanes, the grad_final phase's)
-ROUTE_ROWS = (1024, 1536, 2048, 2408, 3072, 3407, 4096, 8192)
+# the three forms of the reduction around their crossovers: table rows
+# (4: cornell's texture table; 24: its quad table; 2408: final_scene's),
+# columns (17: a quad table's; 8: a material table's), and indices (one
+# replay wavefront; final_scene 200x200 @ 4 spp's lanes, the grad_final
+# phase's)
+ROUTE_ROWS = (4, 24, 64, 128, 256, 488, 1024, 2048, 2408, 3407, 4096, 8192)
 ROUTE_COLS = (1, 3, 8, 17)
 ROUTE_INDICES = (N_INDEX, 200 * 200 * 4)
 ROUTE_PAIRS = 6         # grad_final under each route, in alternating order
@@ -371,9 +388,10 @@ def _kernel_events(prof):
 
 
 # The profiler's device clock drifts early against its host clock as a
-# process ages (~5 ms after ~8 min), and it drops device work stamped before
-# its trace's start: a profile first waits this long, and one that lost a
-# kernel is taken again (profiled_events).
+# process ages (~5 ms after ~8 min; more after long profiles), and it drops
+# device work stamped before its trace's start: a profile first waits this
+# long, and one that lost a kernel is taken again after a wait ten times
+# longer (profiled_events).
 PROFILE_SETTLE_S = 0.05
 PROFILE_TRIES = 3
 PROFILES = {"taken": 0, "dropped": 0}
@@ -389,10 +407,10 @@ def profiled_events(fn, reps):
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_SETTLE_S)
+            time.sleep(PROFILE_SETTLE_S * 10 ** attempt)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -634,28 +652,58 @@ def compare(name, width, spp, depth, reps_kernel=3, use_bvh=False,
     return res
 
 
+def record_occupancy(tables, p):
+    """The recorder's resources for this launch (record_plan: staged or
+    not) and the waves of its grid: warps over the warps the card holds at
+    once."""
+    plan = mk.record_plan(tables, p)
+    occ = mk.search_occupancy("record_kernel", bool(p.use_bvh),
+                              plan.stage_bytes)
+    warps = plan.blocks * mk.RECORD_THREADS // 32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = sms * occ["blocks_per_sm"] * mk.RECORD_THREADS // 32
+    return dict(occ, blocks=plan.blocks, warps=warps, waves=warps / resident,
+                spill_stores=spills("record_kernel", p.use_bvh,
+                                    plan.stage_bytes > 0))
+
+
 def compare_records(name, width, spp, depth, sample_offset, timed=False,
-                    use_bvh=False):
+                    use_bvh=False, pixel_base=0, pixel_count=None,
+                    counters=False):
     """Path recorder vs its plain version on the card: every record equal.
-    With ``timed``, also the kernel's time by CUDA events and its bound,
-    whose ray count comes from the render kernel's per-pixel count of the
-    same paths (both trace them through the same device functions)."""
+    With ``counters`` (a BVH launch) the kernel's per-pixel walk counters,
+    summed over the samples, must equal the plain walk's
+    (megakernel.record_walk_plain). With ``timed``, also the kernel's time
+    by CUDA events, its resources and waves, and its bound, whose ray count
+    comes from the render kernel's per-pixel count of the same paths (both
+    trace them through the same device functions)."""
     scene, camera, tables, p = scene_inputs(name, width, spp, depth, seed=3,
                                             sample_offset=sample_offset,
-                                            use_bvh=use_bvh)
-    rec_k = mk.record_kernel(tables, p)
+                                            use_bvh=use_bvh,
+                                            pixel_base=pixel_base,
+                                            pixel_count=pixel_count)
+    cnt = torch.zeros((p.pixel_count, 3), dtype=torch.int32,
+                      device=DEVICE) if counters else None
+    rec_k = mk.record_kernel(tables, p, cnt)
     torch.cuda.synchronize()
     rec_p, plain_ms = once_ms(lambda: mk.record_paths_plain(tables, p))
     differ = int((rec_k != rec_p).sum().item())
     res = dict(kernel="record_kernel", scene=name, width=camera.image_width,
                height=camera.image_height, spp=spp, depth=depth,
-               use_bvh=p.use_bvh,
+               use_bvh=p.use_bvh, pixel_base=p.pixel_base,
+               pixels=p.pixel_count,
+               staged=mk.record_plan(tables, p).stage_bytes,
                sample_offset=sample_offset, records=rec_k.numel(),
                records_differ=differ,
                nonzero=int((rec_k != 0).sum().item()),
                max_abs_err=float((rec_k.long() - rec_p.long()).abs().max()
                                  .item()),
                plain_ms=plain_ms)
+    if counters:
+        walk = mk.record_walk_plain(tables, p)
+        got = cnt.cpu().numpy()
+        res["pixels_counters_differ"] = int((got != walk).any(1).sum())
+        res["walk"] = [int(x) for x in got.sum(0)]
     if timed:
         _, n = mk.render_kernel(tables, p)
         n_rays = int(n.sum(dtype=torch.int64).item())
@@ -663,10 +711,14 @@ def compare_records(name, width, spp, depth, sample_offset, timed=False,
         res["rays"] = n_rays
         res["bound_ms"], res["bound_by"] = bound_ms(tables, p, n_rays,
                                                     shade=False)
+        res["occupancy"] = record_occupancy(tables, p)
     say("kernels", **res)
     if differ:
         fail(f"record_kernel: {differ} records of {name} differ from the "
              f"plain version")
+    if res.get("pixels_counters_differ"):
+        fail(f"record_kernel: walk counters of {name} differ from the plain "
+             f"walk's in {res['pixels_counters_differ']} pixels")
     return res
 
 
@@ -722,47 +774,170 @@ def compare_gathers(reps=10):
     return out
 
 
+@contextlib.contextmanager
+def recorded_reductions(keep=False):
+    """Within the block, every call of the reduction's three forms (the tile
+    kernel, the match kernel, the segment sum) is appended to the yielded
+    list as (route, K, n, R, dtype), with its cotangent and index when
+    ``keep``."""
+    calls = []
+    tile, match = lg.scatter_sum_kernel, lg.scatter_match_kernel
+    seg = lg.segment_sum_kernel
+
+    def wrap(route, fn):
+        def call(ct, idx, n):
+            calls.append((route, ct.shape[0], n, idx.numel(), str(ct.dtype))
+                         + ((ct.clone(), idx.clone()) if keep else ()))
+            return fn(ct, idx, n)
+        return call
+
+    lg.scatter_sum_kernel = wrap("tile", tile)
+    lg.scatter_match_kernel = wrap("match", match)
+    lg.segment_sum_kernel = wrap("segment", seg)
+    try:
+        yield calls
+    finally:
+        lg.scatter_sum_kernel, lg.scatter_match_kernel = tile, match
+        lg.segment_sum_kernel = seg
+
+
+def replay_reductions():
+    """The cornell gradient's first replay bounce (grad_path's scene and
+    depth, one replay chunk: 11 spp, 3 960 000 lanes): the cotangent and
+    index of the backward's last reduction, bounce 0's tex_rgb column (the
+    shape of every reduction of that gradient, by phase_profile's census),
+    and the index of the first 17-column gather, bounce 0's quads (their
+    table gets no cotangent from a mean loss of this scene: its radiance
+    does not depend on the geometry)."""
+    b, settings = builders.cornell_box()
+    scene = rt.compile_scene(b, device=DEVICE)
+    camera = rt.Camera.create(settings)
+    got = {}
+    cols = lg.gather_cols_kernel
+
+    def cols_rec(tab, idx):
+        if tab.shape[0] == 17 and "quad_idx" not in got:
+            got["quad_idx"], got["quad_n"] = idx.clone(), tab.shape[1]
+        return cols(tab, idx)
+
+    lg.gather_cols_kernel = cols_rec
+    try:
+        with recorded_reductions(keep=True) as calls:
+            tg.loss_and_grad(scene, camera, lambda im, p: im.mean(), seed=4,
+                             spp=11, max_depth=GRAD_DEPTH, linear_loss=True)
+            torch.cuda.synchronize()
+    finally:
+        lg.gather_cols_kernel = cols
+    route, K, n, R, _, ct, idx = calls[-1]
+    got.update(ct=ct, idx=idx, n=n, route=route)
+    return got
+
+
+def check_reduction(label, ct, idx, n, ints=None, reps=5, form="tile"):
+    """One reduction cell of the tile kernel (``form`` "tile": bit for bit
+    its order in tensor code, lanegather.scatter_sum_ordered_plain) or the
+    match kernel ("match"): repeatable, within SUM_TOL of each row's sum of
+    |cotangent| of the plain version, exact on integer-valued cotangents
+    ``ints`` where given; device and call times beside the plain version's,
+    index_add_'s (in-range elements) and the bound (the index and the
+    in-range cotangents read once, the table written once)."""
+    K, R, es = ct.shape[0], idx.numel(), ct.element_size()
+    kernel = REDUCTION_FORMS[form]
+    got = kernel(ct, idx, n)
+    ordered = form != "tile" or torch.equal(
+        got, lg.scatter_sum_ordered_plain(ct, idx, n))
+    repeat = torch.equal(got, kernel(ct, idx, n))
+    exact = ints is None or torch.equal(kernel(ints, idx, n),
+                                        lg.scatter_sum_plain(ints, idx, n))
+    ref, plain_ms = once_ms(lambda: lg.scatter_sum_plain(ct, idx, n))
+    scale = lg.scatter_sum_plain(ct.abs(), idx, n)
+    err = (got - ref).abs()
+    within = bool((err <= SUM_TOL * scale).all())
+    flat = idx.reshape(-1).long()
+    ok = (flat >= 0) & (flat < n)
+    keep, cts = flat[ok], ct.reshape(K, R)[:, ok]
+    lib = device_ms(lambda: torch.zeros(
+        (K, n), device=DEVICE, dtype=ct.dtype).index_add_(1, keep, cts), reps)
+    b_ms, b_by = bytes_bound(R * 4 + keep.numel() * K * es + K * n * es)
+    res = dict(kernel=f"scatter_{'sum' if form == 'tile' else form}_kernel",
+               check=label, rows=n, columns=K, indices=R,
+               in_range=keep.numel(), dtype=str(ct.dtype),
+               plan=lg.scatter_plan(R, n, K, es) if form == "tile" else None,
+               bitwise_equal_ordered=ordered if form == "tile" else None,
+               exact_on_integers=exact, bitwise_repeatable=repeat,
+               within_tol=within, max_abs_err=float(err.max().item()),
+               max_err_over_abs_sum=float((err / scale.clamp(
+                   min=1e-30)).max().item()),
+               kernel_ms=device_ms(lambda: kernel(ct, idx, n), reps),
+               call_ms=time_ms(lambda: kernel(ct, idx, n), reps),
+               plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+               bound_by=b_by)
+    say("kernels", **res)
+    if not (ordered and exact and repeat and within):
+        fail(f"{res['kernel']} ({label}) at {n} rows, K={K}: "
+             f"bitwise_ordered={ordered} exact={exact} repeatable={repeat} "
+             f"within_tol={within}")
+    return res
+
+
 def compare_reductions(reps=5):
-    """The reduction against its plain version: exact on integer-valued
-    cotangents, within SUM_TOL of each row's sum of |cotangent| on normal
-    ones, bitwise repeatable; times against index_add_."""
+    """The tile kernel against its order in tensor code (bit for bit) and
+    its plain version on a random index of one replay wavefront, with 1 and
+    17 columns, at the table sizes it takes (TABLE_ROWS up to
+    SCATTER_TILE_MAX_ROWS) and at 488 rows (passes over row tiles); at an
+    index count that is no multiple of SCATTER_CHUNK with out-of-range
+    indices; in float64; and on the cornell gradient's first replay bounce
+    (its tex_rgb reduction, the main path's shape, and its quads' index with
+    random cotangents), each beside a random index of the same shape. The
+    match kernel against its plain version at the larger TABLE_ROWS (and
+    in phase_grad_final at that gradient's own shape)."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(2)
     out = {}
+
+    def ints_like(shape):
+        return torch.randint(-8, 9, shape, device=DEVICE,
+                             generator=gen).to(torch.float32)
+
     for n in TABLE_ROWS:
         idx = torch.randint(0, n, (N_INDEX,), device=DEVICE,
                             dtype=torch.int32, generator=gen)
-        idx_l = idx.long()
         for K in (1, 17):
-            ints = torch.randint(-8, 9, (K, N_INDEX), device=DEVICE,
-                                 generator=gen).to(torch.float32)
-            exact = torch.equal(lg.scatter_sum_kernel(ints, idx, n),
-                                lg.scatter_sum_plain(ints, idx, n))
             ct = torch.randn(K, N_INDEX, device=DEVICE, generator=gen)
-            got = lg.scatter_sum_kernel(ct, idx, n)
-            repeat = torch.equal(got, lg.scatter_sum_kernel(ct, idx, n))
-            ref, plain_ms = once_ms(lambda: lg.scatter_sum_plain(ct, idx, n))
-            scale = lg.scatter_sum_plain(ct.abs(), idx, n)
-            err = (got - ref).abs()
-            within = bool((err <= SUM_TOL * scale).all())
-            ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
-            call = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n), reps)
-            lib = device_ms(lambda: torch.zeros(
-                (K, n), device=DEVICE).index_add_(1, idx_l, ct), reps)
-            b_ms, b_by = bytes_bound(N_INDEX * (4 + 4 * K) + K * n * 4)
-            res = dict(kernel="scatter_sum_kernel", rows=n, columns=K,
-                       indices=N_INDEX, exact_on_integers=exact,
-                       bitwise_repeatable=repeat, within_tol=within,
-                       max_abs_err=float(err.max().item()),
-                       max_err_over_abs_sum=float((err / scale.clamp(
-                           min=1e-30)).max().item()),
-                       kernel_ms=ms, call_ms=call, plain_ms=plain_ms,
-                       library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-            say("kernels", **res)
-            if not (exact and repeat and within):
-                fail(f"scatter_sum_kernel at {n} rows, K={K}: exact={exact} "
-                     f"repeatable={repeat} within_tol={within}")
-            out[(n, K)] = res
+            ints = ints_like((K, N_INDEX))
+            if lg.use_tile_kernel(n) or (n, K) == (488, 17):
+                out[(n, K)] = check_reduction("random", ct, idx, n, ints,
+                                              reps)
+            if not lg.use_tile_kernel(n):
+                out[("match", n, K)] = check_reduction(
+                    "random", ct, idx, n, ints, reps, form="match")
+    R = N_INDEX - 37
+    idx = torch.randint(-3, 24 + 3, (R,), device=DEVICE, dtype=torch.int32,
+                        generator=gen)
+    for K in (1, 17):
+        ct = torch.randn(K, R, device=DEVICE, generator=gen)
+        check_reduction("out of range, R mod SCATTER_CHUNK != 0", ct, idx, 24,
+                        ints_like((K, R)), reps)
+    ct = torch.randn(3, R, device=DEVICE, generator=gen, dtype=torch.float64)
+    check_reduction("float64", ct, idx, 24, None, reps)
+
+    real = replay_reductions()
+    ct, idx, n = real["ct"], real["idx"], real["n"]
+    rnd = torch.randint(0, n, idx.shape, device=DEVICE, dtype=torch.int32,
+                        generator=gen)
+    out["real"] = check_reduction("cornell replay bounce 0, tex_rgb", ct,
+                                  idx, n, ints_like(tuple(ct.shape)), reps)
+    out["real"]["route"] = real["route"]
+    out["real_random"] = check_reduction("random index, tex_rgb's shape", ct,
+                                         rnd, n, None, reps)
+    qi, qn = real["quad_idx"], real["quad_n"]
+    qct = torch.randn((17,) + tuple(qi.shape), device=DEVICE, generator=gen)
+    qrnd = torch.randint(0, qn, qi.shape, device=DEVICE, dtype=torch.int32,
+                         generator=gen)
+    out["quad"] = check_reduction("cornell replay bounce 0, quad index", qct,
+                                  qi, qn, ints_like(tuple(qct.shape)), reps)
+    out["quad_random"] = check_reduction("random index, quad shape", qct,
+                                         qrnd, qn, None, reps)
     return out
 
 
@@ -798,7 +973,7 @@ def compare_segment_sums(reps=3):
     pass over the sorted runs) against its plain version: exact on
     integer-valued cotangents, within SUM_TOL on normal ones, bitwise
     repeatable, f32 and f64; device time by kernel of the pipeline, beside
-    the tile kernel and index_add_, 3 columns (an image's r g b) and one replay wavefront. The
+    the match kernel and index_add_, 3 columns (an image's r g b) and one replay wavefront. The
     call may launch only the repo's kernels and torch.zeros' fill."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4)
@@ -844,9 +1019,9 @@ def compare_segment_sums(reps=3):
             ms, by_kernel, other = pipeline_ms(
                 lambda: lg.segment_sum_kernel(ct, idx, n), reps)
             call = time_ms(lambda: lg.segment_sum_kernel(ct, idx, n), reps)
-            tile_ms = device_ms(lambda: lg.scatter_sum_kernel(ct, idx, n),
+            tile_ms = device_ms(lambda: lg.scatter_match_kernel(ct, idx, n),
                                 reps)
-            tile_call = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n),
+            tile_call = time_ms(lambda: lg.scatter_match_kernel(ct, idx, n),
                                 reps)
             lib = device_ms(lambda: torch.zeros(
                 (3, n), device=DEVICE, dtype=dt).index_add_(1, idx_l, ct),
@@ -858,8 +1033,8 @@ def compare_segment_sums(reps=3):
                        exact_on_integers=exact, bitwise_repeatable=repeat,
                        within_tol=within, max_abs_err=float(err.max().item()),
                        kernel_ms=ms, kernel_ms_by_kernel=by_kernel,
-                       call_ms=call, tile_kernel_ms=tile_ms,
-                       tile_call_ms=tile_call, plain_ms=plain_ms,
+                       call_ms=call, match_kernel_ms=tile_ms,
+                       match_call_ms=tile_call, plain_ms=plain_ms,
                        library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                        other_device_work=other)
             say("kernels", **res)
@@ -873,13 +1048,27 @@ def compare_segment_sums(reps=3):
     return out
 
 
+def reduction_form(n, K, elem):
+    """The form lanegather.scatter_sum_cols gives a reduction: "tile",
+    "match" or "segment"."""
+    if lg.use_tile_kernel(n):
+        return "tile"
+    return "segment" if lg.use_segment_sum(n, K, elem) else "match"
+
+
+REDUCTION_FORMS = {"tile": lambda *a: lg.scatter_sum_kernel(*a),
+                   "match": lambda *a: lg.scatter_match_kernel(*a),
+                   "segment": lambda *a: lg.segment_sum_kernel(*a)}
+
+
 def scatter_routes(reps=5):
-    """The two forms of the reduction at the table sizes around their
-    crossover: call time (CUDA events over back-to-back calls, launches
-    included) of the tile kernel and of the segment sum at ROUTE_ROWS x
-    ROUTE_COLS x ROUTE_INDICES, f32, and f64 at 1 and 3 columns; which one
-    lanegather.use_segment_sum() picks, and what the picks lose against the faster
-    form in each cell."""
+    """The three forms of the reduction at the table sizes around their
+    crossovers: device time (torch.profiler) and call time (CUDA events over
+    back-to-back calls, host launches included) of the tile kernel, the
+    match kernel and the segment sum at ROUTE_ROWS x ROUTE_COLS x
+    ROUTE_INDICES, f32, and f64 at 1 and 3 columns; which one
+    scatter_sum_cols picks (reduction_form), and what the picks lose in
+    device time against the fastest form in each cell."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(5)
     cells, lost = [], 0.0
@@ -892,19 +1081,19 @@ def scatter_routes(reps=5):
                 for K in cols:
                     ct = torch.randn(K, R, device=DEVICE, generator=gen,
                                      dtype=dt)
-                    tile = time_ms(lambda: lg.scatter_sum_kernel(ct, idx, n),
-                                   reps)
-                    seg = time_ms(lambda: lg.segment_sum_kernel(ct, idx, n),
-                                  reps)
-                    sorts = lg.use_segment_sum(n, K, ct.element_size())
-                    lost += max(0.0, (seg if sorts else tile) - min(tile,
-                                                                    seg))
+                    ms = {f: device_ms(lambda: fn(ct, idx, n), reps)
+                          for f, fn in REDUCTION_FORMS.items()}
+                    call = {f"{f}_call_ms": time_ms(lambda: fn(ct, idx, n),
+                                                    reps)
+                            for f, fn in REDUCTION_FORMS.items()}
+                    pick = reduction_form(n, K, ct.element_size())
+                    fastest = min(ms, key=ms.get)
+                    lost += ms[pick] - ms[fastest]
                     cells.append(dict(indices=R, rows=n, columns=K,
-                                      dtype=str(dt), tile_ms=tile,
-                                      segment_ms=seg, sorts=sorts,
-                                      faster="segment" if seg < tile
-                                      else "tile"))
-    wrong = [c for c in cells if c["sorts"] != (c["faster"] == "segment")]
+                                      dtype=str(dt), **{
+                                          f"{f}_ms": t for f, t in ms.items()},
+                                      **call, picks=pick, fastest=fastest))
+    wrong = [c for c in cells if c["picks"] != c["fastest"]]
     say("kernels", check="scatter_routes", cells=cells,
         picks_slower_in=len(wrong), of=len(cells), ms_lost=lost)
     return cells
@@ -1071,9 +1260,10 @@ def _bwd_sum_tolerance(R, depth, dtype):
 
 
 # d_ranvec's error against the exact sum may be at most this many times the
-# plain version's own (the same terms summed in f32 in another fixed order;
-# seen: 1.035x f32, 1.017x f64). A lost or doubled term of typical size
-# (|g| ~ 1, weights ~ 0.1) is ~1e3 times the roundoff of either.
+# plain version's own, as the CPU computes it (the same terms summed in f32
+# term by term, each by index_add_ in lane order: one fixed order, which no
+# routing of the card's reductions moves). A lost or doubled term of typical
+# size (|g| ~ 1, weights ~ 0.1) is ~1e3 times the roundoff of either.
 BWD_PLAIN_ERR_MULTIPLE = 4.0
 
 
@@ -1083,8 +1273,9 @@ def compare_perlin_backward(reps=10):
     lanes and at 2^22 - 37, where the last block's loop runs lanes past R;
     f64 at 65 536); d_ranvec against the plain version's own terms summed
     in float64, within the summation bound of _bwd_sum_tolerance and within
-    BWD_PLAIN_ERR_MULTIPLE times the plain version's error; two launches
-    equal bit for bit; timed at 2^22 lanes, with its bound."""
+    BWD_PLAIN_ERR_MULTIPLE times the error of the plain version's sum of
+    those terms on the CPU; two launches equal bit for bit; timed at 2^22
+    lanes, with its bound."""
     out = []
     for dtype, lanes in ((torch.float32, TURB_LANES),
                          (torch.float32, TURB_LANES - 37),
@@ -1099,15 +1290,18 @@ def compare_perlin_backward(reps=10):
         _, _, _, terms = perlin.turbulence_vjp_c(tabs[0], *tabs[1:], *pos, g)
         exact = torch.zeros((256, 3), dtype=torch.float64, device=DEVICE)
         mag = torch.zeros_like(exact)
+        plain_rv = torch.zeros((256, 3), dtype=dtype)
         for h, c in terms:
             idx, c64 = h.reshape(-1).long(), c.reshape(3, -1).double().t()
             exact.index_add_(0, idx, c64)
             mag.index_add_(0, idx, c64.abs())
+            plain_rv = plain_rv + lg.scatter_sum_plain(
+                c.reshape(3, -1).cpu(), h.reshape(-1).cpu(), 256).t()
         del terms
         adds, rel = _bwd_sum_tolerance(lanes, pf.DEPTH, dtype)
         err = (got[0].double() - exact).abs()
         unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
-        plain_err = float((ref[0].double() - exact).abs().max())
+        plain_err = float((plain_rv.to(DEVICE).double() - exact).abs().max())
         # a floor of one unit of the largest entry, should the plain sum be
         # exact
         near_plain = float(err.max()) <= BWD_PLAIN_ERR_MULTIPLE * max(
@@ -1555,12 +1749,30 @@ def phase_grad_final():
     res["routes"] = route_ab(lambda: tg.loss_and_grad(
         scene, camera, lambda im, p: im.mean(), seed=6, linear_loss=True))
     say("grad_final", **res)
+    # the match kernel against its plain version at the shape of this
+    # gradient's match calls that took the most device time (the census)
+    rows = [r for r in res["routes"]["use_segment_sum"]["census"]["rows"]
+            if r["route"] == "match"]
+    if rows:
+        r = max(rows, key=lambda r: r["device_ms"])
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(8)
+        K, n, R = r["columns"], r["rows"], r["indices"]
+        idx = torch.randint(0, n, (R,), device=DEVICE, dtype=torch.int32,
+                            generator=gen)
+        res["match_check"] = check_reduction(
+            "grad_final's match shape, random index",
+            torch.randn(K, R, device=DEVICE, generator=gen), idx, n,
+            torch.randint(-8, 9, (K, R), device=DEVICE,
+                          generator=gen).to(torch.float32), form="match")
     if not rel <= LOSS_RTOL:
         fail(f"final_scene: loss {float(loss)} vs deferred mean {ref}")
     if not res["all_finite"]:
         fail(f"final_scene: non-finite gradient leaves: {finite}")
     if launches["record_kernel"] < 1:
         fail("grad_final did not launch record_kernel")
+    if launches["scatter_match_kernel"] < 1 or not rows:
+        fail("grad_final did not launch scatter_match_kernel")
     return res
 
 
@@ -1574,11 +1786,9 @@ def route_ab(run, pairs=ROUTE_PAIRS):
     """``run()`` with the reductions routed by lanegather.use_segment_sum
     and by rows alone (_rows_2048): host seconds of ``pairs`` pairs of
     runs, each pair in the other order than the one before, and their
-    medians; then one profiled run of each: the device ms of the
-    reductions' kernels and of all its device work, and the launches of
-    each form."""
-    from torch.profiler import ProfilerActivity, profile
-
+    medians; then one profiled run of each (censused_profile): the device
+    ms of the reductions' kernels and of all its device work, the launches
+    of each form and the reductions' census."""
     rules = {"use_segment_sum": lg.use_segment_sum, "rows_2048": _rows_2048}
     out = {name: dict(seconds=[]) for name in rules}
     try:
@@ -1593,21 +1803,21 @@ def route_ab(run, pairs=ROUTE_PAIRS):
                 out[name]["seconds"]))
         for name, rule in rules.items():
             lg.use_segment_sum = rule
-            reset_launches()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                run()
-                torch.cuda.synchronize()
+
+            def counted():
+                reset_launches()
+                return run()
+            _, prof, out[name]["census"] = censused_profile(counted)
             ev = _kernel_events(prof)
             out[name].update(
                 device_ms=sum(us for _, us in ev) / 1e3,
                 reduction_device_ms=sum(
                     us for k, us in ev if any(
-                        a in k for a in ("scatter_sum", "radix_",
-                                         "segment_"))) / 1e3,
+                        a in k for a in ("scatter_sum", "scatter_match",
+                                         "radix_", "segment_"))) / 1e3,
                 launches={k: kernels.LAUNCHES[k] for k in (
-                    "scatter_sum_kernel", "radix_sort_kernel",
-                    "segment_sum_kernel")})
+                    "scatter_sum_kernel", "scatter_match_kernel",
+                    "radix_sort_kernel", "segment_sum_kernel")})
     finally:
         lg.use_segment_sum = rules["use_segment_sum"]
     return out
@@ -1919,17 +2129,91 @@ def phase_grad_path():
     return res, scene, camera
 
 
+# The reductions' device kernels, by route: the tile kernel's two, the
+# match kernel's two, the segment sum's radix passes (three kernels each)
+# and its two.
+TILE_KERNELS = ("scatter_sum_partial", "scatter_sum_final")
+MATCH_KERNELS = ("scatter_match_partial", "scatter_match_final")
+RADIX_KERNELS = ("radix_hist_kernel", "radix_scan_kernel",
+                 "radix_scatter_kernel")
+SEGMENT_KERNELS = ("segment_sum_kernel", "segment_carry_kernel")
+
+
+def reduction_census(calls, prof):
+    """The reduction calls of a profiled run (``recorded_reductions``) by
+    (route, K, n, R, dtype): count and device ms, each call's kernels taken
+    from the profile's device events in launch order (all work runs on one
+    stream, so the i-th scatter_sum_partial is the i-th tile call's).
+    ``matched`` is false when the profile lacks a call's kernel."""
+    from torch.autograd import DeviceType
+
+    queues = {k: [] for k in (TILE_KERNELS + MATCH_KERNELS + RADIX_KERNELS
+                              + SEGMENT_KERNELS)}
+    for _, name, us in sorted(
+            (e.time_range.start, _kernel_name(e.name), e.time_range.elapsed_us())
+            for e in prof.events() if e.device_type == DeviceType.CUDA):
+        if name in queues:
+            queues[name].append(us)
+    rows, matched = {}, True
+    for route, K, n, R, dt in calls:
+        names = {"tile": TILE_KERNELS, "match": MATCH_KERNELS}.get(route) or (
+            RADIX_KERNELS * len(lg.radix_digits(n)) + SEGMENT_KERNELS)
+        ms = 0.0
+        for k in names:
+            matched &= bool(queues[k])
+            ms += queues[k].pop(0) / 1e3 if queues[k] else 0.0
+        key = (route, K, n, R, dt)
+        c, t = rows.get(key, (0, 0.0))
+        rows[key] = (c + 1, t + ms)
+    return dict(
+        calls=len(calls), device_ms=sum(t for _, t in rows.values()),
+        matched=matched,
+        unmatched_events={k: len(v) for k, v in queues.items() if v},
+        rows=[dict(route=r, columns=K, rows=n, indices=R, dtype=dt, calls=c,
+                   device_ms=t)
+              for (r, K, n, R, dt), (c, t) in sorted(
+                  rows.items(), key=lambda kv: -kv[1][1])])
+
+
+def censused_profile(run):
+    """``run()`` once under torch.profiler with its reduction calls recorded:
+    (its result, the profile, the census). A census whose calls lost a
+    kernel event, or whose profile holds reduction kernels no call claims,
+    would read low: the profile is taken again, after a longer settle, up to
+    PROFILE_TRIES times; then the run fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(PROFILE_TRIES):
+        with recorded_reductions() as calls, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S * 10 ** attempt)
+            out = run()
+            torch.cuda.synchronize()
+        census = reduction_census(calls, prof)
+        PROFILES["taken"] += 1
+        if census["matched"] and not census["unmatched_events"]:
+            return out, prof, census
+        PROFILES["dropped"] += 1
+        say("profile_dropped", census_calls=census["calls"],
+            matched=census["matched"],
+            unmatched_events=census["unmatched_events"])
+    fail(f"the profiler lost reduction kernels in {PROFILE_TRIES} censused "
+         "profiles running")
+
+
 def phase_profile(scene, camera, run_s):
     """Device time by kernel over one grad_path run, and the device's busy
     share of that run's wall time (kernels run one at a time on the one
-    stream, so their summed time is the busy time). Then the stages of an
-    unprofiled run of ``run_s`` seconds."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, rays, wall_s = headline(scene, camera, 4,
-                                      lambda im, p: im.mean(), True)
+    stream, so their summed time is the busy time), and its reductions'
+    census (censused_profile). Then the stages of an unprofiled run of
+    ``run_s`` seconds."""
+    (_, _, rays, wall_s), prof, census = censused_profile(
+        lambda: headline(scene, camera, 4, lambda im, p: im.mean(), True))
+    say("census", scene="cornell_box", width=600, height=600, spp=GRAD_SPP,
+        depth=GRAD_DEPTH, **census)
+    if not any(r["route"] == "tile" for r in census["rows"]):
+        fail("the cornell gradient launched no scatter_sum kernel")
     by_name = {}
     for name, us in _kernel_events(prof):
         t, c = by_name.get(name, (0.0, 0))
@@ -1967,6 +2251,7 @@ def phase_profile(scene, camera, run_s):
         stages_ms=dict(records=rec_ms, replay_forward=fwd_ms,
                        backward_with_recompute=run_s * 1e3 - rec_ms - fwd_ms),
         top=[dict(kernel=k[:100], ms=t, count=c) for k, (t, c) in top])
+    return census
 
 
 def phase_train():
@@ -2576,13 +2861,17 @@ def render_resources():
                     shared_bytes=plan.stage_bytes,
                     spill_stores=spills("render_kernel", noise, image,
                                         route == "bvh", route == "staged"))
-    for kernel in ("record_kernel", "hit_kernel"):
-        for bvh in (False, True):
-            occ = mk.search_occupancy(kernel, bvh)
-            out[f"{kernel}_{'bvh' if bvh else 'brute'}"] = dict(
-                {k: occ[k] for k in ("registers", "local_bytes",
-                                     "blocks_per_sm")},
-                spill_stores=spills(kernel, bvh))
+    for kernel, route, bvh, smem in (
+            ("record_kernel", "brute", 0, 0),
+            ("record_kernel", "staged", 0, mk.STAGE_BUDGET_BYTES),
+            ("record_kernel", "bvh", 1, 0), ("hit_kernel", "brute", 0, 0),
+            ("hit_kernel", "bvh", 1, 0)):
+        occ = mk.search_occupancy(kernel, bool(bvh), smem)
+        flags = (bvh, smem > 0) if kernel == "record_kernel" else (bvh,)
+        out[f"{kernel}_{route}"] = dict(
+            {k: occ[k] for k in ("registers", "local_bytes",
+                                 "blocks_per_sm")},
+            shared_bytes=smem, spill_stores=spills(kernel, *flags))
     return out
 
 
@@ -2612,6 +2901,13 @@ def main():
     for off in (0, 23):
         compare_records("cornell_box", 600, 4, 8, off)
     rec_main = compare_records("cornell_box", 600, 23, 8, 23, timed=True)
+    # a range that starts and ends mid-row (the sharded recorder's case),
+    # one sample a pixel, and a frame whose pixel count is no multiple of a
+    # block (simple_light's own 600x337 at the gradient's 23 spp slice)
+    compare_records("cornell_box", 600, 4, 8, 0, pixel_base=1000,
+                    pixel_count=4097)
+    compare_records("cornell_box", 64, 1, 8, 0)
+    compare_records("simple_light", 600, 23, 8, 0)
 
     # the render kernel's noise and image families (B8) and the recorder on
     # the texture scenes, then B8 at simple_light's own 600x337 frame and
@@ -2633,6 +2929,11 @@ def main():
     compare_records("random_balls", 64, 4, 8, 0, use_bvh=True)
     compare("cornell_box", 64, 4, 8, use_bvh=True)
     compare_records("cornell_box", 64, 4, 8, 0, use_bvh=True)
+    # the walk's per-pixel counters, summed over the samples by the
+    # recorder, against the plain walk of the same paths
+    compare_records("final_scene", 16, 2, 8, 0, use_bvh=True, counters=True)
+    compare_records("cornell_box", 16, 3, 8, 0, use_bvh=True, counters=True,
+                    pixel_base=37, pixel_count=150)
     at_final = compare("final_scene", 200, 4, 40, use_bvh=True)
     # the fused final_scene render's group width, a warp a pixel (depth
     # cut: the plain version's sample loop takes a minute at depth 40)
@@ -2662,7 +2963,7 @@ def main():
     grad_tex = phase_grad_textures()
 
     grad, scene, camera = phase_grad_path()
-    phase_profile(scene, camera, grad["seconds_rep2"])
+    census = phase_profile(scene, camera, grad["seconds_rep2"])
     phase_train()
     phase_grad_check()
 
@@ -2689,6 +2990,8 @@ def main():
     g5 = gathers[("gather", 4, torch.float32)]
     g6 = gathers[("cols", 24, 17, torch.float32)]
     rd = sums[(24, 17)]
+    real = sums["real"]
+    mt = grad_final["match_check"]
     seg = segs[(524288, torch.float32)]
     srt = segs[(524288, "sort")]
     gl = grad["launches"]
@@ -2719,6 +3022,7 @@ def main():
         "library_ms": None,
         "shape": "cornell_box 600x600 depth 8, one 23-spp sample slice of "
                  "the gradient path (offset 23)",
+        "occupancy": rec_main["occupancy"],
     }, {
         "name": "gather_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
@@ -2744,13 +3048,39 @@ def main():
         "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
         "replaces": "rust_tracing_tpu/ops/tgather.py:65",
         "launches": gl["scatter_sum_kernel"],
-        "max_abs_err": rd["max_abs_err"],
-        "ms": rd["kernel_ms"], "plain_ms": rd["plain_ms"],
-        "bound_ms": rd["bound_ms"], "bound_by": rd["bound_by"],
-        "library_ms": rd["library_ms"],
-        "shape": f"f32 cotangent (17, {N_INDEX}) into the (17, 24) quad "
-                 "column table (the transpose of the B6 gather)",
+        "max_abs_err": real["max_abs_err"],
+        "ms": real["kernel_ms"], "plain_ms": real["plain_ms"],
+        "bound_ms": real["bound_ms"], "bound_by": real["bound_by"],
+        "library_ms": real["library_ms"],
+        "shape": f"f32 cotangent ({real['columns']}, {real['indices']}) into "
+                 f"{real['rows']} rows: cornell's first replay bounce, its "
+                 "tex_rgb column (the shape of every reduction of the "
+                 "gradient, by the census); bit for bit "
+                 "lanegather.scatter_sum_ordered_plain",
+        "random_index_ms": sums["real_random"]["kernel_ms"],
+        "census": census["rows"], "census_device_ms": census["device_ms"],
+        "quad_table": {k: rd[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "library_ms",
+            "max_abs_err", "plan")},
+        "quad_table_shape": f"f32 cotangent (17, {N_INDEX}) into the (17, "
+                            "24) quad column table, random index",
+        "quad_real_index_ms": sums["quad"]["kernel_ms"],
         "launches_grad_final": grad_final["launches"]["scatter_sum_kernel"],
+    }, {
+        "name": "scatter_match_kernel", "route": "cuda",
+        "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",
+        "replaces": "rust_tracing_tpu/ops/tgather.py:65",
+        "launches": grad_final["launches"]["scatter_match_kernel"],
+        "max_abs_err": mt["max_abs_err"],
+        "ms": mt["kernel_ms"], "plain_ms": mt["plain_ms"],
+        "bound_ms": mt["bound_ms"], "bound_by": mt["bound_by"],
+        "library_ms": mt["library_ms"],
+        "shape": f"f32 cotangent ({mt['columns']}, {mt['indices']}) into "
+                 f"{mt['rows']} rows, random index: the shape of grad_final's "
+                 "match calls that took the most device time (its census); "
+                 "launches from grad_final, final_scene 200x200 @ 4 spp",
+        "census_grad_final": grad_final["routes"]["use_segment_sum"][
+            "census"]["rows"],
     }, {
         "name": "segment_sum_kernel", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/gather_kernel.cu",

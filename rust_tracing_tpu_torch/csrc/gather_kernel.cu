@@ -16,29 +16,55 @@
 // touches, read through the read-only path (`__ldg`). Bound: bytes (index
 // read once, output written once); the table reads hit cache.
 //
-// Reduction: d_col[k, r] = sum of ct[k, i] over i with idx[i] == r, out of
-// range indices dropped. It must give the same bits on every call (replay
-// gradients are compared with direct ones, and a run must repeat), so there
-// are no float atomics anywhere. Summation order, fixed by R alone:
-//   1. R is cut into B contiguous block slices (B = ceil(R / chunk)); a block's
-//      slice is cut into SS_WARPS contiguous warp slices.
-//   2. A warp walks its slice 32 elements at a time, in order. In each step
-//      the lanes holding the same row find each other (__match_any_sync); each
-//      group is summed in lane order (0 + v_l0 + v_l1 + ...), and its lowest
-//      lane adds that sum to the warp's own shared-memory row sum. Groups of
-//      one step have distinct rows, and only this warp writes its row sums.
-//   3. At the end of the slice the block adds its warps' row sums in warp
-//      order and writes one partial per (column, block, row).
-//   4. scatter_sum_final adds the B partials of each row in block order.
-// Tables with more rows than fit shared memory are processed in row tiles,
-// each tile re-reading the slice: work is O(R) per tile plus O(B n) for the
-// partials. Bound: bytes (8 bytes read per element: the cotangent and its
-// index).
+// Reduction (the tile kernel, scatter_sum_partial + scatter_sum_final):
+// d_col[k, r] = sum of ct[k, i] over i with idx[i] == r, out of range indices
+// dropped, for all K columns in one launch. It must give the same bits on
+// every call (replay gradients are compared with direct ones, and a run must
+// repeat), so there are no float atomics anywhere. The launch shape comes
+// from (R, n, K, element size) alone (ops/lanegather.py::scatter_plan):
+// B blocks, each a contiguous slice of `chunk` elements; a block's W warps
+// are Wc column groups x We element slices (Wc = min(K, 8), We = 8 / Wc):
+// warp (g, q) sums the columns g, g + Wc, ... over the q-th contiguous part
+// of the block's slice. Summation order of every (column, row):
+//   1. Lane l of a warp walks the elements lo + l, lo + l + 32, ... of its
+//      part in order (32 interleaved streams: a warp's index and cotangent
+//      loads are 128-byte lines) and adds each element whose row is r to its
+//      OWN shared-memory copy of the row sum, laid out [column][row][lane]:
+//      whatever the keys, the 32 lanes of a step touch 32 different banks,
+//      so no match, shuffle or atomic is needed. O(1) instructions per
+//      (element, column).
+//   2. At the end of the slice the 32 lane copies of each (column, row) are
+//      added in a fixed butterfly (lane l + lane l^16, then ^8, ^4, ^2, ^1;
+//      lane 0's value), and the block adds the column's We parts in order:
+//      one partial per (column, block, row).
+//   3. scatter_sum_final: one warp a (column, row); lane l adds the partials
+//      of blocks l, l + 32, ... in order, then the same butterfly.
+// ops/lanegather.py::scatter_sum_ordered_plain is this order in tensor
+// code, so the card's gate is bit for bit; integer-valued cotangents sum
+// exactly in any order. The index is read from device memory once for all
+// the columns (the Wc groups of a block re-read its slice of it from cache).
+// The copies take 33 x 4 bytes (f32) per (warp, column, row) of a pass, up
+// to 227 KB a block: where a warp's columns and rows do not fit, the kernel
+// makes passes over column rounds and row tiles, each re-reading the slice;
+// and the copies bound the warps an SM holds. The tables the route sends
+// here (<= 64 rows) fit one row pass; the row-tile loop is kept all the
+// same: taking it out (rows = n, keys compared with n) changed nvcc's code
+// for every instantiation, and on an H100 the f32 (17, 24) reduction took
+// 0.263 ms against 0.184, f64 (1, 4) 0.030 against 0.022 (PERF.md, "Row-
+// tile passes"). It also serves direct calls with more rows. So the tile
+// kernel is for small tables (cornell's 4 texture rows: all of its
+// gradient's reductions); ops/lanegather.py sends larger ones to the match
+// kernel (one row-sum copy a warp, below) or the segment sum (further
+// below), by rows, columns and dtype as they measured fastest. Bound:
+// bytes, 4 + K x 4 (f32) read per element; the instruction work (a load, a
+// shared load, an add and a shared store per element and column, plus per
+// block a butterfly per (warp, column, row)) is below that at the shapes it
+// takes.
 //
-// The same reduction for tables with many rows (an image texture's 524 288
-// texels), where the tile loop would re-read its slice once per 3072 rows and
-// keep K * B * n partials, is a stable sort of the index by rows followed by
-// one pass over the sorted runs. Both are written here; no library sort.
+// The same reduction for larger tables (an image texture's 524 288 texels,
+// final_scene's 2408 quads), where the tile kernel would re-read its slice
+// once per row tile and keep K * B * n partials, is a stable sort of the
+// index by rows followed by one pass over the sorted runs. Both are written here; no library sort.
 //  - radix_*_kernel: a stable LSD radix sort of the keys (the index, with rows
 //    outside [0, n) given the key n, which sorts last and is dropped) over the
 //    bits of n only, in passes of at most RADIX_MAX_BITS (3 passes of 7, 7
@@ -76,9 +102,14 @@
 namespace {
 
 constexpr int G_THREADS = 256;
-constexpr int SS_WARPS = 4;
-constexpr int SS_THREADS = 32 * SS_WARPS;
-constexpr int SS_SMEM_BYTES = 48 * 1024;
+// the tile kernel: at most this many warps a block, this much shared memory
+// (ops/lanegather.py::SCATTER_MAX_WARPS, SCATTER_SMEM_BYTES)
+constexpr int SS_MAX_WARPS = 8;
+constexpr int SS_SMEM_BYTES = 232448;
+// the match kernel: warps a block, shared memory of row sums a block
+constexpr int SM_WARPS = 4;
+constexpr int SM_THREADS = 32 * SM_WARPS;
+constexpr int SM_SMEM_BYTES = 48 * 1024;
 constexpr int SEG_THREADS = 256;
 constexpr int RADIX_WARPS = 8;
 constexpr int RADIX_THREADS = 32 * RADIX_WARPS;
@@ -124,27 +155,178 @@ __global__ void __launch_bounds__(G_THREADS)
     }
 }
 
+// The fixed butterfly over a warp's lanes: lane 0 gets
+// ((x0 + x16) + (x8 + x24)) + ... (every lane adds its own value first; the
+// add is commutative, so both lanes of a pair hold the same bits).
 template <typename T>
-__global__ void __launch_bounds__(SS_THREADS)
+__device__ __forceinline__ T lane_butterfly(T x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        x = x + __shfl_xor_sync(FULL_MASK, x, off);
+    return x;
+}
+
+// One block of the tile kernel (see the header). Its W = Wc x We warps:
+// warp w serves column group g = w % Wc (columns g, g + Wc, g + 2 Wc, ...)
+// over element slice q = w / Wc of the block's chunk. A pass holds, per
+// warp, `cpw` of its group's columns (from column round j0) and `rows` rows
+// (from r0); CG columns a lane loads at once (1, 2, 4 or 8, the smallest
+// that covers cpw, else 8) for U element steps (8, or 4 at 8 columns).
+// Shared memory: W x cpw x rows x 32 lane copies, then W x cpw x rows warp
+// sums.
+template <typename T, int CG>
+__global__ void __launch_bounds__(32 * SS_MAX_WARPS)
     scatter_sum_partial(const T* __restrict__ ct, const int* __restrict__ idx,
-                        long long R, int n, int tile_rows, long long chunk,
-                        T* __restrict__ partial) {
+                        long long R, int n, int K, int Wc, int cpw, int rows,
+                        long long chunk, T* __restrict__ partial) {
+    constexpr int U = CG <= 4 ? 8 : 4;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* hist = reinterpret_cast<T*>(smem_raw);  // SS_WARPS x tile_rows
+    const int W = blockDim.x >> 5, We = W / Wc;
+    const int B = gridDim.x, b = blockIdx.x;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = warp % Wc, q = warp / Wc;
+    const int ncw = (K + Wc - 1) / Wc;  // columns of group 0, the most
+    const int items = cpw * rows;       // (column, row) entries of a pass
+    T* copies = reinterpret_cast<T*>(smem_raw);  // [W][items][32]
+    T* wsum = copies + (size_t)W * items * 32;   // [W][items]
+    T* mine = copies + (size_t)warp * items * 32 + lane;
+    const long long lo = (long long)b * chunk;
+    const long long hi = lo + chunk < R ? lo + chunk : R;
+    const long long wchunk = (chunk + We - 1) / We;
+    const long long wlo = lo + q * wchunk;
+    const long long whi = wlo + wchunk < hi ? wlo + wchunk : hi;
+
+    for (int j0 = 0; j0 < ncw; j0 += cpw) {
+        // this warp's columns of the pass: g + (j0 + j) Wc < K, j < nj
+        const int left = (K - g + Wc - 1) / Wc - j0;
+        const int nj = left < 0 ? 0 : (left < cpw ? left : cpw);
+        for (int r0 = 0; r0 < n; r0 += rows) {
+            const int nr = n - r0 < rows ? n - r0 : rows;
+            for (int e = threadIdx.x; e < W * items * 32; e += blockDim.x)
+                copies[e] = T(0);
+            __syncthreads();
+            for (long long base = wlo; base < whi; base += 32 * U) {
+                // the index and the first CG columns load together: no
+                // value load waits for its key
+                int key[U];
+                T v[U][CG];
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const long long i = base + 32 * u + lane;
+                    key[u] = i < whi ? __ldg(idx + i) : -1;
+                }
+                for (int j1 = 0; j1 < nj; j1 += CG) {
+#pragma unroll
+                    for (int u = 0; u < U; ++u)
+#pragma unroll
+                        for (int m = 0; m < CG; ++m)
+                            v[u][m] =
+                                base + 32 * u + lane < whi && j1 + m < nj
+                                    ? __ldg(ct
+                                            + (size_t)(g + (j0 + j1 + m) * Wc)
+                                                  * R
+                                            + base + 32 * u + lane)
+                                    : T(0);
+                    if (j1 == 0) {  // after the loads have gone out
+#pragma unroll
+                        for (int u = 0; u < U; ++u)
+                            key[u] = key[u] >= r0 && key[u] < r0 + nr
+                                         ? key[u] - r0
+                                         : -1;
+                    }
+                    // in element order for each (column, row): u ascends
+#pragma unroll
+                    for (int u = 0; u < U; ++u)
+#pragma unroll
+                        for (int m = 0; m < CG; ++m)
+                            if (key[u] >= 0 && j1 + m < nj) {
+                                T* a = mine
+                                       + ((size_t)(j1 + m) * rows + key[u]) * 32;
+                                *a = *a + v[u][m];
+                            }
+                }
+            }
+            __syncthreads();
+            // every warp's lane copies of the pass: any warp sums any
+            for (int t = warp; t < W * items; t += W) {
+                const T s = lane_butterfly(copies[(size_t)t * 32 + lane]);
+                if (lane == 0) wsum[t] = s;
+            }
+            __syncthreads();
+            // a group's element slices in slice order: one thread a
+            // (group, column of the pass, row)
+            for (int t = threadIdx.x; t < Wc * items; t += blockDim.x) {
+                const int gg = t / items, e = t % items;
+                const int j = e / rows, r = e % rows;
+                const int c = gg + (j0 + j) * Wc;
+                if (r >= nr || c >= K) continue;
+                T s = wsum[gg * items + e];
+                for (int qq = 1; qq < We; ++qq)
+                    s = s + wsum[(qq * Wc + gg) * items + e];
+                partial[((size_t)c * B + b) * n + r0 + r] = s;
+            }
+            __syncthreads();
+        }
+    }
+}
+
+// out[k, r]: one warp a (column, row); lane l adds the partials of blocks
+// l, l + 32, ... in block order, then lane_butterfly.
+template <typename T>
+__global__ void __launch_bounds__(G_THREADS)
+    scatter_sum_final(const T* __restrict__ partial, int B, int n, int K,
+                      T* __restrict__ out) {
+    const long long t = ((long long)blockIdx.x * G_THREADS + threadIdx.x) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (t >= (long long)K * n) return;  // the whole warp
+    const int k = (int)(t / n), r = (int)(t % n);
+    const T* p = partial + (size_t)k * B * n + r;
+    T s = T(0);
+    for (int b = lane; b < B; b += 32) s = s + __ldg(p + (size_t)b * n);
+    s = lane_butterfly(s);
+    if (lane == 0) out[t] = s;
+}
+
+// The match kernel (scatter_match_partial + scatter_match_final), for
+// tables of a few hundred to a few thousand rows, where the tile kernel's
+// 32 lane copies of every row no longer fit beside enough warps. Grid
+// (B, K), blocks of SM_WARPS warps, B and the block slices as the tile
+// kernel's by R alone; each warp keeps ONE shared-memory copy of its row
+// sums (SM_SMEM_BYTES / SM_WARPS a warp: 3072 f32 rows, 1536 f64; larger
+// tables in row tiles, each re-reading the slice). Summation order of every
+// (column, row), fixed by R alone:
+//   1. A warp walks its slice 32 elements at a time, in order. In each step
+//      the lanes holding the same row find each other (__match_any_sync);
+//      each group is summed in lane order (0 + v_l0 + v_l1 + ...), and its
+//      lowest lane adds that sum to the warp's row sum. Groups of one step
+//      have distinct rows, and only this warp writes its row sums. The warp
+//      folds over its groups' set bits only, as many steps as its largest
+//      group (1-3 for a random index into hundreds of rows), not 32.
+//   2. At the end of the slice the block adds its warps' row sums in warp
+//      order and writes one partial per (column, block, row).
+//   3. scatter_match_final adds the B partials of each row in block order.
+// Bound: bytes (the index and the column read once a column and row tile).
+template <typename T>
+__global__ void __launch_bounds__(SM_THREADS)
+    scatter_match_partial(const T* __restrict__ ct, const int* __restrict__ idx,
+                          long long R, int n, int tile_rows, long long chunk,
+                          T* __restrict__ partial) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* hist = reinterpret_cast<T*>(smem_raw);  // SM_WARPS x tile_rows
     const int k = blockIdx.y;
     const int B = gridDim.x, b = blockIdx.x;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const T* ctk = ct + (size_t)k * R;
     const long long lo = (long long)b * chunk;
     const long long hi = lo + chunk < R ? lo + chunk : R;
-    const long long wchunk = (chunk + SS_WARPS - 1) / SS_WARPS;
+    const long long wchunk = (chunk + SM_WARPS - 1) / SM_WARPS;
     const long long wlo = lo + warp * wchunk;
     const long long whi = wlo + wchunk < hi ? wlo + wchunk : hi;
     T* mine = hist + warp * tile_rows;
 
     for (int r0 = 0; r0 < n; r0 += tile_rows) {
         const int rows = n - r0 < tile_rows ? n - r0 : tile_rows;
-        for (int r = threadIdx.x; r < SS_WARPS * tile_rows; r += SS_THREADS)
+        for (int r = threadIdx.x; r < SM_WARPS * tile_rows; r += SM_THREADS)
             hist[r] = T(0);
         __syncthreads();
         // the loop bound is the same for all lanes: every lane takes part in
@@ -160,21 +342,27 @@ __global__ void __launch_bounds__(SS_THREADS)
                     v = __ldg(ctk + i);
                 }
             }
-            const unsigned peers = __match_any_sync(0xffffffffu, key);
+            const unsigned peers = __match_any_sync(FULL_MASK, key);
+            const int steps = (int)__reduce_max_sync(
+                FULL_MASK, key >= 0 ? (unsigned)__popc(peers) : 0u);
+            unsigned rest = peers;
             T acc = T(0);
-#pragma unroll
-            for (int s = 0; s < 32; ++s) {
-                const T vs = __shfl_sync(0xffffffffu, v, s);
-                if (peers & (1u << s)) acc = acc + vs;
+            for (int t = 0; t < steps; ++t) {
+                const T vs = __shfl_sync(FULL_MASK, v,
+                                         rest ? __ffs(rest) - 1 : lane);
+                if (rest) {
+                    acc = acc + vs;
+                    rest &= rest - 1u;
+                }
             }
             if (key >= 0 && lane == __ffs(peers) - 1)
                 mine[key] = mine[key] + acc;
             __syncwarp();
         }
         __syncthreads();
-        for (int r = threadIdx.x; r < rows; r += SS_THREADS) {
+        for (int r = threadIdx.x; r < rows; r += SM_THREADS) {
             T s = hist[r];
-            for (int w = 1; w < SS_WARPS; ++w) s = s + hist[w * tile_rows + r];
+            for (int w = 1; w < SM_WARPS; ++w) s = s + hist[w * tile_rows + r];
             partial[((size_t)k * B + b) * n + r0 + r] = s;
         }
         __syncthreads();
@@ -183,8 +371,8 @@ __global__ void __launch_bounds__(SS_THREADS)
 
 template <typename T>
 __global__ void __launch_bounds__(G_THREADS)
-    scatter_sum_final(const T* __restrict__ partial, int B, int n, int K,
-                      T* __restrict__ out) {
+    scatter_match_final(const T* __restrict__ partial, int B, int n, int K,
+                        T* __restrict__ out) {
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= (long long)K * n) return;
     const int k = (int)(t / n), r = (int)(t % n);
@@ -556,22 +744,69 @@ int launch_gather_cols(const void* tab, int K, int n, const void* idx,
     return (int)cudaGetLastError();
 }
 
+template <typename T, int CG>
+int launch_scatter_partial(const void* ct, const void* idx, long long R, int n,
+                           int K, int B, long long chunk, int W, int Wc,
+                           int cpw, int rows, size_t smem, void* partial,
+                           cudaStream_t st) {
+    // above 48 KB only after opting in, once a process
+    static bool opted = false;
+    if (!opted) {
+        const int err = (int)cudaFuncSetAttribute(
+            scatter_sum_partial<T, CG>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, SS_SMEM_BYTES);
+        if (err != 0) return err;
+        opted = true;
+    }
+    scatter_sum_partial<T, CG><<<B, 32 * W, smem, st>>>(
+        static_cast<const T*>(ct), static_cast<const int*>(idx), R, n, K, Wc,
+        cpw, rows, chunk, static_cast<T*>(partial));
+    return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_scatter_sum(const void* ct, const void* idx, long long R, int n,
-                       int K, int B, long long chunk, void* partial, void* out,
-                       cudaStream_t st) {
-    int tile_rows = SS_SMEM_BYTES / (SS_WARPS * (int)sizeof(T));
+                       int K, int B, long long chunk, int W, int Wc, int cpw,
+                       int rows, void* partial, void* out, cudaStream_t st) {
+    const size_t smem = (size_t)W * cpw * rows * 33 * sizeof(T);
+    if (smem > (size_t)SS_SMEM_BYTES) return (int)cudaErrorInvalidValue;
+    int err;
+    if (cpw == 1)
+        err = launch_scatter_partial<T, 1>(ct, idx, R, n, K, B, chunk, W, Wc,
+                                           cpw, rows, smem, partial, st);
+    else if (cpw == 2)
+        err = launch_scatter_partial<T, 2>(ct, idx, R, n, K, B, chunk, W, Wc,
+                                           cpw, rows, smem, partial, st);
+    else if (cpw <= 4)
+        err = launch_scatter_partial<T, 4>(ct, idx, R, n, K, B, chunk, W, Wc,
+                                           cpw, rows, smem, partial, st);
+    else
+        err = launch_scatter_partial<T, 8>(ct, idx, R, n, K, B, chunk, W, Wc,
+                                           cpw, rows, smem, partial, st);
+    if (err != 0) return err;
+    const long long threads = (long long)K * n * 32;
+    scatter_sum_final<T><<<(int)((threads + G_THREADS - 1) / G_THREADS),
+                           G_THREADS, 0, st>>>(static_cast<const T*>(partial),
+                                               B, n, K, static_cast<T*>(out));
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_scatter_match(const void* ct, const void* idx, long long R, int n,
+                         int K, int B, long long chunk, void* partial,
+                         void* out, cudaStream_t st) {
+    int tile_rows = SM_SMEM_BYTES / (SM_WARPS * (int)sizeof(T));
     if (tile_rows > n) tile_rows = n;
-    const size_t smem = (size_t)SS_WARPS * tile_rows * sizeof(T);
-    scatter_sum_partial<T><<<dim3(B, K), SS_THREADS, smem, st>>>(
+    const size_t smem = (size_t)SM_WARPS * tile_rows * sizeof(T);
+    scatter_match_partial<T><<<dim3(B, K), SM_THREADS, smem, st>>>(
         static_cast<const T*>(ct), static_cast<const int*>(idx), R, n,
         tile_rows, chunk, static_cast<T*>(partial));
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
     const long long total = (long long)K * n;
-    scatter_sum_final<T><<<(int)((total + G_THREADS - 1) / G_THREADS),
-                           G_THREADS, 0, st>>>(static_cast<const T*>(partial),
-                                               B, n, K, static_cast<T*>(out));
+    scatter_match_final<T><<<(int)((total + G_THREADS - 1) / G_THREADS),
+                             G_THREADS, 0, st>>>(
+        static_cast<const T*>(partial), B, n, K, static_cast<T*>(out));
     return (int)cudaGetLastError();
 }
 
@@ -667,22 +902,49 @@ extern "C" int rt_gather_cols_launch(const void* tab, int K, int n,
 }
 
 // out[k, r] = sum of ct[k, i] over idx[i] == r, for ct (K, R) float
-// (is_double 0) or double (1). `partial` is scratch of K * B * n elements;
-// block b sums elements [b * chunk, (b + 1) * chunk).
+// (is_double 0) or double (1), every entry of out written. The plan
+// (ops/lanegather.py::scatter_plan): B blocks of W warps in Wc column
+// groups, block b sums elements [b * chunk, (b + 1) * chunk), in passes of
+// `cpw` columns a warp and `rows` rows. `partial` is scratch of K * B * n
+// elements.
 extern "C" int rt_scatter_sum_launch(const void* ct, const void* idx,
                                      long long R, int n, int K, int is_double,
-                                     int B, long long chunk, void* partial,
+                                     int B, long long chunk, int W, int Wc,
+                                     int cpw, int rows, void* partial,
                                      void* out, void* stream) {
     if (n < 1 || K < 1 || R < 1 || B < 1 || chunk < 1
-        || (long long)B * chunk < R)
+        || (long long)B * chunk < R || W < 1 || W > SS_MAX_WARPS || Wc < 1
+        || Wc > K || W % Wc != 0 || cpw < 1 || cpw > (K + Wc - 1) / Wc
+        || rows < 1 || rows > n)
         return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (is_double)
-        return launch_scatter_sum<double>(ct, idx, R, n, K, B, chunk, partial,
-                                          out, st);
-    return launch_scatter_sum<float>(ct, idx, R, n, K, B, chunk, partial, out,
-                                     st);
+        return launch_scatter_sum<double>(ct, idx, R, n, K, B, chunk, W, Wc,
+                                          cpw, rows, partial, out, st);
+    return launch_scatter_sum<float>(ct, idx, R, n, K, B, chunk, W, Wc, cpw,
+                                     rows, partial, out, st);
+}
+
+// out[k, r] = sum of ct[k, i] over idx[i] == r by the match kernel, for ct
+// (K, R) float (is_double 0) or double (1), every entry of out written.
+// `partial` is scratch of K * B * n elements; block b sums elements
+// [b * chunk, (b + 1) * chunk).
+extern "C" int rt_scatter_match_launch(const void* ct, const void* idx,
+                                       long long R, int n, int K,
+                                       int is_double, int B, long long chunk,
+                                       void* partial, void* out,
+                                       void* stream) {
+    if (n < 1 || K < 1 || R < 1 || B < 1 || chunk < 1
+        || (long long)B * chunk < R || K > 65535)
+        return (int)cudaErrorInvalidValue;
+    (void)cudaGetLastError();
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (is_double)
+        return launch_scatter_match<double>(ct, idx, R, n, K, B, chunk,
+                                            partial, out, st);
+    return launch_scatter_match<float>(ct, idx, R, n, K, B, chunk, partial,
+                                       out, st);
 }
 
 // Stable sort of the int32 index `idx` (R elements) by row, rows outside

@@ -31,14 +31,17 @@
 //    5 625 blocks of 64 threads, ~3 waves of equally long blocks, the last a
 //    quarter full for a whole wave's time.) The TPU kernel regenerates dead
 //    lanes to keep a 1024-lane vector full and adds finished samples per
-//    pixel in sample order: the same sums. record_kernel and hit_kernel keep
-//    one thread a pixel (8x8 blocks) and one thread a lane.
-//  - Scene tables: the brute-loop render kernel stages the sphere, quad,
-//    medium, material and texture rows in shared memory once a block when
-//    they fit the host's byte budget (megakernel.STAGE_BUDGET_BYTES, small
-//    enough that registers, not shared memory, bound the blocks an SM holds)
-//    and reads them with plain loads: the threads of a warp read the same row
-//    at once, a broadcast. Larger tables, the BVH instantiations' tree and
+//    pixel in sample order: the same sums.
+//  - record_kernel is one thread a (pixel, sample): it sums nothing across
+//    samples, so a warp traces one sample of 32 consecutive pixels and each
+//    bounce's store is one 128-byte run of that sample's plane (see its
+//    comment). hit_kernel is one thread a lane.
+//  - Scene tables: the brute-loop render kernel and recorder stage the
+//    sphere, quad, medium, material and texture rows in shared memory once a
+//    block when they fit the host's byte budget (megakernel.
+//    STAGE_BUDGET_BYTES, small enough that registers, not shared memory,
+//    bound the blocks an SM holds) and read them with plain loads: the
+//    threads of a warp read the same row at once, a broadcast. Larger tables, the BVH instantiations' tree and
 //    scene rows and the image are read from global memory through the
 //    read-only path (`__ldg`, vector loads of whole rows).
 //  - BVH (B4): each thread walks the card's tree, the reference's binary
@@ -908,7 +911,6 @@ __device__ __forceinline__ void camera_ray(const RenderParams& p, uint32_t pid,
     r.time = rng.uniform(SITE_TIME);
 }
 
-constexpr int BLOCK_X = 8, BLOCK_Y = 8;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 // Write a thread's walk counts to row `i` of `counters` ((rows, 3) int32)
@@ -934,6 +936,13 @@ struct RenderPlan {
     int group, stage_bytes, mat_rows, tex_rows;
 };
 
+// How the host launches record_kernel; mirrors ops/megakernel.py::
+// RecordPlan. blocks: of RECORD_THREADS threads (the launch checks it
+// against its own count); stage_bytes, mat_rows, tex_rows as for RenderPlan.
+struct RecordPlan {
+    int blocks, stage_bytes, mat_rows, tex_rows;
+};
+
 constexpr int RENDER_THREADS = 128;
 
 // Copy `bytes` (a multiple of 4) from global memory to `dst` with the whole
@@ -943,11 +952,32 @@ __device__ __forceinline__ const void* stage(const void* src, int bytes,
                                              unsigned char*& dst) {
     const int* s = static_cast<const int*>(src);
     int* d = reinterpret_cast<int*>(dst);
-    for (int w = threadIdx.x; w < bytes / 4; w += RENDER_THREADS)
+    for (int w = threadIdx.x; w < bytes / 4; w += blockDim.x)
         d[w] = __ldg(s + w);
     const void* at = dst;
     dst += (bytes + 15) & ~15;
     return at;
+}
+
+// Stage the brute loop's tables (spheres, quads, media, materials,
+// textures) in the block's dynamic shared memory and point `sc` at them.
+__device__ __forceinline__ void stage_tables(Tables<true>& sc,
+                                             const SceneTables& g,
+                                             const RenderParams& p,
+                                             int mat_rows, int tex_rows) {
+    extern __shared__ __align__(16) unsigned char staged[];
+    unsigned char* at = staged;
+    sc.sph_f = static_cast<const float4*>(stage(g.sph_f, 32 * p.n_spheres, at));
+    sc.sph_m = static_cast<const int*>(stage(g.sph_m, 4 * p.n_spheres, at));
+    sc.quad_f = static_cast<const float4*>(stage(g.quad_f, 64 * p.n_quads, at));
+    sc.quad_m = static_cast<const int*>(stage(g.quad_m, 4 * p.n_quads, at));
+    sc.med_f = static_cast<const float*>(stage(g.med_f, 96 * p.n_media, at));
+    sc.med_i = static_cast<const int*>(stage(g.med_i, 8 * p.n_media, at));
+    sc.mat_f = static_cast<const float*>(stage(g.mat_f, 20 * mat_rows, at));
+    sc.mat_i = static_cast<const int*>(stage(g.mat_i, 8 * mat_rows, at));
+    sc.tex_f = static_cast<const float*>(stage(g.tex_f, 16 * tex_rows, at));
+    sc.tex_i = static_cast<const int*>(stage(g.tex_i, 12 * tex_rows, at));
+    __syncthreads();
 }
 
 // out_rgb (pixel_count,3): mean radiance over spp samples, f32 sum in sample
@@ -962,27 +992,7 @@ __global__ void __launch_bounds__(RENDER_THREADS)
                   int* __restrict__ counters) {
     static_assert(!(BVH && STAGED), "the walk's tables are not staged");
     Tables<STAGED> sc{g};
-    if constexpr (STAGED) {
-        extern __shared__ __align__(16) unsigned char staged[];
-        unsigned char* at = staged;
-        sc.sph_f = static_cast<const float4*>(
-            stage(g.sph_f, 32 * p.n_spheres, at));
-        sc.sph_m = static_cast<const int*>(stage(g.sph_m, 4 * p.n_spheres, at));
-        sc.quad_f = static_cast<const float4*>(
-            stage(g.quad_f, 64 * p.n_quads, at));
-        sc.quad_m = static_cast<const int*>(stage(g.quad_m, 4 * p.n_quads, at));
-        sc.med_f = static_cast<const float*>(stage(g.med_f, 96 * p.n_media, at));
-        sc.med_i = static_cast<const int*>(stage(g.med_i, 8 * p.n_media, at));
-        sc.mat_f = static_cast<const float*>(
-            stage(g.mat_f, 20 * plan.mat_rows, at));
-        sc.mat_i = static_cast<const int*>(
-            stage(g.mat_i, 8 * plan.mat_rows, at));
-        sc.tex_f = static_cast<const float*>(
-            stage(g.tex_f, 16 * plan.tex_rows, at));
-        sc.tex_i = static_cast<const int*>(
-            stage(g.tex_i, 12 * plan.tex_rows, at));
-        __syncthreads();
-    }
+    if constexpr (STAGED) stage_tables(sc, g, p, plan.mat_rows, plan.tex_rows);
 
     const int G = plan.group;
     const long long t = (long long)blockIdx.x * RENDER_THREADS + threadIdx.x;
@@ -1048,54 +1058,75 @@ __global__ void __launch_bounds__(RENDER_THREADS)
 }
 
 // Path recorder (replaces the Pallas kernel's record mode,
-// rust_tracing_tpu/ops/megakernel.py:1050-1077): the same lockstep
-// `for sample { for bounce }` trace as render_kernel through
-// trace_bounce<MODE_RECORD>, which skips texture and radiance work and
-// reports the winner `kind<<24 | idx` (1 sphere, 2 quad, 3+m medium m) of
-// every bounce. After a path dies (miss, emitter, absorbed metal ray, or its
-// max_depth-th segment) every later bounce of that sample records 0, as the
-// reference's `alive` carry and records_xla's `where(tp_alive, rec, 0)` do.
+// rust_tracing_tpu/ops/megakernel.py:1050-1077): the same trace as
+// render_kernel through trace_bounce<MODE_RECORD>, which skips texture and
+// radiance work and reports the winner `kind<<24 | idx` (1 sphere, 2 quad,
+// 3+m medium m) of every bounce. After a path dies (miss, emitter, absorbed
+// metal ray, or its max_depth-th segment) every later bounce of that sample
+// records 0, as the reference's `alive` carry and records_xla's
+// `where(tp_alive, rec, 0)` do.
 //
 // out (max_depth, spp, pixel_count) int32, depth-major, written in place:
 // replay reads one (spp * pixels) bounce row at a time, so no transpose or
-// unswizzle follows. A warp's 32 pixels are four 8-pixel row segments, so
-// each store instruction fills four whole 32-byte sectors.
-// Bound: operations (the same primitive tests as render_kernel without the
-// shading); it writes 4 bytes per (pixel, sample, bounce).
-template <bool BVH>
-__global__ void __launch_bounds__(BLOCK_X* BLOCK_Y)
-    record_kernel(SceneTables g, RenderParams p, int row0,
+// unswizzle follows.
+//
+// Thread map: one thread a (pixel, sample) on a 1-D grid over the pixel
+// range only (ops/megakernel.py::record_plan mirrors it). Warp g of the
+// grid traces sample g % spp of the 32 consecutive local pixels
+// 32 (g / spp) .. 32 (g / spp) + 31, so each bounce's store of a warp is one
+// 128-byte run of a sample plane. (One thread a pixel with its samples one
+// after another made 5 625 blocks of 64 threads for a 600x600 slice, ~2.7
+// waves of equally long blocks; the last wave ran a whole slice partly
+// empty.) A record depends on (seed, pixel, sample, bounce, site) only, never
+// on the thread that traces it, so the records are the same bits as one
+// thread a pixel's and the plain version's. The brute loop's tables are
+// staged in shared memory when they fit the host's budget (STAGED, as
+// render_kernel); the BVH walk reads the tree through L1. Walk counters
+// (BVH only) are per-pixel sums over the samples: integer atomics, exact in
+// any order. Bound: operations (the same primitive tests as render_kernel
+// without the shading); it writes 4 bytes per (pixel, sample, bounce).
+constexpr int RECORD_THREADS = 128;
+
+template <bool BVH, bool STAGED>
+__global__ void __launch_bounds__(RECORD_THREADS)
+    record_kernel(SceneTables g, RenderParams p, RecordPlan plan,
                   int* __restrict__ out, int* __restrict__ counters) {
-    const Tables<false> sc{g};
-    const int i = blockIdx.x * BLOCK_X + threadIdx.x;
-    const int j = row0 + blockIdx.y * BLOCK_Y + threadIdx.y;
-    if (i >= p.width || j >= p.height) return;
-    const int pid = j * p.width + i;
-    const int local = pid - p.pixel_base;
-    if (local < 0 || local >= p.pixel_count) return;
-    const float pi = (float)i, pj = (float)j;
+    static_assert(!(BVH && STAGED), "the walk's tables are not staged");
+    Tables<STAGED> sc{g};
+    if constexpr (STAGED) stage_tables(sc, g, p, plan.mat_rows, plan.tex_rows);
+    const long long t = (long long)blockIdx.x * RECORD_THREADS + threadIdx.x;
+    const long long warp = t >> 5;
+    const int si = (int)(warp % p.spp);
+    const long long local = (warp / p.spp) * 32 + (t & 31);
+    if (local >= p.pixel_count) return;
+    const int pid = p.pixel_base + (int)local;
+    const float pi = (float)(pid % p.width), pj = (float)(pid / p.width);
     const size_t plane = (size_t)p.pixel_count;
     WalkCount wc = {0, 0, 0};
 
-    for (int si = 0; si < p.spp; ++si) {
-        const uint32_t s_glob = (uint32_t)(si + p.sample_offset);
-        Path s;
-        camera_ray(p, (uint32_t)pid, pi, pj, s_glob, s.ray);
-        s.tp_r = s.tp_g = s.tp_b = 1.0f;
-        s.rad_r = s.rad_g = s.rad_b = 0.0f;
-        bool alive = true;
-        for (int d = 0; d < p.max_depth; ++d) {
-            int rec = 0;
-            if (alive) {
-                const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
-                                      (uint32_t)d);
-                alive = trace_bounce<MODE_RECORD, false, false, BVH>(
-                    sc, p, s, d + 1 < p.max_depth, rngb, rec, wc);
-            }
-            out[((size_t)d * p.spp + si) * plane + local] = rec;
+    const uint32_t s_glob = (uint32_t)(si + p.sample_offset);
+    Path s;
+    camera_ray(p, (uint32_t)pid, pi, pj, s_glob, s.ray);
+    s.tp_r = s.tp_g = s.tp_b = 1.0f;
+    s.rad_r = s.rad_g = s.rad_b = 0.0f;
+    bool alive = true;
+    for (int d = 0; d < p.max_depth; ++d) {
+        int rec = 0;
+        if (alive) {
+            const CounterRng rngb((uint32_t)p.seed, (uint32_t)pid, s_glob,
+                                  (uint32_t)d);
+            alive = trace_bounce<MODE_RECORD, false, false, BVH>(
+                sc, p, s, d + 1 < p.max_depth, rngb, rec, wc);
+        }
+        out[((size_t)d * p.spp + si) * plane + local] = rec;
+    }
+    if constexpr (BVH) {
+        if (counters != nullptr) {
+            atomicAdd(counters + 3 * local, wc.visits);
+            atomicAdd(counters + 3 * local + 1, wc.spheres);
+            atomicAdd(counters + 3 * local + 2, wc.quads);
         }
     }
-    put_counts<BVH>(counters, local, wc);
 }
 
 // One-bounce closest hit over supplied rays (B3; replaces the Pallas
@@ -1197,15 +1228,14 @@ bool range_ok(const rt::RenderParams& p) {
                   <= (long long)p.width * p.height;
 }
 
-// Grid of 8x8 pixel blocks covering the frame rows of the pixel range;
-// false if the range is empty or outside the frame.
-bool pixel_grid(const rt::RenderParams& p, int& row0, dim3& grid) {
-    if (!range_ok(p)) return false;
-    row0 = p.pixel_base / p.width;
-    const int row1 = (p.pixel_base + p.pixel_count - 1) / p.width;
-    grid = dim3((p.width + rt::BLOCK_X - 1) / rt::BLOCK_X,
-                (row1 - row0 + rt::BLOCK_Y) / rt::BLOCK_Y);
-    return true;
+// Blocks of record_kernel for the pixel range and spp: one thread a
+// (pixel, sample), a warp 32 pixels of one sample (see the kernel); -1 if the
+// grid would exceed 2^31 - 1 blocks.
+long long record_blocks(const rt::RenderParams& p) {
+    const long long warps = ((long long)p.pixel_count + 31) / 32 * p.spp;
+    const long long blocks =
+        (warps * 32 + rt::RECORD_THREADS - 1) / rt::RECORD_THREADS;
+    return blocks > 0x7FFFFFFFLL ? -1 : blocks;
 }
 
 // The render kernel's instantiation for the flags of the params and plan.
@@ -1224,11 +1254,14 @@ const void* render_fn(int noise, int image, int bvh, int staged) {
     return render_fn<false, false>(bvh, staged);
 }
 
-// record_kernel (which 1) or hit_kernel (which 2), with or without the walk.
-const void* search_fn(int which, int bvh) {
-    if (which == 1)
-        return bvh ? (const void*)rt::record_kernel<true>
-                   : (const void*)rt::record_kernel<false>;
+// record_kernel (which 1: the walk, the staged brute loop or the brute loop
+// through __ldg) or hit_kernel (which 2), with or without the walk.
+const void* search_fn(int which, int bvh, int staged) {
+    if (which == 1) {
+        if (bvh) return (const void*)rt::record_kernel<true, false>;
+        return staged ? (const void*)rt::record_kernel<false, true>
+                      : (const void*)rt::record_kernel<false, false>;
+    }
     return bvh ? (const void*)rt::hit_kernel<true>
                : (const void*)rt::hit_kernel<false>;
 }
@@ -1297,37 +1330,46 @@ extern "C" int rt_render_occupancy(int noise, int image, int bvh,
                      rt::RENDER_THREADS, stage_bytes, out);
 }
 
-// The resources of record_kernel (which 1) or hit_kernel (which 2) with or
+// The resources of record_kernel (which 1; staged when `stage_bytes` > 0,
+// with that much dynamic shared memory) or hit_kernel (which 2), with or
 // without the walk: see resources(). Returns a CUDA error code.
-extern "C" int rt_search_occupancy(int which, int bvh, int* out) {
-    if (which != 1 && which != 2) return (int)cudaErrorInvalidValue;
-    return resources(search_fn(which, bvh),
-                     which == 1 ? rt::BLOCK_X * rt::BLOCK_Y : rt::HIT_BLOCK,
-                     0, out);
+extern "C" int rt_search_occupancy(int which, int bvh, int stage_bytes,
+                                   int* out) {
+    if ((which != 1 && which != 2) || stage_bytes < 0
+        || (stage_bytes > 0 && (which != 1 || bvh)))
+        return (int)cudaErrorInvalidValue;
+    return resources(search_fn(which, bvh, stage_bytes > 0),
+                     which == 1 ? rt::RECORD_THREADS : rt::HIT_BLOCK,
+                     stage_bytes, out);
 }
 
-// Launch the path recorder on `stream` over the same pixel range; `out_rec`
-// holds max_depth * spp * pixel_count int32; `counters` as for the render.
-// Does not synchronise. Returns cudaGetLastError().
+// Launch the path recorder on `stream` over the same pixel range; `params`
+// and `plan` are host pointers (rt::RenderParams, rt::RecordPlan: its
+// blocks must be record_blocks(params), its stage_bytes > 0 picks the staged
+// brute loop); `out_rec` holds max_depth * spp * pixel_count int32;
+// `counters` null, or (pixel_count, 3) int32 holding zeros, to which a BVH
+// instantiation adds each pixel's walk counts over its samples. Does not
+// synchronise. Returns cudaGetLastError().
 extern "C" int rt_record_launch(RT_TABLE_ARGS, const void* params,
-                                void* out_rec, void* counters, void* stream) {
-    const rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
-    const rt::SceneTables sc = make_tables(RT_TABLES, nullptr);
-    int row0;
-    dim3 grid;
-    if (!pixel_grid(p, row0, grid) || p.max_depth < 1 || p.n_nodes < 1)
+                                const void* plan_ptr, void* out_rec,
+                                void* counters, void* stream) {
+    rt::RenderParams p = *static_cast<const rt::RenderParams*>(params);
+    rt::RecordPlan plan = *static_cast<const rt::RecordPlan*>(plan_ptr);
+    rt::SceneTables sc = make_tables(RT_TABLES, nullptr);
+    if (!range_ok(p) || p.max_depth < 1 || p.n_nodes < 1
+        || plan.blocks != record_blocks(p) || plan.stage_bytes < 0
+        || plan.stage_bytes > 48 * 1024 || (plan.stage_bytes > 0 && p.use_bvh)
+        || plan.mat_rows < 1 || plan.tex_rows < 1)
         return (int)cudaErrorInvalidValue;
-    const dim3 block(rt::BLOCK_X, rt::BLOCK_Y);
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     int* out = static_cast<int*>(out_rec);
     int* cnt = static_cast<int*>(counters);
+    void* args[] = {&sc, &p, &plan, &out, &cnt};
     (void)cudaGetLastError();
-    if (p.use_bvh)
-        rt::record_kernel<true><<<grid, block, 0, st>>>(sc, p, row0, out, cnt);
-    else
-        rt::record_kernel<false><<<grid, block, 0, st>>>(sc, p, row0, out,
-                                                         cnt);
-    return (int)cudaGetLastError();
+    const cudaError_t err = cudaLaunchKernel(
+        search_fn(1, p.use_bvh, plan.stage_bytes > 0),
+        dim3((unsigned)plan.blocks), dim3(rt::RECORD_THREADS), args,
+        (size_t)plan.stage_bytes, static_cast<cudaStream_t>(stream));
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // Launch the one-bounce hit kernel on `stream` over `n` lanes, one thread a

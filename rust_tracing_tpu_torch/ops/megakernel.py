@@ -109,10 +109,16 @@ SEARCH_CHUNK = 1 << 23
 RENDER_THREADS = 128
 RENDER_MAX_GROUP = 32
 
-# Shared memory a block of the brute-loop render kernel may stage its scene
-# tables in (``render_plan``). Registers let an H100 SM hold 8 blocks of the
-# staged kernel (63 a thread); 8 x (24 KB + the 1 KB a block reserves) fit
-# its 228 KB, so staging costs no occupancy.
+# The recorder's launch (csrc/render_kernel.cu): blocks of RECORD_THREADS
+# threads, one thread a (pixel, sample), a warp 32 consecutive pixels of one
+# sample (``record_plan``).
+RECORD_THREADS = 128
+
+# Shared memory a block of the brute-loop render kernel (and recorder) may
+# stage its scene tables in (``render_plan``, ``record_plan``). Registers
+# let an H100 SM hold 8 blocks of the staged render kernel (63 a thread); 8
+# x (24 KB + the 1 KB a block reserves) fit its 228 KB, so staging costs no
+# occupancy.
 STAGE_BUDGET_BYTES = 24 * 1024
 
 # Bytes a row of each table that the brute-loop render kernel stages, in the
@@ -924,6 +930,39 @@ def render_plan(tables: dict, p: RenderParams) -> RenderPlan:
                       mat_rows=mat_rows, tex_rows=tex_rows)
 
 
+class RecordPlan(ctypes.Structure):
+    """How the recorder is launched; mirrors ``RecordPlan`` in
+    csrc/render_kernel.cu. ``blocks`` of RECORD_THREADS threads (the launch
+    refuses a count other than its own); ``stage_bytes``, ``mat_rows``,
+    ``tex_rows`` as for ``RenderPlan``."""
+
+    _fields_ = [("blocks", ctypes.c_int), ("stage_bytes", ctypes.c_int),
+                ("mat_rows", ctypes.c_int), ("tex_rows", ctypes.c_int)]
+
+
+def record_plan(tables: dict, p: RenderParams) -> RecordPlan:
+    """The recorder's launch for these tables and params: one thread a
+    (pixel, sample) of the pixel range (``record_threads``), the tables
+    staged as ``render_plan`` stages them."""
+    warps = -(-p.pixel_count // 32) * p.spp
+    rp = render_plan(tables, p)
+    return RecordPlan(blocks=-(-warps * 32 // RECORD_THREADS),
+                      stage_bytes=rp.stage_bytes, mat_rows=rp.mat_rows,
+                      tex_rows=rp.tex_rows)
+
+
+def record_threads(plan: RecordPlan, p: RenderParams):
+    """The recorder's thread map, as ``record_kernel`` computes it: for each
+    thread of the grid, the local pixel and the sample it traces (warp g:
+    sample g % spp of pixels 32 (g // spp) + lane), and whether that pixel
+    lies in the range (else the thread exits). Returns (local, sample,
+    live) int64/bool arrays of blocks x RECORD_THREADS."""
+    t = np.arange(plan.blocks * RECORD_THREADS, dtype=np.int64)
+    warp = t >> 5
+    local = (warp // p.spp) * 32 + (t & 31)
+    return local, warp % p.spp, local < p.pixel_count
+
+
 def render_occupancy(p: RenderParams, plan: RenderPlan) -> dict:
     """The card's resources for the render kernel's instantiation that
     ``p`` and ``plan`` pick: blocks an SM holds, registers and local memory
@@ -939,18 +978,20 @@ def render_occupancy(p: RenderParams, plan: RenderPlan) -> dict:
                 stage_bytes=plan.stage_bytes)
 
 
-def search_occupancy(kernel: str, use_bvh: bool) -> dict:
-    """The card's resources for ``record_kernel`` or ``hit_kernel``, with or
-    without the BVH walk: blocks an SM holds, registers and local memory a
-    thread, threads a block. Needs the kernel library (a card)."""
+def search_occupancy(kernel: str, use_bvh: bool,
+                     stage_bytes: int = 0) -> dict:
+    """The card's resources for ``record_kernel`` (with ``stage_bytes`` > 0
+    its staged brute loop, at that much shared memory) or ``hit_kernel``,
+    with or without the BVH walk: blocks an SM holds, registers and local
+    memory a thread, threads a block. Needs the kernel library (a card)."""
     from ..runtime import kernels
 
     out = (ctypes.c_int * 4)()
     which = {"record_kernel": 1, "hit_kernel": 2}[kernel]
     kernels.check(kernels.load().rt_search_occupancy(
-        which, int(use_bvh), out), f"{kernel} occupancy")
+        which, int(use_bvh), stage_bytes, out), f"{kernel} occupancy")
     return dict(blocks_per_sm=out[0], registers=out[1], local_bytes=out[2],
-                threads=out[3])
+                threads=out[3], stage_bytes=stage_bytes)
 
 
 def _counter_ptr(counters: Optional[torch.Tensor], rows: int, dev) -> int:
@@ -1009,8 +1050,10 @@ def render_kernel(tables: dict, p: RenderParams,
 def record_kernel(tables: dict, p: RenderParams,
                   counters: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of the CUDA path recorder over the pixel range of ``p``
-    (``p.use_bvh`` picks the BVH walk; ``counters`` as for
-    ``render_kernel``).
+    (``p.use_bvh`` picks the BVH walk; ``record_plan`` the launch). With
+    ``p.use_bvh``, ``counters`` ((pixel_count, 3) int32, optional) is set to
+    each pixel's BVH node visits, sphere tests and quad tests summed over
+    its samples.
 
     Returns ``(p.max_depth, p.spp, p.pixel_count)`` int32 packed winner
     records (``kind<<24 | idx``; 0 for a miss or a dead path), depth-major.
@@ -1022,6 +1065,9 @@ def record_kernel(tables: dict, p: RenderParams,
     if p.max_depth < 1:
         raise ValueError(f"max_depth must be >= 1, got {p.max_depth}")
     cnt = _counter_ptr(counters, p.pixel_count, dev)
+    if counters is not None:
+        counters.zero_()  # the kernel adds each sample's counts
+    plan = record_plan(tables, p)
     from ..runtime import kernels
 
     lib = kernels.load()
@@ -1030,7 +1076,7 @@ def record_kernel(tables: dict, p: RenderParams,
                           dtype=torch.int32, device=dev)
         err = lib.rt_record_launch(
             *[tables[name].data_ptr() for name in PackedScene.TABLES],
-            ctypes.byref(p), rec.data_ptr(), cnt,
+            ctypes.byref(p), ctypes.byref(plan), rec.data_ptr(), cnt,
             torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["record_kernel"] += 1
     kernels.check(err, "record kernel")
@@ -1196,6 +1242,26 @@ def record_paths_plain(tables: dict, p: RenderParams) -> torch.Tensor:
     if p.max_depth < 1:
         raise ValueError(f"max_depth must be >= 1, got {p.max_depth}")
     return _trace_plain(tables, p, record=True)
+
+
+def record_walk_plain(tables: dict, p: RenderParams) -> np.ndarray:
+    """Plain version of ``record_kernel``'s walk counters: the paths of
+    ``record_paths_plain``, each live bounce's ray walked by
+    ``walk_wide_plain``, summed per pixel over samples and bounces. Returns
+    (pixel_count, 3) int64: node boxes, spheres and quads tested."""
+    host = {k: tables[k].cpu() for k in ("wbvh", "wsph_f", "wsph_i",
+                                         "wquad_f", "wquad_i")}
+    counts = np.zeros((p.pixel_count, 3), dtype=np.int64)
+
+    def walk(o, d, rtime, alive):
+        live = alive.nonzero()[:, 0]
+        if live.numel():
+            _, _, c = walk_wide_plain(
+                host, *[x[live].cpu() for x in (*o, *d, rtime)])
+            np.add.at(counts, live.cpu().numpy(), c)
+
+    _trace_plain(tables, p, record=True, on_bounce=walk)
+    return counts
 
 
 def _sphere_t(sph, ox, oy, oz, dx, dy, dz, rtime, a_len, inv_a):
@@ -1389,7 +1455,8 @@ def hit_records_plain(tables: dict, p: RenderParams, ox, oy, oz, dx, dy, dz,
                        0).to(torch.int32)
 
 
-def _trace_plain(tables: dict, p: RenderParams, record: bool):
+def _trace_plain(tables: dict, p: RenderParams, record: bool,
+                 on_bounce=None):
     dev = _check_tables(tables, p)
     media = _media_rows(tables, p)
     mat_f, tex_f = tables["mat_f"], tables["tex_f"]
@@ -1646,6 +1713,8 @@ def _trace_plain(tables: dict, p: RenderParams, record: bool):
         d_i = 0
         while True:
             acc_n = acc_n + alive.to(torch.int32)
+            if on_bounce is not None:
+                on_bounce(o, d, rtime, alive)
             rngb = CounterRng(seed, pid, s_glob, d_i)
             o, d, tp, rad, scat, rec = trace_bounce(
                 o, d, rtime, tp, rad, alive, d_i + 1 < max_depth, rngb)

@@ -154,10 +154,11 @@ def turbulence_backward_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
                               want_rv: bool = True):
     """Plain version of ``turbulence_backward_kernel``: the per-lane
     formulas of ``perlin.turbulence_vjp_c``, whose ``ranvec`` terms are
-    summed by the gathers' deterministic transpose
-    (``lanegather.scatter_sum_cols``, what ``ops/tgather.py``'s backward
-    runs), never ``index_put_``. ``d_px, d_py, d_pz`` equal the kernel's bit
-    for bit; ``d_ranvec`` adds the same terms in another order."""
+    summed term by term by the transpose's plain version
+    (``lanegather.scatter_sum_plain``: ``index_add_``, in lane order on the
+    CPU), never ``index_put_`` and no hand kernel. ``d_px, d_py, d_pz``
+    equal the kernel's bit for bit; ``d_ranvec`` adds the same terms in
+    another order."""
     dx, dy, dz, terms = perlin.turbulence_vjp_c(
         ranvec.detach().to(px.dtype), perm_x, perm_y, perm_z, px, py, pz, g,
         depth, want_terms=want_rv)
@@ -166,7 +167,7 @@ def turbulence_backward_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
         d_rv = torch.zeros((perlin.POINT_COUNT, 3), dtype=px.dtype,
                            device=px.device)
         for h, c in terms:
-            d_rv = d_rv + lanegather.scatter_sum_cols(
+            d_rv = d_rv + lanegather.scatter_sum_plain(
                 c.reshape(3, -1), h.reshape(-1), perlin.POINT_COUNT).t()
     return (d_rv,) + ((dx, dy, dz) if want_p else (None, None, None))
 

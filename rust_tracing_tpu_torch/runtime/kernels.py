@@ -38,7 +38,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
 
 LAUNCHES = {"render_kernel": 0, "record_kernel": 0, "hit_kernel": 0,
             "gather_kernel": 0, "gather_cols_kernel": 0,
-            "scatter_sum_kernel": 0, "radix_sort_kernel": 0,
+            "scatter_sum_kernel": 0, "scatter_match_kernel": 0,
+            "radix_sort_kernel": 0,
             "segment_sum_kernel": 0,
             "perlin_kernel": 0, "perlin_backward_kernel": 0,
             # the hardware probes (probes.py, csrc/probe_kernel.cu)
@@ -121,11 +122,13 @@ def load() -> ctypes.CDLL:
         # noise, image, bvh, stage_bytes, out (4 int32, host pointer)
         lib.rt_render_occupancy.argtypes = [ci, ci, ci, ci, vp]
         lib.rt_render_occupancy.restype = ci
-        # kernel (1 record, 2 hit), bvh, out (4 int32, host pointer)
-        lib.rt_search_occupancy.argtypes = [ci, ci, vp]
+        # kernel (1 record, 2 hit), bvh, stage_bytes, out (4 int32, host
+        # pointer)
+        lib.rt_search_occupancy.argtypes = [ci, ci, ci, vp]
         lib.rt_search_occupancy.restype = ci
-        # 15 scene tables, params (host pointer), out_rec, counters, stream
-        lib.rt_record_launch.argtypes = [vp] * 15 + [vp] * 4
+        # 15 scene tables, params and plan (host pointers), out_rec,
+        # counters, stream
+        lib.rt_record_launch.argtypes = [vp] * 15 + [vp] * 5
         lib.rt_record_launch.restype = ci
         # 15 scene tables, params, ox oy oz dx dy dz time pix samp alive, n,
         # bounce, out, counters, stream
@@ -138,10 +141,15 @@ def load() -> ctypes.CDLL:
         # tab, K, n, idx, R, elem, out, stream
         lib.rt_gather_cols_launch.argtypes = [vp, ci, ci, vp, cll, ci, vp, vp]
         lib.rt_gather_cols_launch.restype = ci
-        # ct, idx, R, n, K, is_double, B, chunk, partial, out, stream
+        # ct, idx, R, n, K, is_double, B, chunk, W, Wc, cpw, rows, partial,
+        # out, stream
         lib.rt_scatter_sum_launch.argtypes = [vp, vp, cll, ci, ci, ci, ci,
-                                              cll, vp, vp, vp]
+                                              cll, ci, ci, ci, ci, vp, vp, vp]
         lib.rt_scatter_sum_launch.restype = ci
+        # ct, idx, R, n, K, is_double, B, chunk, partial, out, stream
+        lib.rt_scatter_match_launch.argtypes = [vp, vp, cll, ci, ci, ci, ci,
+                                                cll, vp, vp, vp]
+        lib.rt_scatter_match_launch.restype = ci
         # idx, R, n, widths (host pointer), passes, vals, K, elem, keys_out,
         # vals_out, keys_tmp, vals_tmp, counts, totals, stream
         lib.rt_radix_sort_launch.argtypes = ([vp, cll, ci, vp, ci, vp, ci, ci]

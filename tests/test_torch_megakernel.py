@@ -231,3 +231,39 @@ def test_table_staging_choice_by_bytes():
     p = tmk.make_params(cam, packed, 0, 23, 8)
     assert tmk.stage_bytes(tables, p) > tmk.STAGE_BUDGET_BYTES
     assert tmk.render_plan(tables, p).stage_bytes == 0
+
+
+@pytest.mark.parametrize("base,count,spp", [(0, 4096, 1), (1000, 1537, 23),
+                                            (17, 31, 3)])
+def test_record_plan_covers_each_pixel_sample_once(base, count, spp):
+    """The recorder's launch (one thread a (pixel, sample), a warp 32
+    consecutive pixels of one sample) over a pixel range of a 64x64 frame,
+    whole or starting and ending mid-row: each (pixel, sample) of the range
+    exactly once and nothing outside it, the warps' pixels consecutive. Its
+    tables are staged by bytes as the render kernel's are: cornell's 1456 B,
+    not random_balls' nor a BVH launch's. The records themselves are held
+    bit for bit against the plain version on the card (chip_smoke.py)."""
+    b, s = tbuilders.cornell_box()
+    cam = T.Camera.create(dataclasses.replace(s, image_width=64))
+    cornell = T.compile_scene(b, device="cpu")
+    packed, tables = tmk._packed_dev(cornell)
+    p = tmk.make_params(cam, packed, 0, spp, 8, 0, base, count)
+    plan = tmk.record_plan(tables, p)
+    local, sample, live = tmk.record_threads(plan, p)
+    assert plan.blocks * tmk.RECORD_THREADS == local.size
+    assert live.sum() == count * spp
+    pairs = local[live] * spp + sample[live]
+    np.testing.assert_array_equal(np.sort(pairs), np.arange(count * spp))
+    warp_local = local.reshape(-1, 32)
+    assert (np.diff(warp_local, axis=1) == 1).all()
+    assert (sample.reshape(-1, 32) == sample.reshape(-1, 32)[:, :1]).all()
+    rp = tmk.render_plan(tables, p)
+    assert (plan.stage_bytes, plan.mat_rows, plan.tex_rows) == \
+        (rp.stage_bytes, rp.mat_rows, rp.tex_rows) == (1456, 4, 4)
+    packed, tables = tmk._packed_dev(cornell, True)
+    p = tmk.make_params(cam, packed, 0, spp, 8, 0, base, count)
+    assert tmk.record_plan(tables, p).stage_bytes == 0
+    b, s = tbuilders.random_balls()
+    packed, tables = tmk._packed_dev(T.compile_scene(b, device="cpu"))
+    p = tmk.make_params(cam, packed, 0, spp, 8, 0, base, count)
+    assert tmk.record_plan(tables, p).stage_bytes == 0

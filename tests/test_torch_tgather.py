@@ -135,6 +135,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for call in (lambda: lg.gather_kernel(col, idx),
                  lambda: lg.gather_cols_kernel(col[None], idx),
                  lambda: lg.scatter_sum_kernel(col[None, :2], idx, 4),
+                 lambda: lg.scatter_match_kernel(col[None, :2], idx, 4),
                  lambda: lg.segment_sum_kernel(col[None, :2], idx, 4),
                  lambda: lg.radix_sort_kernel(idx, 4, col[None, :2])):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -142,18 +143,31 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_radix_digits_from_rows():
-    """The segment sum's host-side choices. Which reductions take it: two
-    or more of the tile kernel's row tiles (3072 f32 rows, 1536 f64) and
-    more than 8 bytes of an element's values read over them. Its radix
-    sort: as few passes of at most RADIX_MAX_BITS as the bits of the largest
-    key (n, the out-of-range rows) need; sorting digit by digit, lowest
-    first, gives its plain version's stable order."""
+    """The reductions' host-side choices. Tables of at most
+    SCATTER_TILE_MAX_ROWS rows take the tile kernel (8 warps in min(K, 8)
+    column groups; passes only past 227 KB of lane copies). Larger ones take
+    the segment sum when they span two or more of the match kernel's row
+    tiles (3072 f32 rows, 1536 f64) and more than 2 of an element's values
+    are read over them, else the match kernel. The segment sum's
+    radix sort: as few passes of at most RADIX_MAX_BITS as the bits of the
+    largest key (n, the out-of-range rows) need; sorting digit by digit,
+    lowest first, gives its plain version's stable order."""
+    assert lg.use_tile_kernel(4) and lg.use_tile_kernel(64)
+    assert not lg.use_tile_kernel(65)
     use = lg.use_segment_sum
     assert not any(use(n, K, 4) for n in (1, 2048, 2408, 3072)
                    for K in (1, 3, 17))
     assert not use(3073, 1, 4) and not use(6144, 1, 4)
     assert use(3073, 3, 4) and use(6145, 1, 4) and use(524288, 1, 4)
-    assert not use(1536, 3, 8) and use(1537, 1, 8)
+    assert not use(1536, 3, 8) and not use(3072, 1, 8)
+    assert use(1537, 3, 8) and use(3073, 1, 8)
+    wave = 3_960_000
+    assert lg.scatter_plan(wave, 24, 17, 4) == dict(
+        blocks=1024, chunk=3868, warps=8, groups=8, slices=1, cpw=3, rows=24,
+        passes=1, smem_bytes=8 * 3 * 24 * 33 * 4)
+    assert lg.scatter_plan(wave, 4, 1, 4)["blocks"] == 484
+    assert lg.scatter_plan(wave, 4, 3, 8)["warps"] == 6
+    assert lg.scatter_plan(wave, 488, 17, 4)["passes"] == 9
     assert lg.radix_digits(1) == (1,)
     assert lg.radix_digits(524288) == (7, 7, 6)
     for k in (1, 9, 10, 19):
@@ -175,6 +189,48 @@ def test_radix_digits_from_rows():
         skey, spos = lg.radix_sort_plain(torch.from_numpy(idx), n, pos)
         np.testing.assert_array_equal(spos[0].numpy(), order)
         np.testing.assert_array_equal(skey.numpy(), keys[order])
+
+
+# The card's reduction gate (chip_smoke.py SUM_TOL): a row within this share
+# of its sum of |cotangent| of the exact sum.
+SUM_TOL = 1e-6
+
+
+@pytest.mark.parametrize("R", [1, lg.SCATTER_CHUNK - 1, lg.SCATTER_CHUNK + 1])
+@pytest.mark.parametrize("K", [1, 3, 17])
+def test_scatter_sum_ordered_plain(K, R):
+    """The tile kernel's summation order in tensor code
+    (``scatter_sum_ordered_plain``, which the card holds the kernel to bit
+    for bit) against the plain transpose and the JAX reference's
+    (``jax.vjp`` of ``tgather``, column by column), out-of-range indices
+    dropped: exact
+    on integer-valued cotangents (every order sums them exactly); on normal
+    ones within SUM_TOL of each row's sum of |cotangent| of the float64 sum,
+    and within the module's float32 tolerance of the reference's. R of 1,
+    and one less and one more than SCATTER_CHUNK: one block with warp slices
+    left empty, one block, two blocks; K of 17 takes the smaller block."""
+    n = 24
+    rng = np.random.default_rng(7 * K + R)
+    idx = rng.integers(-2, n + 2, R).astype(np.int32)
+    ints = rng.integers(-8, 9, (K, R)).astype(np.float32)
+    ct = rng.standard_normal((K, R)).astype(np.float32)
+    tidx = torch.from_numpy(idx)
+    ordered = lg.scatter_sum_ordered_plain(torch.from_numpy(ints), tidx, n)
+    np.testing.assert_array_equal(
+        ordered.numpy(),
+        lg.scatter_sum_plain(torch.from_numpy(ints), tidx, n).numpy())
+    got = lg.scatter_sum_ordered_plain(torch.from_numpy(ct), tidx, n).numpy()
+    ok = (idx >= 0) & (idx < n)
+    onehot = (idx[ok, None] == np.arange(n)).astype(np.float64)
+    exact = ct[:, ok].astype(np.float64) @ onehot
+    scale = np.abs(ct[:, ok]).astype(np.float64) @ onehot
+    assert (np.abs(got - exact) <= SUM_TOL * scale).all()
+    _, vjp = jax.vjp(lambda c: jtg.tgather(c, jnp.asarray(idx)),
+                     jnp.zeros(n, jnp.float32))
+    ref = np.stack([np.asarray(vjp(jnp.asarray(c))[0]) for c in ct])
+    _close(got, ref, np.float32)
+    plan = lg.scatter_plan(R, n, K, 4)
+    assert plan["warps"] == (6 if K == 3 else 8) and plan["passes"] == 1
 
 
 @pytest.mark.parametrize("dims", [(0, None), (None, 0), (1, 0)],
