@@ -38,10 +38,12 @@ Phases:
              (scatter_routes: which scatter_sum_cols picks); the Perlin
              turbulence kernel (B7) at 2^22 lanes (its shared-memory
              wavefront floor, and two_perlin_spheres' first replay bounce)
-             and its backward kernel (perlin_backward_kernel: positions bit
-             for bit, also on 2^22 - 37 lanes; d_ranvec within its
-             summation bound and near the plain version's own error; two
-             launches equal)
+             and its backward kernel (perlin_backward_kernel: positions and
+             d_ranvec's fixed-point sum bit for bit, also on 2^22 - 37
+             lanes, f64 and two_perlin_spheres' first backward call; two
+             launches and a lane-permuted launch equal; d_ranvec within
+             its quantization bound and near the plain version's own
+             error; timed by kernel, and positions only)
   main_path  render() of cornell_box at 600x600, 4096 spp, depth 8
   cli        the command-line entry point writes a PNG
   deferred_path
@@ -56,7 +58,8 @@ Phases:
   grad_textures
              loss_and_grad() of two_perlin_spheres and earth at 400x225,
              32 spp, depth 8 w.r.t. every float leaf (two_perlin_spheres
-             through perlin_backward_kernel)
+             through perlin_backward_kernel, its device time by the
+             profiler in one more run)
   grad_path  loss_and_grad() of cornell_box at 600x600, 200 spp, depth 8
              w.r.t. every float scene leaf (the record/replay gradient), then
              the L2 loss of the same workload
@@ -171,6 +174,13 @@ Tolerances and their reasons.
   the same estimator, summed in another association (per-slice float means
   weighted by k/spp, against one f32 sample sum per pixel).
 - Turbulence kernel: no transcendental, no contraction; bit for bit.
+  Its backward: the same, and d_ranvec is an integer sum of terms each
+  rounded once at a scale both versions derive from R and max|g|
+  (perlin_fused.fixed_scale), so it too is bit for bit, in any order of
+  the lanes. Against the exact sum it is held within its quantization
+  bound (_bwd_fixed_bound), no larger than the limit of a float fold over
+  warp tables and block partials (_bwd_fold_limit) at these sizes, and
+  within 4x the error of the terms' sum in lane order.
 - Render kernel with noise/image (B8): the render kernel's tolerances; its
   `sinf` for the marble is the device library's, as torch.sin's on the card.
 - deferred_path: deferred shading and the tensor integrator are one
@@ -224,6 +234,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1245,18 +1256,49 @@ def compare_perlin(reps=10):
     return res
 
 
-def _bwd_sum_tolerance(R, depth, dtype):
-    """Largest number of additions a d_ranvec term goes through in the
-    backward kernel: its group's sum in lane order (<= 31), the warp
-    table's chain (one add a step of the warp: iterations x depth x 8), the
-    block's warp tables (7) and the partials in block order (blocks - 1).
-    |kernel - exact| <= that many units of roundoff x the row's sum of
-    |terms| (the standard bound for a sum in any tree)."""
-    blocks = kernels.load().rt_perlin_backward_blocks(R)
+def _bwd_fold_limit(R, depth, dtype):
+    """The limit on d_ranvec's error of a float fold in a fixed order, in
+    units of a row's sum of |terms|: the longest chain of additions a term
+    goes through when a warp's lanes are summed by hash (<= 31), each warp
+    table adds a step at a time, 7 warp tables are added, then the
+    partials of min(396, R / 256) blocks; times the unit of roundoff. The
+    fixed-point bound (_bwd_fixed_bound) must be no larger at the compared
+    sizes."""
+    blocks = min(396, max(1, -(-R // 256)))
     iters = -(-R // (blocks * 256))
     adds = 31 + iters * depth * 8 + 7 + blocks - 1
+    return adds * (2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53)
+
+
+def _bwd_fixed_bound(R, g, dtype, exact, exact_err, n_terms):
+    """Bound on |kernel - S| per d_ranvec entry for the fixed-point sum
+    (pf.fixed_scale): each of an entry's n terms is rounded once, by at most
+    half a unit of 2^-k (f64: of 2^-(k + 32), its second word), and the
+    integer sum is exact; the conversion to the type rounds at most twice
+    (through float64), 2 units of roundoff. S is known to within
+    ``exact_err`` of ``exact``."""
+    ka, kb = pf.fixed_scale(R, float(g.abs().max()), dtype)
+    frac = ka + kb + (0 if dtype == torch.float32 else 32)
+    quant = n_terms * 2.0 ** -(frac + 1)
     unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
-    return adds, adds * unit
+    return quant + exact_err + 2 * unit * (exact.abs() + quant + exact_err)
+
+
+def _fsum_rows(terms):
+    """The exact sum of each d_ranvec entry's float64 terms, rounded once
+    (math.fsum): f64's reference, where a float64 sum of the terms would
+    itself be no more precise than the kernel."""
+    idx = torch.cat([h.reshape(-1) for h, _ in terms]).long().cpu().numpy()
+    vals = torch.cat([c.reshape(3, -1) for _, c in terms], 1).double()
+    vals = vals.cpu().numpy()
+    order = np.argsort(idx, kind="stable")
+    edges = np.searchsorted(idx[order], np.arange(257))
+    out = torch.zeros((256, 3), dtype=torch.float64)
+    for e in range(256):
+        seg = order[edges[e]:edges[e + 1]]
+        for a in range(3):
+            out[e, a] = math.fsum(vals[a, seg])
+    return out
 
 
 # d_ranvec's error against the exact sum may be at most this many times the
@@ -1267,15 +1309,50 @@ def _bwd_sum_tolerance(R, depth, dtype):
 BWD_PLAIN_ERR_MULTIPLE = 4.0
 
 
+def _by_kernel_ms(fn, reps):
+    """Device ms a call of ``fn`` by kernel name (profiled_events)."""
+    out = {}
+    for name, us in profiled_events(fn, reps):
+        k = _kernel_name(name)
+        out[k] = out.get(k, 0.0) + us / 1e3 / reps
+    return out
+
+
+def real_backward_lanes():
+    """Tables, positions and cotangent of two_perlin_spheres' first
+    turbulence backward call in the texture gradient (GRAD_TEX_WIDTH @
+    GRAD_TEX_SPP, mean loss), as phase_grad_textures runs it."""
+    seen = []
+    orig = pf.turbulence_backward_kernel
+
+    def keep(*a, **k):
+        if not seen:
+            seen.append([t.detach().clone() for t in a[:8]])
+        return orig(*a, **k)
+
+    scene, camera = texture_scene("two_perlin_spheres", width=GRAD_TEX_WIDTH,
+                                  spp=GRAD_TEX_SPP, depth=GRAD_DEPTH)
+    pf.turbulence_backward_kernel = keep
+    try:
+        tg.loss_and_grad(scene, camera, lambda im, p: im.mean(), seed=6,
+                         linear_loss=True)
+    finally:
+        pf.turbulence_backward_kernel = orig
+    return seen[0][:4], seen[0][4:7], seen[0][7]
+
+
 def compare_perlin_backward(reps=10):
     """The turbulence backward kernel against its plain version on the
-    forward compare's inputs: d_px, d_py, d_pz bit for bit (f32 at 2^22
-    lanes and at 2^22 - 37, where the last block's loop runs lanes past R;
-    f64 at 65 536); d_ranvec against the plain version's own terms summed
-    in float64, within the summation bound of _bwd_sum_tolerance and within
-    BWD_PLAIN_ERR_MULTIPLE times the error of the plain version's sum of
-    those terms on the CPU; two launches equal bit for bit; timed at 2^22
-    lanes, with its bound."""
+    forward compare's inputs (f32 at 2^22 lanes and at 2^22 - 37, f64 at
+    65 536): d_px, d_py, d_pz and d_ranvec bit for bit (the plain version
+    repeats the fixed-point sum); two launches, and a launch on the lanes
+    in a random order, equal bit for bit; d_ranvec against the exact sum of
+    its terms (float64; f64: math.fsum) within _bwd_fixed_bound, a bound no
+    larger than _bwd_fold_limit, and within BWD_PLAIN_ERR_MULTIPLE times the
+    error of the terms' f32 (f64) sum in lane order on the CPU. Timed at
+    2^22 lanes, both outputs and positions only, by kernel, and on
+    two_perlin_spheres' first backward call of its texture gradient (bit
+    for bit there too), with its bound."""
     out = []
     for dtype, lanes in ((torch.float32, TURB_LANES),
                          (torch.float32, TURB_LANES - 37),
@@ -1284,21 +1361,39 @@ def compare_perlin_backward(reps=10):
         got = pf.turbulence_backward_kernel(*tabs, *pos, g)
         again = pf.turbulence_backward_kernel(*tabs, *pos, g)
         repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(9)
+        perm = torch.randperm(lanes, device=DEVICE, generator=gen)
+        shuf = pf.turbulence_backward_kernel(*tabs, *[p[perm] for p in pos],
+                                             g[perm])
+        permuted = torch.equal(shuf[0], got[0]) and all(
+            torch.equal(a, b[perm]) for a, b in zip(shuf[1:], got[1:]))
+        del shuf, again
         ref, plain_ms = once_ms(
             lambda: pf.turbulence_backward_plain(*tabs, *pos, g))
         differ = sum(int((a != b).sum()) for a, b in zip(got[1:], ref[1:]))
+        rv_differ = int((got[0] != ref[0]).sum())
         _, _, _, terms = perlin.turbulence_vjp_c(tabs[0], *tabs[1:], *pos, g)
         exact = torch.zeros((256, 3), dtype=torch.float64, device=DEVICE)
         mag = torch.zeros_like(exact)
+        n_terms = torch.zeros_like(exact)
         plain_rv = torch.zeros((256, 3), dtype=dtype)
         for h, c in terms:
             idx, c64 = h.reshape(-1).long(), c.reshape(3, -1).double().t()
             exact.index_add_(0, idx, c64)
             mag.index_add_(0, idx, c64.abs())
+            n_terms.index_add_(0, idx, (c64 != 0).double())
             plain_rv = plain_rv + lg.scatter_sum_plain(
                 c.reshape(3, -1).cpu(), h.reshape(-1).cpu(), 256).t()
+        if dtype == torch.float32:
+            # the float64 sum's own error: (n - 1) units of a row's |terms|
+            exact_err = n_terms * 2.0 ** -53 * mag
+        else:
+            exact = _fsum_rows(terms).to(DEVICE)
+            exact_err = 2.0 ** -53 * exact.abs()
         del terms
-        adds, rel = _bwd_sum_tolerance(lanes, pf.DEPTH, dtype)
+        bound = _bwd_fixed_bound(lanes, g, dtype, exact, exact_err, n_terms)
+        fold_limit = _bwd_fold_limit(lanes, pf.DEPTH, dtype) * mag
         err = (got[0].double() - exact).abs()
         unit = 2.0 ** -24 if dtype == torch.float32 else 2.0 ** -53
         plain_err = float((plain_rv.to(DEVICE).double() - exact).abs().max())
@@ -1307,10 +1402,14 @@ def compare_perlin_backward(reps=10):
         near_plain = float(err.max()) <= BWD_PLAIN_ERR_MULTIPLE * max(
             plain_err, unit * float(exact.abs().max()))
         res = dict(kernel="perlin_backward_kernel", dtype=str(dtype),
-                   lanes=lanes, d_p_differ=differ, repeat_bitwise=repeat,
+                   lanes=lanes, d_p_differ=differ,
+                   d_ranvec_differ=rv_differ, repeat_bitwise=repeat,
+                   permuted_bitwise=permuted,
+                   fixed_scale=pf.fixed_scale(lanes, float(g.abs().max()),
+                                              dtype),
                    d_ranvec_max_abs_err=float(err.max()),
-                   d_ranvec_err_over_bound=float((err / (rel * mag)).max()),
-                   d_ranvec_adds_bound=adds,
+                   d_ranvec_err_over_bound=float((err / bound).max()),
+                   d_ranvec_bound_over_fold_limit=float((bound / fold_limit).max()),
                    d_ranvec_plain_max_abs_err=plain_err,
                    d_ranvec_err_over_plain=float(err.max()) / plain_err
                    if plain_err else None,
@@ -1319,8 +1418,10 @@ def compare_perlin_backward(reps=10):
                    plain_ms=plain_ms,
                    finite=all(bool(torch.isfinite(t).all()) for t in got))
         if not out:
-            res["kernel_ms"] = device_ms(
+            both = _by_kernel_ms(
                 lambda: pf.turbulence_backward_kernel(*tabs, *pos, g), reps)
+            res["kernel_ms"] = sum(both.values())
+            res["sections_ms"] = both
             res["kernel_ms_positions_only"] = device_ms(
                 lambda: pf.turbulence_backward_kernel(*tabs, *pos, g,
                                                       want_rv=False), reps)
@@ -1332,14 +1433,33 @@ def compare_perlin_backward(reps=10):
                        bound_ops_ms=t_ops, bound_bytes_ms=t_bytes,
                        max_abs_err=res["d_ranvec_max_abs_err"],
                        library_ms=None)
+            rb_tabs, rb_pos, rb_g = real_backward_lanes()
+            rb = pf.turbulence_backward_kernel(*rb_tabs, *rb_pos, rb_g)
+            rb_ref = pf.turbulence_backward_plain(*rb_tabs, *rb_pos, rb_g)
+            res["real_bounce"] = dict(
+                scene="two_perlin_spheres", width=GRAD_TEX_WIDTH,
+                spp=GRAD_TEX_SPP, lanes=rb_g.numel(),
+                g_absmax=float(rb_g.abs().max()),
+                bitwise_equal=all(torch.equal(a, b)
+                                  for a, b in zip(rb, rb_ref)),
+                kernel_ms=device_ms(lambda: pf.turbulence_backward_kernel(
+                    *rb_tabs, *rb_pos, rb_g), reps),
+                kernel_ms_positions_only=device_ms(
+                    lambda: pf.turbulence_backward_kernel(
+                        *rb_tabs, *rb_pos, rb_g, want_rv=False), reps))
         say("kernels", **res)
-        if (differ or not repeat or not res["finite"]
-                or not (err <= rel * mag).all() or not near_plain):
+        if (differ or rv_differ or not repeat or not permuted
+                or not res["finite"] or not (err <= bound).all()
+                or not (bound <= fold_limit).all() or not near_plain
+                or not res.get("real_bounce", {}).get("bitwise_equal", True)):
             fail(f"perlin_backward_kernel ({dtype}, {lanes} lanes): {differ} "
-                 f"position gradients differ from the plain version, repeat "
-                 f"equal {repeat}, d_ranvec error "
-                 f"{res['d_ranvec_err_over_bound']} of its bound, "
-                 f"{res['d_ranvec_err_over_plain']} x the plain version's")
+                 f"position gradients and {rv_differ} d_ranvec entries "
+                 f"differ from the plain version, repeat equal {repeat}, "
+                 f"permuted equal {permuted}, d_ranvec error "
+                 f"{res['d_ranvec_err_over_bound']} of its bound (bound "
+                 f"{res['d_ranvec_bound_over_fold_limit']} of the fold's), "
+                 f"{res['d_ranvec_err_over_plain']} x the plain version's, "
+                 f"real bounce {res.get('real_bounce')}")
         out.append(res)
     return out[0]
 
@@ -1815,6 +1935,8 @@ def route_ab(run, pairs=ROUTE_PAIRS):
                     us for k, us in ev if any(
                         a in k for a in ("scatter_sum", "scatter_match",
                                          "radix_", "segment_"))) / 1e3,
+                perlin_backward_device_ms=sum(
+                    us for k, us in ev if "perlin_backward" in k) / 1e3,
                 launches={k: kernels.LAUNCHES[k] for k in (
                     "scatter_sum_kernel", "scatter_match_kernel",
                     "radix_sort_kernel", "segment_sum_kernel")})
@@ -2030,6 +2152,15 @@ def phase_grad_textures():
                    launches=launches, leaf=leaf,
                    leaf_grad_absmax=float(grads[leaf].abs().max()),
                    all_finite=all(finite.values()))
+        if name == "two_perlin_spheres":
+            # the backward's device time in one more run, by the profiler
+            _, prof, _ = censused_profile(lambda: tg.loss_and_grad(
+                scene, camera, lambda im, p: im.mean(), seed=6,
+                linear_loss=True))
+            ev = [us for k, us in _kernel_events(prof)
+                  if "perlin_backward" in k]
+            res.update(perlin_backward_device_ms=sum(ev) / 1e3,
+                       perlin_backward_events=len(ev))
         say("grad_textures", **res)
         if not rel <= LOSS_RTOL:
             fail(f"{name}: loss {float(loss)} vs deferred image mean {ref}")
@@ -3136,11 +3267,21 @@ def main():
         "bound_ms": turb_bwd["bound_ms"], "bound_by": turb_bwd["bound_by"],
         "library_ms": None,
         "shape": f"f32, {TURB_LANES} lanes over [-{TURB_RANGE}, "
-                 f"{TURB_RANGE}]^3, both outputs (d_px/d_py/d_pz bit for "
-                 "bit; max_abs_err of d_ranvec against its terms summed in "
-                 "float64); replaces the reference's jvp (XLA, no Pallas "
-                 "kernel); launches from grad_textures, two_perlin_spheres "
-                 f"{GRAD_TEX_WIDTH}x225 @ {GRAD_TEX_SPP} spp",
+                 f"{TURB_RANGE}]^3, both outputs (d_px/d_py/d_pz and "
+                 "d_ranvec bit for bit; max_abs_err of d_ranvec against its "
+                 "terms summed in float64); replaces the reference's jvp "
+                 "(XLA, no Pallas kernel); ms = scale + main + final "
+                 "kernels and the scratch's memset; launches from "
+                 f"grad_textures, two_perlin_spheres {GRAD_TEX_WIDTH}x225 @ "
+                 f"{GRAD_TEX_SPP} spp",
+        "kernel_ms_positions_only": turb_bwd["kernel_ms_positions_only"],
+        "sections_ms": turb_bwd["sections_ms"],
+        "real_bounce": turb_bwd["real_bounce"],
+        "grad_device_ms": {
+            "two_perlin_spheres": grad_tex["two_perlin_spheres"][
+                "perlin_backward_device_ms"],
+            "final_scene": grad_final["routes"]["use_segment_sum"][
+                "perlin_backward_device_ms"]},
     }, {
         "name": "render_kernel_textures", "route": "cuda",
         "source": "rust_tracing_tpu_torch/csrc/render_kernel.cu",

@@ -30,10 +30,12 @@ version is ``turbulence_backward_plain``.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..runtime.kernels import LAUNCHES
-from . import lanegather, perlin
+from . import perlin
 
 DEPTH = 7
 
@@ -108,13 +110,16 @@ def turbulence_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
 def turbulence_backward_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
                                g, depth: int = DEPTH, want_p: bool = True,
                                want_rv: bool = True):
-    """One call of the CUDA backward (``perlin_backward_kernel`` and, when
-    ``want_rv``, the partials' sum): the turbulence's vector-Jacobian
+    """One call of the CUDA backward: the turbulence's vector-Jacobian
     product for the cotangent ``g`` (the positions' shape). Returns
     ``(d_ranvec, d_px, d_py, d_pz)``, None where not asked; ``d_ranvec``
-    is (256, 3) in the positions' type. Same bits on every call. Launches
-    on the current stream and does not synchronise; CPU tensors are
-    refused."""
+    is (256, 3) in the positions' type, the fixed-point sum of
+    ``fixed_scale`` (the same bits whatever the order of its additions).
+    When ``want_rv``: ``perlin_backward_scale`` (max|g|),
+    ``perlin_backward_kernel`` over the blocks that fit the card, and
+    ``perlin_backward_final`` (the 768 integer sums to floats), through
+    one small int64 scratch; else the main kernel alone. Launches on the
+    current stream and does not synchronise; CPU tensors are refused."""
     dev, dtype = _check(ranvec, (perm_x, perm_y, perm_z), (px, py, pz, g))
     _cuda_only("turbulence_backward_kernel", dev, depth)
     from ..runtime import kernels
@@ -122,6 +127,13 @@ def turbulence_backward_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
     flat = [p.reshape(-1).contiguous() for p in (px, py, pz, g)]
     tabs = _tables(ranvec, (perm_x, perm_y, perm_z), dtype)
     R = flat[0].numel()
+    f64 = dtype == torch.float64
+    if want_rv and depth > FIXED_MAX_DEPTH:
+        raise ValueError(f"the kernel's d_ranvec takes depth <= "
+                         f"{FIXED_MAX_DEPTH}, got {depth}")
+    if want_rv and f64 and R * depth >= FIXED_F64_MAX_LANE_OCTAVES:
+        raise ValueError(f"f64 d_ranvec takes R * depth < "
+                         f"{FIXED_F64_MAX_LANE_OCTAVES}, got {R * depth}")
     d_p = [torch.empty(flat[0].shape, dtype=dtype, device=dev)
            for _ in range(3)] if want_p else [None] * 3
     # no lanes, no launch: d_ranvec is then 0
@@ -130,9 +142,9 @@ def turbulence_backward_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
         if want_rv else None)
     if R and (want_p or want_rv):
         lib = kernels.load()
-        blocks = lib.rt_perlin_backward_blocks(R)
-        partial = (torch.empty((blocks, perlin.POINT_COUNT, 3), dtype=dtype,
-                               device=dev) if want_rv else None)
+        acc = (torch.empty(lib.rt_perlin_backward_acc_words(int(f64)),
+                           dtype=torch.int64, device=dev)
+               if want_rv else None)
 
         def ptr(t):
             return t.data_ptr() if t is not None else None
@@ -140,13 +152,62 @@ def turbulence_backward_kernel(ranvec, perm_x, perm_y, perm_z, px, py, pz,
         with torch.cuda.device(dev):
             err = lib.rt_perlin_backward_launch(
                 *[t.data_ptr() for t in tabs], *[f.data_ptr() for f in flat],
-                R, int(depth), int(dtype == torch.float64), int(want_p),
-                int(want_rv), *[ptr(t) for t in d_p], ptr(partial),
-                ptr(d_rv), torch.cuda.current_stream(dev).cuda_stream)
+                R, int(depth), int(f64), int(want_p), int(want_rv),
+                *[ptr(t) for t in d_p], ptr(acc), ptr(d_rv),
+                torch.cuda.current_stream(dev).cuda_stream)
         LAUNCHES["perlin_backward_kernel"] += 1
         kernels.check(err, "perlin backward kernel")
     d_p = [d.reshape(px.shape) if d is not None else None for d in d_p]
     return (d_rv, *d_p)
+
+
+# f64's second fixed-point word holds up to 2^31 a term, 8 terms a lane and
+# octave: its int64 sum stays exact while R * depth < 2^29.
+FIXED_F64_MAX_LANE_OCTAVES = 1 << 29
+# the kernel's block tables take 8 x depth adds of < 2^16 a lane into a
+# 32-bit word, a block of 256 lanes at least once between drains
+# (csrc/perlin_kernel.cu, drain_iters)
+FIXED_MAX_DEPTH = 32
+
+
+def fixed_scale(R: int, gmax: float, dtype):
+    """The fixed-point scale of d_ranvec's sum (``csrc/perlin_kernel.cu``,
+    ``fixed_exponent``): each term t is summed as the integer rint(t *
+    2^k), k = 58 - ceil(log2 R) - e where max|g| < 2^e (frexp's exponent).
+    Every term has |t| <= |g| 0.5^octave, so the terms of one entry sum to
+    less than 16 R max|g| < 2^(62 - k): no int64 sum overflows. Returns
+    (ka, kb), k = ka + kb with ka clamped to ``dtype``'s normal exponents
+    (so 2^ka and 2^kb are both numbers of that type), or None when max|g|
+    is not finite."""
+    if not math.isfinite(gmax):
+        return None
+    k = 58 - (R - 1).bit_length() - math.frexp(gmax)[1]
+    lo, hi = (-126, 127) if dtype == torch.float32 else (-1022, 1023)
+    ka = min(max(k, lo), hi)
+    return ka, k - ka
+
+
+def _quantize(t, ka, kb):
+    """The integers of the terms ``t`` (the kernel's ``Fixed<T>::
+    quantize``): f32 one int64, rint(t * 2^ka * 2^kb); f64 two, that
+    rint and the rint of the remainder's next 32 bits."""
+    y = (t * 2.0 ** ka) * 2.0 ** kb
+    q = torch.round(y)
+    if t.dtype == torch.float32:
+        return (q.to(torch.int64),)
+    return q.to(torch.int64), torch.round((y - q) * 2.0 ** 32).to(torch.int64)
+
+
+def _fixed_value(sums, ka, kb, dtype):
+    """The kernel's ``perlin_backward_final``: the integer sums (one or two
+    int64 tensors) back to ``dtype``, through float64."""
+    if len(sums) == 1:
+        v = sums[0].to(torch.float64)
+    else:
+        q0, q1 = sums
+        v = ((q0 + (q1 >> 32)).to(torch.float64)
+             + (q1 & 0xFFFFFFFF).to(torch.float64) * 2.0 ** -32)
+    return ((v * 2.0 ** -ka) * 2.0 ** -kb).to(dtype)
 
 
 def turbulence_backward_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
@@ -154,21 +215,32 @@ def turbulence_backward_plain(ranvec, perm_x, perm_y, perm_z, px, py, pz,
                               want_rv: bool = True):
     """Plain version of ``turbulence_backward_kernel``: the per-lane
     formulas of ``perlin.turbulence_vjp_c``, whose ``ranvec`` terms are
-    summed term by term by the transpose's plain version
-    (``lanegather.scatter_sum_plain``: ``index_add_``, in lane order on the
-    CPU), never ``index_put_`` and no hand kernel. ``d_px, d_py, d_pz``
-    equal the kernel's bit for bit; ``d_ranvec`` adds the same terms in
-    another order."""
+    scaled and rounded as the kernel does (``fixed_scale``, ``_quantize``),
+    summed exactly by int64 ``index_add_`` and converted back
+    (``_fixed_value``): equal to the kernel bit for bit, ``d_ranvec``
+    included. ``d_ranvec`` is 0 with no lanes and NaN where max|g| is not
+    finite."""
     dx, dy, dz, terms = perlin.turbulence_vjp_c(
         ranvec.detach().to(px.dtype), perm_x, perm_y, perm_z, px, py, pz, g,
         depth, want_terms=want_rv)
     d_rv = None
     if want_rv:
-        d_rv = torch.zeros((perlin.POINT_COUNT, 3), dtype=px.dtype,
-                           device=px.device)
-        for h, c in terms:
-            d_rv = d_rv + lanegather.scatter_sum_plain(
-                c.reshape(3, -1), h.reshape(-1), perlin.POINT_COUNT).t()
+        shape = (perlin.POINT_COUNT, 3)
+        scale = (fixed_scale(g.numel(), float(g.abs().max()), px.dtype)
+                 if g.numel() else (0, 0))
+        if scale is None:
+            d_rv = torch.full(shape, math.nan, dtype=px.dtype,
+                              device=px.device)
+        else:
+            sums = None
+            for h, c in terms:
+                qs = _quantize(c.reshape(3, -1).t(), *scale)
+                if sums is None:
+                    sums = [torch.zeros(shape, dtype=torch.int64,
+                                        device=px.device) for _ in qs]
+                for acc, q in zip(sums, qs):
+                    acc.index_add_(0, h.reshape(-1).long(), q)
+            d_rv = _fixed_value(sums, *scale, px.dtype)
     return (d_rv,) + ((dx, dy, dz) if want_p else (None, None, None))
 
 

@@ -164,13 +164,13 @@ def load() -> ctypes.CDLL:
         lib.rt_perlin_launch.argtypes = [vp] * 7 + [cll, ci, ci, vp, vp]
         lib.rt_perlin_launch.restype = ci
         # rv, perm_x, perm_y, perm_z, px, py, pz, g, R, depth, is_double,
-        # want_p, want_rv, d_px, d_py, d_pz, partial, d_rv, stream
+        # want_p, want_rv, d_px, d_py, d_pz, acc, d_rv, stream
         lib.rt_perlin_backward_launch.argtypes = ([vp] * 8
                                                   + [cll, ci, ci, ci, ci]
                                                   + [vp] * 6)
         lib.rt_perlin_backward_launch.restype = ci
-        lib.rt_perlin_backward_blocks.argtypes = [cll]
-        lib.rt_perlin_backward_blocks.restype = ci
+        lib.rt_perlin_backward_acc_words.argtypes = [ci]
+        lib.rt_perlin_backward_acc_words.restype = ci
         # probes: tab, n, space, out, total, stream
         lib.rt_probe_smem_scalar_launch.argtypes = [vp, ci, ci, vp, cll, vp]
         lib.rt_probe_row_broadcast_launch.argtypes = [vp, ci, ci, vp, cll,

@@ -11,6 +11,8 @@ each table gather, the octave chain) add in different orders, so each input's
 gradient agrees within 1e-5 of its largest |g|; the float64 gradcheck holds
 the Function's backward against its own finite differences."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -290,3 +292,82 @@ def test_turbulence_jacrev_matches_jax(tables):
         r = np.asarray(r)
         assert np.abs(r).max() > 0
         np.testing.assert_allclose(g.numpy(), r, rtol=1e-12, atol=1e-12)
+
+
+def _backward_inputs(tables, seed, dtype=np.float32, n=N, g_scale=1.0):
+    rv, px, py, pz = tables
+    tt = (torch.from_numpy(rv.astype(dtype)),) + _torch_tabs(tables)[1:]
+    pos = [torch.from_numpy(a) for a in _points(seed, 3.0, n).astype(dtype)]
+    g = np.random.default_rng(seed + 1).normal(size=n) * g_scale
+    return tt, pos, torch.from_numpy(g.astype(dtype))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_backward_ranvec_fixed_sum_is_order_free(tables, dtype):
+    """d_ranvec of the plain version (the kernel's fixed-point sum: each term
+    rounded once to an integer, integers added exactly) has the same bits
+    when the lanes come in another order; the position gradients move with
+    their lanes."""
+    tt, pos, g = _backward_inputs(tables, 20, dtype)
+    perm = torch.from_numpy(np.random.default_rng(22).permutation(N))
+    got = perlin_fused.turbulence_backward_plain(*tt, *pos, g)
+    shuf = perlin_fused.turbulence_backward_plain(
+        *tt, *[p[perm] for p in pos], g[perm])
+    assert torch.equal(shuf[0], got[0])
+    for a, b in zip(shuf[1:], got[1:]):
+        assert torch.equal(a, b[perm])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_backward_ranvec_within_quantization_bound(tables, dtype):
+    """Against the exact sum of the same terms (math.fsum of their float64
+    values), each entry is off by at most its n nonzero terms' rounding,
+    half a unit of 2^-k each (f64: of 2^-(k + 32)), plus the conversion's
+    two roundings through float64 (2 units of the type)."""
+    tt, pos, g = _backward_inputs(tables, 24, dtype)
+    got = perlin_fused.turbulence_backward_plain(*tt, *pos, g)[0]
+    _, _, _, terms = tperlin.turbulence_vjp_c(tt[0], *tt[1:], *pos, g)
+    idx = torch.cat([h.reshape(-1) for h, _ in terms]).numpy()
+    vals = torch.cat([c.reshape(3, -1) for _, c in terms], 1).double()
+    vals = vals.numpy()
+    exact = np.array([[math.fsum(vals[a, idx == e]) for a in range(3)]
+                      for e in range(256)])
+    n = np.array([[np.count_nonzero(vals[a, idx == e]) for a in range(3)]
+                  for e in range(256)])
+    ka, kb = perlin_fused.fixed_scale(N, float(g.abs().max()), got.dtype)
+    frac = ka + kb + (0 if dtype == np.float32 else 32)
+    unit = 2.0 ** -24 if dtype == np.float32 else 2.0 ** -53
+    quant = n * 2.0 ** -(frac + 1)
+    bound = quant + 2 * unit * (np.abs(exact) + quant)
+    err = np.abs(got.numpy().astype(np.float64) - exact)
+    assert (err <= bound).all(), (err / bound).max()
+    assert np.abs(exact).max() > 0
+
+
+def test_backward_fixed_scale_edges(tables):
+    """The scale: at R = 2^22 and the largest f32 |g|, 16 R max|g| terms of
+    the largest size still sum to under 2^63 as integers; g == 0 gives a
+    zero d_ranvec, a non-finite g a NaN one; max|g| at f32's smallest
+    normal a finite one (k past f32's exponent range: two factors)."""
+    R, gmax = 1 << 22, float(np.finfo(np.float32).max)
+    ka, kb = perlin_fused.fixed_scale(R, gmax, torch.float32)
+    (q,) = perlin_fused._quantize(torch.tensor([gmax], dtype=torch.float32),
+                                  ka, kb)
+    assert 0 < 16 * R * int(q) < 2 ** 63
+    assert 16 * R * math.ldexp(gmax, ka + kb) <= 2.0 ** 62
+    tt, pos, g = _backward_inputs(tables, 26, n=64)
+    zero = perlin_fused.turbulence_backward_plain(*tt, *pos, 0 * g)[0]
+    assert torch.equal(zero, torch.zeros_like(zero))
+    bad = g.clone()
+    bad[3] = math.inf
+    assert perlin_fused.turbulence_backward_plain(*tt, *pos,
+                                                  bad)[0].isnan().all()
+    tiny = float(np.finfo(np.float32).tiny)
+    g = g / g.abs().max() * tiny
+    ka, kb = perlin_fused.fixed_scale(64, float(g.abs().max()),
+                                      torch.float32)
+    assert kb > 0
+    got = perlin_fused.turbulence_backward_plain(*tt, *pos, g)[0]
+    assert torch.isfinite(got).all() and (got != 0).any()
