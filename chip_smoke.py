@@ -132,9 +132,13 @@ Phases:
              space, lane stride, compiled sphere count, f32 or TF32 products)
              at the reference shape against its plain version, then at
              1024 tiles (P3/P4 64 gathers a thread) tile by tile against the
-             plain version of one tile, and timed; each kernels-line entry
-             is its variant's sweep row, with the plain version's and the
-             library call's times
+             plain version of one tile, P1/P2 also at 133 and 9001 tiles
+             (odd, so no grid's warps divide them; 9001 past the warps the
+             card holds) and at a ragged size, and timed on a held stream
+             (probes.time_ms: device time, not the host's dispatch); each
+             kernels-line entry is its variant's sweep row, with the plain
+             version's and the library call's times (P1/P2: the chain floor
+             and bound_by beside them)
   torch_func torch.func.jacfwd and jacrev of the replay image's row mean
              w.r.t. tex_rgb (24 px noise scene, float64) on the card,
              through the batching rules of the gathers (gather_cols_kernel
@@ -2771,10 +2775,11 @@ PROBE_ENTRIES = (
 
 def probe_library_ms(probe, variant, size, tiles, gathers):
     """One PyTorch call computing the probe's function at the timed shape,
-    timed; None where no call does (P5-P7). P1/P2: torch.sum of the table
-    (its order differs: time only). P3/P4: embedding_bag's sum of the
-    gathers at the timed index offsets, whose integer sums are exact in any
-    order: it must equal the kernel's tile."""
+    timed like the kernels (probes.time_ms); None where no call does
+    (P5-P7). P1/P2: torch.sum of the table (its order differs: time only;
+    one sum, where the probes fold once a tile). P3/P4: embedding_bag's sum
+    of the gathers at the timed index offsets, whose integer sums are exact
+    in any order: it must equal the kernel's tile."""
     if probe == "P1":
         tab = torch.arange(size, dtype=torch.float32, device=DEVICE)
         return probes.time_ms(lambda: tab.sum(), 10)
@@ -2821,6 +2826,12 @@ def phase_probes():
            if r["fits"] and not r["equal"]]
     if bad:
         fail(f"probes: kernel differs from its plain version: {bad}")
+    unchecked = [f"{r['probe']} {r['variant']} {r['size']}" for r in rows
+                 if r["fits"] and r["probe"] in probes.FOLD_PROBES
+                 and r.get("uneven_tiles") != list(probes.UNEVEN_TILES)]
+    if unchecked:
+        fail(f"probes: fold kernels not held at uneven tile counts: "
+             f"{unchecked}")
     names = [e[1] for e in PROBE_ENTRIES] + ["sphere_mxu_tc_kernel"]
     idle = [k for k in names if launches[k] < 1]
     if idle:
@@ -2845,6 +2856,11 @@ def phase_probes():
             shape=f"{probe} {r['function']} {variant} size {size}, {T} tiles"
                   + (f", {gathers} gathers a thread" if gathers > 1 else ""),
             rate=r["rate"], rate_unit=r["rate_unit"])
+        if probe in probes.FOLD_PROBES:
+            entry.update(chain_floor_ms=r["chain_floor_ms"],
+                         uneven_tiles=r["uneven_tiles"],
+                         ragged_size=r["ragged_size"],
+                         uneven_equal=r["uneven_equal"])
         if probe in ("P1", "P5"):
             entry["ms_by_space"] = {
                 sp: by[(probe, sp, size)]["ms"] for sp in probes.SPACES}

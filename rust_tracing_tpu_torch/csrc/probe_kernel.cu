@@ -12,10 +12,17 @@
 //   - global memory through the read-only path (__ldg), cached in L1/L2;
 //   - the instruction stream, as immediates of a kernel compiled for one
 //     scene (P6).
-// Each kernel computes the reference probe's function. Threads: one a
-// (8, 128) tile element (1024 a block: one tile a block, so a block stages
-// its shared table once per tile), or one a ray (P5-P7). What bounds each:
-//   P1, P2  n dependent adds a thread (operations; a chain, so latency);
+// Each kernel computes the reference probe's function. P1 and P2 run the
+// TPU's shape: one fold a tile, by one warp (the reference's fori_loop on
+// the scalar core), then the tile's 1024 outputs written as 8 float4 stores
+// a lane; blocks of FOLD_WARPS warps take tiles in a grid-stride loop, and
+// a shared table is staged once a block. P3-P7: one thread a (8, 128) tile
+// element (1024 a block: one tile a block, so a block stages its shared
+// table once per tile), or one a ray (P5-P7). What bounds each:
+//   P1, P2  n dependent adds a tile, in index order (a chain: n times the
+//           add's latency), with the loads a batch ahead; where a space's
+//           loads take longer than a batch's adds (__ldg, __constant__),
+//           the chain waits for them. P2 also reads its 512-byte rows whole;
 //   P3, P4  the gathers and the output write (bytes);
 //   P5, P6  25 flop a sphere test (operations), plus the table read;
 //   P7      two 8-term products a (ray, sphere) on CUDA cores (f32 variant)
@@ -37,7 +44,7 @@
 
 namespace {
 
-constexpr int TILE = 1024;           // one (8, 128) tile, one block
+constexpr int TILE = 1024;           // one (8, 128) tile
 constexpr int LANES = 128;
 constexpr int GATHER_N = 256;
 constexpr int CONST_FLOATS = 16384;  // 64 KB
@@ -48,8 +55,13 @@ constexpr int MXU_F32_THREADS = 256;
 constexpr int MXU_TC_WARPS = 4;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float NO_HIT = 1e30f;
+constexpr int FOLD_WARPS = 8;        // P1/P2: warps a block, one tile a warp
+constexpr int FOLD_THREADS = 32 * FOLD_WARPS;
+constexpr int FOLD_QUADS = 8;        // P1: float4s a batch
+constexpr int ROW_BATCH = 8;         // P2: rows a batch
+constexpr int FOLD_DEPTH = 2;        // P1/P2: batches in registers at once
 
-__constant__ float c_tab[CONST_FLOATS];
+__constant__ __align__(16) float c_tab[CONST_FLOATS];
 
 // Copy n floats of a global table into this block's shared memory.
 __device__ __forceinline__ void stage(float* s, const float* __restrict__ g,
@@ -66,22 +78,121 @@ __device__ __forceinline__ float tab_at(const float* __restrict__ g,
     return __ldg(g + i);
 }
 
-// ------------------------------------------------------------------- P1
-// Every thread folds tab[0..n) in index order (the reference's fori_loop
-// over SMEM scalars) and writes the sum.
-template <int SPACE>
-__global__ void __launch_bounds__(TILE)
-    smem_scalar_kernel(const float* __restrict__ tab, int n,
-                       float* __restrict__ out, long long total) {
-    extern __shared__ float s_tab[];
-    if (SPACE == SPACE_SHARED) stage(s_tab, tab, n);
-    float s = 0.0f;
-    for (int i = 0; i < n; ++i) s += tab_at<SPACE>(tab, s_tab, i);
-    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < total) out[g] = s;
+// ------------------------------------------------------------ P1 / P2
+// Copy n floats of a 16-byte aligned global table into this block's shared
+// memory, 16 bytes a load, the tail by scalars. The stride is a constant
+// (blocks of FOLD_THREADS), so the compiler unrolls the copy and keeps
+// several loads in flight.
+__device__ __forceinline__ void stage4(float4* s, const float* __restrict__ g,
+                                       int n) {
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    for (int i = threadIdx.x; i < n / 4; i += FOLD_THREADS)
+        s[i] = __ldg(g4 + i);
+    float* s1 = reinterpret_cast<float*>(s);
+    for (int i = n / 4 * 4 + threadIdx.x; i < n; i += FOLD_THREADS)
+        s1[i] = __ldg(g + i);
+    __syncthreads();
 }
 
-// ------------------------------------------------------------------- P2
+// Fill tile t's 1024 outputs with v: 8 coalesced float4 stores a lane.
+__device__ __forceinline__ void fill_tile(float* __restrict__ out,
+                                          long long t, float v, int lane) {
+    float4* o = reinterpret_cast<float4*>(out + t * TILE);
+    const float4 q = make_float4(v, v, v, v);
+#pragma unroll
+    for (int k = 0; k < TILE / 128; ++k) o[k * 32 + lane] = q;
+}
+
+// The folds of P1 and P2 take their table in batches of K float4s a lane
+// through a ring of FOLD_DEPTH register buffers: batch b + FOLD_DEPTH - 1
+// is loaded before batch b's adds, so that only the chain of adds waits.
+// The loop has no branch around a load (a batch past the end is clamped to
+// the last one and never added): the compiler moves a guarded load after
+// the adds that follow it, and the chain then waits out a load's latency
+// every batch. load(v, b) fills v with batch b; add(acc, v) adds it.
+template <int K, typename Load, typename Add>
+__device__ __forceinline__ float ring_fold(int batches, Load load, Add add) {
+    float acc = 0.0f;
+    if (batches == 0) return acc;
+    const int last = batches - 1;
+    float4 r[FOLD_DEPTH][K];
+#pragma unroll
+    for (int j = 0; j < FOLD_DEPTH - 1; ++j) load(r[j], min(j, last));
+    int b = 0;
+    for (; b + FOLD_DEPTH <= batches; b += FOLD_DEPTH) {
+#pragma unroll
+        for (int j = 0; j < FOLD_DEPTH; ++j) {
+            load(r[(j + FOLD_DEPTH - 1) % FOLD_DEPTH],
+                 min(b + j + FOLD_DEPTH - 1, last));
+            add(acc, r[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < FOLD_DEPTH - 1; ++j)
+        if (b + j < batches) add(acc, r[j]);
+    return acc;
+}
+
+// Batch b of P1's table: FOLD_QUADS float4s, the same address in every lane
+// (one broadcast a load).
+template <int SPACE>
+__device__ __forceinline__ void load_quads(float4 (&v)[FOLD_QUADS],
+                                           const float* __restrict__ g,
+                                           const float4* s, int b) {
+#pragma unroll
+    for (int k = 0; k < FOLD_QUADS; ++k) {
+        const int i = b * FOLD_QUADS + k;
+        if (SPACE == SPACE_CONSTANT)
+            v[k] = reinterpret_cast<const float4*>(c_tab)[i];
+        else if (SPACE == SPACE_SHARED)
+            v[k] = s[i];
+        else
+            v[k] = __ldg(reinterpret_cast<const float4*>(g) + i);
+    }
+}
+
+__device__ __forceinline__ void add_quads(float& acc,
+                                          const float4 (&v)[FOLD_QUADS]) {
+#pragma unroll
+    for (int k = 0; k < FOLD_QUADS; ++k) {
+        acc += v[k].x;
+        acc += v[k].y;
+        acc += v[k].z;
+        acc += v[k].w;
+    }
+}
+
+// P1's fold: acc = +0.0f, acc += tab[i] for i = 0 .. n-1, the reference's
+// order; whole batches through the ring, the tail by scalars.
+template <int SPACE>
+__device__ __forceinline__ float fold(const float* __restrict__ g,
+                                      const float4* s, int n) {
+    const int batches = n / (4 * FOLD_QUADS);
+    float acc = ring_fold<FOLD_QUADS>(
+        batches,
+        [&](float4 (&v)[FOLD_QUADS], int b) { load_quads<SPACE>(v, g, s, b); },
+        [](float& a, const float4 (&v)[FOLD_QUADS]) { add_quads(a, v); });
+    const float* s1 = reinterpret_cast<const float*>(s);
+    for (int i = batches * 4 * FOLD_QUADS; i < n; ++i)
+        acc += tab_at<SPACE>(g, s1, i);
+    return acc;
+}
+
+// P1: each warp folds tab[0..n) for its tiles (the reference's fori_loop
+// over SMEM scalars) and fills them with the sum.
+template <int SPACE>
+__global__ void __launch_bounds__(FOLD_THREADS, 1)
+    smem_scalar_kernel(const float* __restrict__ tab, int n,
+                       float* __restrict__ out, long long tiles) {
+    extern __shared__ float4 s_quads[];
+    if (SPACE == SPACE_SHARED) stage4(s_quads, tab, n);
+    const int lane = threadIdx.x & 31;
+    const long long warps = (long long)gridDim.x * FOLD_WARPS;
+    for (long long t = (long long)blockIdx.x * FOLD_WARPS + threadIdx.x / 32;
+         t < tiles; t += warps)
+        fill_tile(out, t, fold<SPACE>(tab, s_quads, n), lane);
+}
+
 // 16-byte loads that the compiler may not narrow: the probe measures the
 // whole row read.
 __device__ __forceinline__ float4 ld_global_v4(const float4* p) {
@@ -103,30 +214,66 @@ __device__ __forceinline__ float4 ld_shared_v4(const float4* p) {
     return v;
 }
 
-// Step i: each warp reads row i of the (n, 128) table, one float4 a lane,
-// and broadcasts lane 0's first value (tab[i, 0]) to every lane, which adds
-// it: the reference's (1, 128) VMEM row read and [0, 0] broadcast.
+// Lane `lane`'s float4 of row i of the (n, 128) table.
 template <int SPACE>
-__global__ void __launch_bounds__(TILE)
+__device__ __forceinline__ float4 row_at(const float4* g, const float4* s,
+                                         int i, int lane) {
+    const int k = i * (LANES / 4) + lane;
+    return SPACE == SPACE_SHARED ? ld_shared_v4(s + k) : ld_global_v4(g + k);
+}
+
+// Batch b of P2's rows: ROW_BATCH rows, whole, one float4 a lane.
+template <int SPACE>
+__device__ __forceinline__ void load_rows(float4 (&v)[ROW_BATCH],
+                                          const float4* g, const float4* s,
+                                          int b, int lane) {
+#pragma unroll
+    for (int k = 0; k < ROW_BATCH; ++k)
+        v[k] = row_at<SPACE>(g, s, b * ROW_BATCH + k, lane);
+}
+
+// Each row's tab[i, 0] is lane 0's x: broadcast it to the warp, add it.
+__device__ __forceinline__ void add_rows(float& acc,
+                                         const float4 (&v)[ROW_BATCH]) {
+    float x[ROW_BATCH];
+#pragma unroll
+    for (int k = 0; k < ROW_BATCH; ++k)
+        x[k] = __shfl_sync(FULL_MASK, v[k].x, 0);
+#pragma unroll
+    for (int k = 0; k < ROW_BATCH; ++k) acc += x[k];
+}
+
+// P2's fold: step i reads row i whole and adds tab[i, 0], i = 0 .. n-1 from
+// acc = +0.0f (the reference's (1, 128) VMEM row read and [0, 0]
+// broadcast); whole batches through the ring, the tail row by row.
+template <int SPACE>
+__device__ __forceinline__ float row_fold(const float4* g, const float4* s,
+                                          int n, int lane) {
+    const int batches = n / ROW_BATCH;
+    float acc = ring_fold<ROW_BATCH>(
+        batches,
+        [&](float4 (&v)[ROW_BATCH], int b) {
+            load_rows<SPACE>(v, g, s, b, lane);
+        },
+        [](float& a, const float4 (&v)[ROW_BATCH]) { add_rows(a, v); });
+    for (int i = batches * ROW_BATCH; i < n; ++i)
+        acc += __shfl_sync(FULL_MASK, row_at<SPACE>(g, s, i, lane).x, 0);
+    return acc;
+}
+
+// P2: each warp folds the rows for its tiles and fills them with the sum.
+template <int SPACE>
+__global__ void __launch_bounds__(FOLD_THREADS, 1)
     row_broadcast_kernel(const float* __restrict__ tab, int n,
-                         float* __restrict__ out, long long total) {
+                         float* __restrict__ out, long long tiles) {
     extern __shared__ float4 s_rows[];
+    if (SPACE == SPACE_SHARED) stage4(s_rows, tab, n * LANES);
     const float4* rows = reinterpret_cast<const float4*>(tab);
-    if (SPACE == SPACE_SHARED) {
-        for (int i = threadIdx.x; i < n * (LANES / 4); i += blockDim.x)
-            s_rows[i] = __ldg(rows + i);
-        __syncthreads();
-    }
     const int lane = threadIdx.x & 31;
-    float s = 0.0f;
-    for (int i = 0; i < n; ++i) {
-        const int k = i * (LANES / 4) + lane;
-        const float4 v = SPACE == SPACE_SHARED ? ld_shared_v4(s_rows + k)
-                                               : ld_global_v4(rows + k);
-        s += __shfl_sync(FULL_MASK, v.x, 0);
-    }
-    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < total) out[g] = s;
+    const long long warps = (long long)gridDim.x * FOLD_WARPS;
+    for (long long t = (long long)blockIdx.x * FOLD_WARPS + threadIdx.x / 32;
+         t < tiles; t += warps)
+        fill_tile(out, t, row_fold<SPACE>(rows, s_rows, n, lane), lane);
 }
 
 // ------------------------------------------------------------- P3 / P4
@@ -466,13 +613,43 @@ cudaError_t place(int space, const void* tab, int n, size_t* smem,
         if (e_ != cudaSuccess) return (int)e_; \
     } while (0)
 
-template <int SPACE>
-int launch_smem_scalar(const float* tab, int n, float* out, long long total,
-                       size_t smem, cudaStream_t st) {
-    RT_TRY(allow_shared(smem_scalar_kernel<SPACE>, smem));
-    smem_scalar_kernel<SPACE><<<blocks_of(total, TILE), TILE, smem, st>>>(
-        tab, n, out, total);
+int sm_count() {
+    static int n = 0;
+    if (n == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    }
+    return n;
+}
+
+// Launch fold kernel K (P1, P2) for `tiles` tiles: one warp a tile, at
+// most the blocks that fit the card at once with `smem` bytes each (the
+// occupancy API's blocks an SM x SMs, asked again only when smem changes);
+// past that the warps stride over the tiles.
+template <auto K>
+int launch_fold(const float* tab, int n, float* out, long long tiles,
+                size_t smem, cudaStream_t st) {
+    static long long fit = 0;
+    static size_t fit_smem = 0;
+    RT_TRY(allow_shared(K, smem));
+    if (fit == 0 || fit_smem != smem) {
+        int per_sm = 0;
+        RT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, K, FOLD_THREADS, smem));
+        fit = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+        fit_smem = smem;
+    }
+    const long long want = (tiles + FOLD_WARPS - 1) / FOLD_WARPS;
+    K<<<(int)(want < fit ? want : fit), FOLD_THREADS, smem, st>>>(tab, n, out,
+                                                                  tiles);
     return (int)cudaGetLastError();
+}
+
+// P1/P2 take whole tiles and a 16-byte aligned table (float4 loads).
+bool fold_args_ok(const void* tab, int n, long long total) {
+    return n >= 1 && total >= 1 && total % TILE == 0
+           && reinterpret_cast<uintptr_t>(tab) % 16 == 0;
 }
 
 template <int SPACE>
@@ -487,46 +664,49 @@ int launch_sphere_loop(const float* sph, int S, const float* o,
 
 }  // namespace
 
-// P1: out (total,) = the index-order sum of tab[0..n), from `space`.
+// P1: out (total,) = the index-order sum of tab[0..n), from `space`, in
+// total / 1024 tiles.
 extern "C" int rt_probe_smem_scalar_launch(const void* tab, int n, int space,
                                            void* out, long long total,
                                            void* stream) {
-    if (n < 1 || total < 1) return (int)cudaErrorInvalidValue;
+    if (!fold_args_ok(tab, n, total)) return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     size_t smem;
     RT_TRY(place(space, tab, n, &smem, st));
     const float* t = static_cast<const float*>(tab);
     float* y = static_cast<float*>(out);
+    const long long tiles = total / TILE;
     if (space == SPACE_CONSTANT)
-        return launch_smem_scalar<SPACE_CONSTANT>(t, n, y, total, smem, st);
+        return launch_fold<smem_scalar_kernel<SPACE_CONSTANT>>(t, n, y, tiles,
+                                                              smem, st);
     if (space == SPACE_SHARED)
-        return launch_smem_scalar<SPACE_SHARED>(t, n, y, total, smem, st);
-    return launch_smem_scalar<SPACE_GLOBAL>(t, n, y, total, smem, st);
+        return launch_fold<smem_scalar_kernel<SPACE_SHARED>>(t, n, y, tiles,
+                                                            smem, st);
+    return launch_fold<smem_scalar_kernel<SPACE_GLOBAL>>(t, n, y, tiles, smem,
+                                                        st);
 }
 
 // P2: out (total,) = sum of tab[i, 0] over the rows of an (n, 128) table,
-// read as float4 rows from shared or global memory.
+// read as float4 rows from shared or global memory, in total / 1024 tiles.
 extern "C" int rt_probe_row_broadcast_launch(const void* tab, int n,
                                              int space, void* out,
                                              long long total, void* stream) {
-    if (n < 1 || total < 1 || (space != SPACE_SHARED && space != SPACE_GLOBAL))
+    if (!fold_args_ok(tab, n, total)
+        || (space != SPACE_SHARED && space != SPACE_GLOBAL))
         return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    size_t smem;
+    RT_TRY(place(space, tab, n * LANES, &smem, st));
     const float* t = static_cast<const float*>(tab);
     float* y = static_cast<float*>(out);
-    if (space == SPACE_SHARED) {
-        const size_t smem = (size_t)n * LANES * sizeof(float);
-        if (smem > (size_t)SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
-        RT_TRY(allow_shared(row_broadcast_kernel<SPACE_SHARED>, smem));
-        row_broadcast_kernel<SPACE_SHARED>
-            <<<blocks_of(total, TILE), TILE, smem, st>>>(t, n, y, total);
-    } else {
-        row_broadcast_kernel<SPACE_GLOBAL>
-            <<<blocks_of(total, TILE), TILE, 0, st>>>(t, n, y, total);
-    }
-    return (int)cudaGetLastError();
+    const long long tiles = total / TILE;
+    if (space == SPACE_SHARED)
+        return launch_fold<row_broadcast_kernel<SPACE_SHARED>>(t, n, y, tiles,
+                                                              smem, st);
+    return launch_fold<row_broadcast_kernel<SPACE_GLOBAL>>(t, n, y, tiles,
+                                                          smem, st);
 }
 
 // P3: out (total,) = tab[idx, 0] of a (256, 128) table (summed over reps

@@ -28,8 +28,9 @@ spheres ``arange(4S, float32) * 0.01``.
 
 Shapes. The reference shape is one (8, 128) tile (P1-P6) or 1024 rays (P7):
 the bitwise check. ``tiles`` repeats the tile: with 1024 tiles (2^20
-threads or rays) every SM of the card is busy, which is the timing shape;
-one tile alone would occupy one SM of 132 and measure latency.
+threads or rays; P1/P2 1024 warps, one fold a tile) every SM of the card is
+busy, which is the timing shape; one tile alone would occupy one SM of 132
+and measure latency.
 
 ``python -m rust_tracing_tpu_torch.probes`` runs the sweep on the card (the
 reference's ``__main__``) and prints one JSON line per (probe, variant,
@@ -41,6 +42,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -101,6 +103,28 @@ FLOP_PER_MXU_RAY = 30
 # more than TF32_T_RTOL (``mxu_at_risk``).
 TF32_PROD_RTOL = 2.0 ** -10 + 2.0 ** -18
 TF32_T_RTOL = 1e-3
+
+# P1/P2 fold a tile's sum in index order: n dependent f32 adds, whatever the
+# card's rates, so their bound has a third term, the chain. The latency of a
+# dependent FADD, in SM clocks, was measured on an NVIDIA H100 80GB HBM3
+# (700 W) by a clock64() chain of 65 536 adds (PERF.md, Findings); the clock
+# is the card's maximum SM clock (nvidia-smi clocks.max.sm).
+FADD_LATENCY_CLOCKS = 4
+SM_CLOCK_HZ = 1980e6
+FOLD_PROBES = ("P1", "P2")
+# Tile counts of the fold kernels' extra check: odd, so never a multiple of
+# a grid's warps (blocks of 8), and 9001 beyond the warps that fit the card
+# (132 SMs x 64), so warps take several tiles.
+UNEVEN_TILES = (133, 9001)
+RAGGED = 5  # the extra check also folds a table this much shorter
+HOLD_TRIES = 4  # time_ms: holds of the stream, each 4x the last
+
+
+def chain_floor_ms(n: int) -> float:
+    """The least time of one index-order fold of n f32 values: n dependent
+    adds at FADD_LATENCY_CLOCKS each, at SM_CLOCK_HZ. Tiles fold in
+    parallel, so it is the floor of a P1/P2 call."""
+    return n * FADD_LATENCY_CLOCKS / SM_CLOCK_HZ * 1e3
 
 
 def fits(space: str, n_floats: int) -> bool:
@@ -177,6 +201,13 @@ def _shared_or_global(name: str, space: str) -> None:
                          f"{space!r}")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the fold kernels read
+    it as float4): a view that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fold(values: torch.Tensor) -> torch.Tensor:
     """The f32 sum of a 1-D tensor in index order, one add a step."""
     s = torch.zeros((), dtype=torch.float32, device=values.device)
@@ -198,15 +229,15 @@ def smem_scalar_plain(tab: torch.Tensor, tiles: int = 1) -> torch.Tensor:
 
 def smem_scalar_kernel(tab: torch.Tensor, space: str,
                        tiles: int = 1) -> torch.Tensor:
-    """Every thread folds ``tab[0..n)`` in index order from memory space
-    ``space``; the sum fills ``tiles`` (8, 128) tiles."""
+    """One warp a tile folds ``tab[0..n)`` in index order from memory space
+    ``space`` and fills the tile with the sum; ``tiles`` (8, 128) tiles."""
     dev = _cuda_f32("smem_scalar_kernel", tab)
     if tab.ndim != 1 or tab.numel() < 1:
         raise ValueError(f"smem_scalar_kernel takes a 1-D table, got "
                          f"{tuple(tab.shape)}")
     n = tab.numel()
     check_fits(space, n)
-    tab = tab.contiguous()
+    tab = _aligned16(tab)
     out = _tile_out(tiles, dev)
     _launch("smem_scalar_kernel", "rt_probe_smem_scalar_launch", dev,
             tab.data_ptr(), n, SPACE_CODE[space], out.data_ptr(),
@@ -236,16 +267,16 @@ def vmem_row_broadcast_plain(tab: torch.Tensor,
 
 def vmem_row_broadcast_kernel(tab: torch.Tensor, space: str,
                               tiles: int = 1) -> torch.Tensor:
-    """Each warp reads row i of the (n, 128) table as one float4 a lane
-    (from ``space``: shared or global) and broadcasts lane 0's first value
-    to its lanes, which add it; n rows in order."""
+    """One warp a tile reads row i of the (n, 128) table whole, one float4
+    a lane (from ``space``: shared or global), and adds lane 0's first value
+    after a broadcast, n rows in order; the sum fills the tile."""
     dev = _cuda_f32("vmem_row_broadcast_kernel", tab)
     if tab.ndim != 2 or tab.shape[1] != LANES or tab.shape[0] < 1:
         raise ValueError(f"vmem_row_broadcast_kernel takes an (n, {LANES}) "
                          f"table, got {tuple(tab.shape)}")
     _shared_or_global("vmem_row_broadcast_kernel", space)
     check_fits(space, tab.numel())
-    tab = tab.contiguous()
+    tab = _aligned16(tab)
     out = _tile_out(tiles, dev)
     _launch("row_broadcast_kernel", "rt_probe_row_broadcast_launch", dev,
             tab.data_ptr(), tab.shape[0], SPACE_CODE[space], out.data_ptr(),
@@ -665,22 +696,41 @@ def mxu_inputs(seed: int, S: int = SPHERES, tiles: int = 1, device=None):
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean ms of ``fn`` by CUDA events after a warm-up: over ``reps``
-    calls, or as many more (up to 200) as take ~10 ms, so that a kernel of
-    microseconds is not timed by one launch's jitter."""
+    """Mean device ms of ``fn`` by CUDA events after a warm-up: over
+    ``reps`` calls, or as many more (up to 200) as take ~10 ms, so that a
+    kernel of microseconds is not timed by one launch's jitter. A Python
+    call takes tens of microseconds on the host, longer than a short
+    kernel, so the stream is held by a sleep kernel (``torch.cuda._sleep``)
+    for about twice the host time of the calls while the host enqueues
+    them: the events then time the device's work back to back, not the
+    host's gaps. If the device had reached the start event before the host
+    had enqueued every call, the hold was too short: the calls are timed
+    again under a hold four times longer, HOLD_TRIES times at most."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     start.record()
     fn()
     end.record()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     n = max(reps, min(200, int(10.0 / max(start.elapsed_time(end), 0.05))))
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    hold_s = 2 * n * host_s + 1e-3
+    for _ in range(HOLD_TRIES):
+        torch.cuda._sleep(int(hold_s * SM_CLOCK_HZ))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / n
+        hold_s *= 4
+    raise RuntimeError(f"time_ms: the host did not enqueue {n} calls within "
+                       f"a {hold_s / 4:.3f} s hold of the stream")
 
 
 def variants():
@@ -770,17 +820,18 @@ def touched_entries(probe, gathers=1) -> int:
 def work(probe, variant, size, tiles, gathers=1):
     """(count, unit, f32 flop, tensor-core flop, bytes) of one call at
     ``tiles`` tiles. The count is what the kernel does, the rate's
-    numerator: reads (P1-P4; in P1/P2 every thread folds the whole table)
-    or sphere tests (P5-P7). The operations and bytes are what the function
-    needs, the bound's: P1/P2 one n-term sum a tile, over the table entries
-    it sums (P2: column 0); P3/P4 the adds of ``gathers`` gathers and the
+    numerator: reads (P1-P4; P1/P2 one fold a tile, a warp reading the n
+    entries or rows at one address each step) or sphere tests (P5-P7).
+    The operations and bytes are what the function needs, the bound's:
+    P1/P2 one n-term sum a tile, over the table entries it sums (P2:
+    column 0); P3/P4 the adds of ``gathers`` gathers and the
     entries the index touches (``touched_entries``); the sphere probes
     their tests' operations, counted from the kernels. Each input byte is
     read once and each output byte written once."""
     threads = tiles * TILE
     out_bytes = 4 * threads
     if probe in ("P1", "P2"):
-        return (threads * size, "G reads/s", tiles * size, 0,
+        return (tiles * size, "G reads/s", tiles * size, 0,
                 4 * size + out_bytes)
     if probe in ("P3", "P4"):
         return (threads * gathers, "G reads/s", threads * (gathers - 1), 0,
@@ -799,13 +850,31 @@ def work(probe, variant, size, tiles, gathers=1):
     return tests, "G prim-tests/s", epi + prods, 0, n_bytes
 
 
-def bound_ms(flop, n_bytes, tc_flop=0.0):
-    """(ms, 'operations' or 'bytes'): the larger of the f32 operations over
-    the f32 peak (or the tensor-core operations over the TF32 peak, where
-    larger) and the bytes over the memory rate."""
+def bound_ms(flop, n_bytes, tc_flop=0.0, chain_ms=0.0):
+    """(ms, 'operations', 'bytes' or 'chain'): the largest of the f32
+    operations over the f32 peak (or the tensor-core operations over the
+    TF32 peak, where larger), the bytes over the memory rate, and
+    ``chain_ms``, the floor of a chain of dependent adds
+    (``chain_floor_ms``; P1/P2)."""
     t_ops = max(flop / PEAK_FP32_FLOPS, tc_flop / PEAK_TF32_FLOPS) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+    return max((t_bytes, "bytes"), (t_ops, "operations"), (chain_ms, "chain"),
+               key=lambda b: b[0])
+
+
+def uneven_check(probe, variant, size, seed, dev, plain_tile) -> dict:
+    """P1/P2's fold kernels at UNEVEN_TILES tiles, with the table of
+    ``size`` and of ``size - RAGGED`` entries (rows), every tile bit for bit
+    the plain version of one tile: grids whose warps do not divide the
+    tiles, warps that take several tiles, and folds with a ragged tail."""
+    ok = True
+    for n in (size, size - RAGGED):
+        want = plain_tile(probe, variant, n, 1)
+        for tiles in UNEVEN_TILES:
+            got = case(probe, variant, n, seed, tiles, dev)[0]()
+            ok = ok and bool(torch.equal(got, want.expand_as(got)))
+    return dict(uneven_tiles=list(UNEVEN_TILES), ragged_size=size - RAGGED,
+                uneven_equal=ok)
 
 
 def sweep(seed: int = 0, emit=None):
@@ -815,9 +884,10 @@ def sweep(seed: int = 0, emit=None):
     call at FILL_TILES tiles (P3/P4 ``timed_gathers`` gathers a thread),
     every tile bit for bit the plain version of one tile at the same
     gathers (the TF32 variant: its own one-tile output), and timed by CUDA
-    events. ``equal`` holds both checks. Returns one dict per (probe,
-    variant, size) and one per pair that does not fit its memory space
-    (from ``fits``); ``emit`` (e.g. ``print``) gets each as a JSON line."""
+    events; P1/P2 also at uneven tile counts and a ragged size
+    (``uneven_check``). ``equal`` holds every check. Returns one dict per
+    (probe, variant, size) and one per pair that does not fit its memory
+    space (from ``fits``); ``emit`` (e.g. ``print``) gets each as a JSON line."""
     dev = resolve_device(None)
     run, skip = variants()
     rows = []
@@ -870,14 +940,22 @@ def sweep(seed: int = 0, emit=None):
         tiles_ok = bool(torch.equal(got, want.expand_as(got)))
         err = max(err, float((got - want).abs().max()))
         del got
+        chain_ms = 0.0
+        if probe in FOLD_PROBES:
+            chain_ms = chain_floor_ms(size)
+            row.update(uneven_check(probe, variant, size, seed, dev,
+                                    plain_tile))
+            tiles_ok = tiles_ok and row["uneven_equal"]
         ms = time_ms(kern, 3)
         count, unit, flop, tc_flop, n_bytes = work(probe, variant, size,
                                                     FILL_TILES, gathers)
-        b_ms, b_by = bound_ms(flop, n_bytes, tc_flop)
+        b_ms, b_by = bound_ms(flop, n_bytes, tc_flop, chain_ms)
         row.update(equal=ref_ok and tiles_ok, reference_equal=ref_ok,
                    tiles_equal=tiles_ok, max_abs_err=err, tiles=FILL_TILES,
                    ms=ms, rate=count / ms / 1e6, rate_unit=unit,
                    bound_ms=b_ms, bound_by=b_by)
+        if probe in FOLD_PROBES:
+            row["chain_floor_ms"] = chain_ms
         if gathers > 1:
             row["gathers_a_thread"] = gathers
         out(row)

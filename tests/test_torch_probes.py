@@ -216,20 +216,38 @@ def test_limits_refusals_and_sweep_listing():
 
 def test_bounds_count_the_function():
     """The bounds count what each probe's function needs, not what its
-    kernel does: P1/P2 one n-term sum a tile over the n entries it sums
-    (every thread's own fold is the read count, the rate's numerator);
-    P3/P4 the table entries the index touches (P4 at one gather: each
-    lane's 8 rows 7 r + 13 l are distinct, 8 x 128 entries)."""
+    kernel does: P1/P2 one n-term sum a tile over the n entries it sums,
+    whose n dependent adds are a chain (one fold a tile, tiles x n reads, is
+    the read count, the rate's numerator); P3/P4 the table entries the index
+    touches (P4 at one gather: each lane's 8 rows 7 r + 13 l are distinct,
+    8 x 128 entries)."""
     tiles, n = 1024, 16384
     out_bytes = 4 * tiles * probes.TILE
     count, _, flop, tc, n_bytes = probes.work("P1", "constant", n, tiles)
-    assert (count, flop, tc, n_bytes) == (tiles * probes.TILE * n,
-                                          tiles * n, 0, 4 * n + out_bytes)
+    assert (count, flop, tc, n_bytes) == (tiles * n, tiles * n, 0,
+                                          4 * n + out_bytes)
     assert probes.bound_ms(flop, n_bytes, tc)[1] == "bytes"
-    assert probes.work("P2", "shared", 256, tiles)[4] == 4 * 256 + out_bytes
+    chain = probes.chain_floor_ms(n)
+    assert probes.bound_ms(flop, n_bytes, tc, chain) == (chain, "chain")
+    count, _, flop, tc, n_bytes = probes.work("P2", "shared", 256, tiles)
+    assert (count, n_bytes) == (tiles * 256, 4 * 256 + out_bytes)
+    assert probes.bound_ms(flop, n_bytes, tc,
+                           probes.chain_floor_ms(256))[1] == "bytes"
     assert probes.touched_entries("P4") == 8 * 128
     idx = probes.gather_index().numpy()
     assert probes.touched_entries("P3") == len(np.unique(idx))
     assert probes.touched_entries("P3", 64) == probes.GATHER_N
     assert probes.work("P4", "shared", 256, tiles, 64)[4] == (
         4 * probes.touched_entries("P4", 64) + out_bytes)
+
+
+def test_chain_floor_is_linear_in_n():
+    """P1/P2's chain floor is n dependent adds at the measured latency and
+    the card's SM clock, linear in n; P1 at 16 384 entries ~33 us."""
+    per_add = probes.FADD_LATENCY_CLOCKS / probes.SM_CLOCK_HZ * 1e3
+    for n in (1, 128, 256, 16384, 65536):
+        assert probes.chain_floor_ms(n) == pytest.approx(n * per_add,
+                                                         rel=1e-12)
+    assert probes.chain_floor_ms(2 * 4096) == pytest.approx(
+        2 * probes.chain_floor_ms(4096), rel=1e-12)
+    assert 0.03 < probes.chain_floor_ms(16384) < 0.04
