@@ -134,11 +134,14 @@ Phases:
              1024 tiles (P3/P4 64 gathers a thread) tile by tile against the
              plain version of one tile, P1/P2 also at 133 and 9001 tiles
              (odd, so no grid's warps divide them; 9001 past the warps the
-             card holds) and at a ragged size, and timed on a held stream
-             (probes.time_ms: device time, not the host's dispatch); each
-             kernels-line entry is its variant's sweep row, with the plain
-             version's and the library call's times (P1/P2: the chain floor
-             and bound_by beside them)
+             card holds) and at a ragged size, P5/P6 also on an edge tile
+             (probes.edge_rays: zero and subnormal directions, origins at
+             sphere centres, grazes with disc +0.0 or subnormal), and timed
+             on a held stream (probes.time_ms: device time, not the host's
+             dispatch); each kernels-line entry is its variant's sweep row,
+             with the plain version's and the library call's times (P1/P2:
+             the chain floor, P5/P6: the lane-issue floor on this card's
+             SMs, and bound_by beside them)
   torch_func torch.func.jacfwd and jacrev of the replay image's row mean
              w.r.t. tex_rgb (24 px noise scene, float64) on the card,
              through the batching rules of the gathers (gather_cols_kernel
@@ -222,7 +225,8 @@ Tolerances and their reasons.
 - probes: P1-P6 and P7's f32 variant do the plain version's f32 operations
   in its order (sums in index order, IEEE sqrt and division, no
   contraction; the min over spheres is exact): bit for bit at the
-  reference shape and in every tile of the timed shape. P7's TF32 variant:
+  reference shape and in every tile of the timed shape (P5/P6 also on the
+  edge tile, subnormals kept on both sides). P7's TF32 variant:
   each product within probes.TF32_PROD_RTOL of its terms' absolute sum
   (operands rounded to TF32, 2^-11 each, plus the f32 sums), and every ray
   whose t moved by more than 1e-3 relative among the rays that this product
@@ -2832,6 +2836,11 @@ def phase_probes():
     if unchecked:
         fail(f"probes: fold kernels not held at uneven tile counts: "
              f"{unchecked}")
+    unchecked = [f"{r['probe']} {r['variant']} {r['size']}" for r in rows
+                 if r["fits"] and r["probe"] in probes.ISSUE_PROBES
+                 and "edge_equal" not in r]
+    if unchecked:
+        fail(f"probes: sphere loops not held on the edge tile: {unchecked}")
     names = [e[1] for e in PROBE_ENTRIES] + ["sphere_mxu_tc_kernel"]
     idle = [k for k in names if launches[k] < 1]
     if idle:
@@ -2861,6 +2870,9 @@ def phase_probes():
                          uneven_tiles=r["uneven_tiles"],
                          ragged_size=r["ragged_size"],
                          uneven_equal=r["uneven_equal"])
+        if probe in probes.ISSUE_PROBES:
+            entry.update(issue_floor_ms=r["issue_floor_ms"], sms=r["sms"],
+                         edge_equal=r["edge_equal"])
         if probe in ("P1", "P5"):
             entry["ms_by_space"] = {
                 sp: by[(probe, sp, size)]["ms"] for sp in probes.SPACES}

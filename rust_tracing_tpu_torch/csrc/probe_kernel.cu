@@ -24,7 +24,9 @@
 //           loads take longer than a batch's adds (__ldg, __constant__),
 //           the chain waits for them. P2 also reads its 512-byte rows whole;
 //   P3, P4  the gathers and the output write (bytes);
-//   P5, P6  25 flop a sphere test (operations), plus the table read;
+//   P5, P6  25 f32 operations a sphere test, each an instruction of its
+//           own (no contraction): the lanes' issue; a sphere is one
+//           16-byte read (P5), and its test has no slow path for a miss;
 //   P7      two 8-term products a (ray, sphere) on CUDA cores (f32 variant)
 //           or tensor cores (TF32 variant) and a 14-flop epilogue.
 //
@@ -81,15 +83,16 @@ __device__ __forceinline__ float tab_at(const float* __restrict__ g,
 // ------------------------------------------------------------ P1 / P2
 // Copy n floats of a 16-byte aligned global table into this block's shared
 // memory, 16 bytes a load, the tail by scalars. The stride is a constant
-// (blocks of FOLD_THREADS), so the compiler unrolls the copy and keeps
-// several loads in flight.
+// (blocks of THREADS), so the compiler unrolls the copy and keeps several
+// loads in flight.
+template <int THREADS>
 __device__ __forceinline__ void stage4(float4* s, const float* __restrict__ g,
                                        int n) {
     const float4* g4 = reinterpret_cast<const float4*>(g);
-    for (int i = threadIdx.x; i < n / 4; i += FOLD_THREADS)
+    for (int i = threadIdx.x; i < n / 4; i += THREADS)
         s[i] = __ldg(g4 + i);
     float* s1 = reinterpret_cast<float*>(s);
-    for (int i = n / 4 * 4 + threadIdx.x; i < n; i += FOLD_THREADS)
+    for (int i = n / 4 * 4 + threadIdx.x; i < n; i += THREADS)
         s1[i] = __ldg(g + i);
     __syncthreads();
 }
@@ -185,7 +188,7 @@ __global__ void __launch_bounds__(FOLD_THREADS, 1)
     smem_scalar_kernel(const float* __restrict__ tab, int n,
                        float* __restrict__ out, long long tiles) {
     extern __shared__ float4 s_quads[];
-    if (SPACE == SPACE_SHARED) stage4(s_quads, tab, n);
+    if (SPACE == SPACE_SHARED) stage4<FOLD_THREADS>(s_quads, tab, n);
     const int lane = threadIdx.x & 31;
     const long long warps = (long long)gridDim.x * FOLD_WARPS;
     for (long long t = (long long)blockIdx.x * FOLD_WARPS + threadIdx.x / 32;
@@ -267,7 +270,7 @@ __global__ void __launch_bounds__(FOLD_THREADS, 1)
     row_broadcast_kernel(const float* __restrict__ tab, int n,
                          float* __restrict__ out, long long tiles) {
     extern __shared__ float4 s_rows[];
-    if (SPACE == SPACE_SHARED) stage4(s_rows, tab, n * LANES);
+    if (SPACE == SPACE_SHARED) stage4<FOLD_THREADS>(s_rows, tab, n * LANES);
     const float4* rows = reinterpret_cast<const float4*>(tab);
     const int lane = threadIdx.x & 31;
     const long long warps = (long long)gridDim.x * FOLD_WARPS;
@@ -345,81 +348,139 @@ __device__ __forceinline__ void launder(uint32_t& x) {
     asm volatile("" : "+r"(x));
 }
 
-// One sphere test of the reference's loop (scripts/tpu_probe.py
-// sphere_loop_smem), its operations in its order.
-__device__ __forceinline__ float sphere_step(float ox, float oy, float oz,
-                                             float dx, float dy, float dz,
-                                             float a, float cx, float cy,
-                                             float cz, float r2,
-                                             float tbest) {
-    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-    const float hb = ocx * dx + ocy * dy + ocz * dz;
-    const float c = ocx * ocx + ocy * ocy + ocz * ocz - r2;
-    const float disc = hb * hb - a * c;
-    const float t = (-hb - sqrtf(fmaxf(disc, 0.0f))) / a;
-    const bool ok = (disc > 0.0f) && (t > 1e-3f) && (t < tbest);
-    return ok ? t : tbest;
+// One ray of P5/P6: origin, direction and a = d . d.
+struct Ray {
+    float ox, oy, oz, dx, dy, dz, a;
+};
+
+// Ray g of the (3, R) component planes o and d.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d,
+                                        long long R, long long g) {
+    Ray r;
+    r.ox = o[g], r.oy = o[R + g], r.oz = o[2 * R + g];
+    r.dx = d[g], r.dy = d[R + g], r.dz = d[2 * R + g];
+    r.a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    return r;
 }
 
-// P5: one thread a ray; S spheres (cx, cy, cz, r2) read from SPACE, reps
-// rounds. o and d are (3, R) component planes.
+__device__ __forceinline__ void launder(Ray& r) {
+    launder(r.ox), launder(r.oy), launder(r.oz);
+    launder(r.dx), launder(r.dy), launder(r.dz), launder(r.a);
+}
+
+// P5/P6's launch and windows, chosen by measurement (PERF.md, Findings):
+// blocks of 1024 threads (256 were 3-12 % slower); P5's __constant__ loop
+// and P6's unrolled code are read by a block's warps together, a window of
+// CONST_WINDOW spheres or CODE_WINDOW tests between two barriers. The card's
+// constant cache nearest the SM holds 2 KB (34 clocks a read; 104 past it):
+// warps that drift apart over P5's 4 KB table miss it on nearly every read
+// (112 ms against 24.1 with the barriers). P6's round is 53 KB of code at
+// S = 64 and 204 KB at S = 256, which the instruction cache does not hold:
+// without the barriers S = 256 ran 13 % slower a test than S = 64.
+constexpr int SPHERE_THREADS = 1024;
+constexpr int CONST_WINDOW = 32;
+constexpr int CODE_WINDOW = 32;
+
+// One sphere test of the reference's loop (scripts/tpu_probe.py
+// sphere_loop_smem) on sphere s = (cx, cy, cz, r2), its operations in its
+// order. A miss's t is never used (ok needs disc > 0), so where disc <= 0
+// the root is taken of 1.0f instead of the reference's max(disc, 0) = +0:
+// IEEE sqrtf leaves its fast path through a called subroutine for +0 and
+// for subnormals, and in a warp whose lanes mostly miss (95 % of the
+// sweep's pairs) every test would run both paths. Each positive disc keeps
+// its own root (a subnormal one by the slow path, as before), so every hit's
+// t, and the result, are the reference's bit for bit. With VOTE a warp
+// none of whose lanes has disc > 0 skips the root, the division and the
+// compares (a third of the sweep's (warp, sphere) pairs at S = 256); the
+// warp must be whole. P6's straight-line code runs slower with the vote.
+template <bool VOTE>
+__device__ __forceinline__ float sphere_step(const Ray& r, const float4 s,
+                                             float tbest) {
+    const float ocx = r.ox - s.x, ocy = r.oy - s.y, ocz = r.oz - s.z;
+    const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - s.w;
+    const float disc = hb * hb - r.a * c;
+    const bool pos = disc > 0.0f;
+    if (VOTE && !__any_sync(FULL_MASK, pos)) return tbest;
+    const float t = (-hb - sqrtf(pos ? disc : 1.0f)) / r.a;
+    return (pos && t > 1e-3f && t < tbest) ? t : tbest;
+}
+
+// Sphere i of P5's table, one 16-byte read from SPACE.
 template <int SPACE>
-__global__ void __launch_bounds__(TILE)
+__device__ __forceinline__ float4 sphere_at(const float4* __restrict__ g,
+                                            const float4* s, int i) {
+    if (SPACE == SPACE_CONSTANT)
+        return reinterpret_cast<const float4*>(c_tab)[i];
+    if (SPACE == SPACE_SHARED) return s[i];
+    return __ldg(g + i);
+}
+
+// P5: one thread a ray; S spheres (cx, cy, cz, r2) read from SPACE, a
+// sphere a float4, reps rounds. o and d are (3, R) component planes. Every
+// lane of a block runs the loop (a lane past R repeats ray R - 1 and writes
+// nothing), so the warps stay whole for the vote and the barriers.
+template <int SPACE>
+__global__ void __launch_bounds__(SPHERE_THREADS)
     sphere_loop_kernel(const float* __restrict__ sph, int S,
                        const float* __restrict__ o,
                        const float* __restrict__ d, long long R, int reps,
                        float* __restrict__ out) {
-    extern __shared__ float s_sph[];
-    if (SPACE == SPACE_SHARED) stage(s_sph, sph, 4 * S);
+    extern __shared__ float4 s_sph[];
+    if (SPACE == SPACE_SHARED) stage4<SPHERE_THREADS>(s_sph, sph, 4 * S);
+    const float4* g4 = reinterpret_cast<const float4*>(sph);
     const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= R) return;
-    float ox = o[g], oy = o[R + g], oz = o[2 * R + g];
-    float dx = d[g], dy = d[R + g], dz = d[2 * R + g];
-    float a = dx * dx + dy * dy + dz * dz;
+    Ray r = load_ray(o, d, R, g < R ? g : R - 1);
     float tbest = NO_HIT;
-    for (int r = 0; r < reps; ++r) {
-        launder(ox), launder(oy), launder(oz);
-        launder(dx), launder(dy), launder(dz), launder(a);
-        for (int i = 0; i < S; ++i) {
-            tbest = sphere_step(ox, oy, oz, dx, dy, dz, a,
-                                tab_at<SPACE>(sph, s_sph, 4 * i),
-                                tab_at<SPACE>(sph, s_sph, 4 * i + 1),
-                                tab_at<SPACE>(sph, s_sph, 4 * i + 2),
-                                tab_at<SPACE>(sph, s_sph, 4 * i + 3), tbest);
+    for (int rep = 0; rep < reps; ++rep) {
+        launder(r);
+        if (SPACE == SPACE_CONSTANT) {
+            for (int i0 = 0; i0 < S; i0 += CONST_WINDOW) {
+                const int i1 = min(S, i0 + CONST_WINDOW);
+#pragma unroll 8
+                for (int i = i0; i < i1; ++i)
+                    tbest = sphere_step<true>(
+                        r, sphere_at<SPACE>(g4, s_sph, i), tbest);
+                __syncthreads();
+            }
+        } else {
+#pragma unroll 8
+            for (int i = 0; i < S; ++i)
+                tbest = sphere_step<true>(
+                    r, sphere_at<SPACE>(g4, s_sph, i), tbest);
         }
     }
-    out[g] = tbest;
+    if (g < R) out[g] = tbest;
 }
 
 // P6: the same loop with the S spheres compiled in. The sphere loop is
 // unrolled, so every value float(k) * 0.01f is a constant that nvcc folds
 // (round to nearest, as numpy's arange(4S, float32) * 0.01) and places in
-// the instructions.
+// the instructions; a barrier every CODE_WINDOW tests.
 template <int S>
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(SPHERE_THREADS)
     sphere_immediate_kernel(const float* __restrict__ o,
                             const float* __restrict__ d, long long R,
                             int reps, float* __restrict__ out) {
     const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= R) return;
-    float ox = o[g], oy = o[R + g], oz = o[2 * R + g];
-    float dx = d[g], dy = d[R + g], dz = d[2 * R + g];
-    float a = dx * dx + dy * dy + dz * dz;
+    Ray r = load_ray(o, d, R, g < R ? g : R - 1);
     float tbest = NO_HIT;
 #pragma unroll 1
-    for (int r = 0; r < reps; ++r) {
-        launder(ox), launder(oy), launder(oz);
-        launder(dx), launder(dy), launder(dz), launder(a);
+    for (int rep = 0; rep < reps; ++rep) {
+        launder(r);
 #pragma unroll
         for (int i = 0; i < S; ++i) {
-            tbest = sphere_step(ox, oy, oz, dx, dy, dz, a,
-                                float(4 * i) * 0.01f,
-                                float(4 * i + 1) * 0.01f,
-                                float(4 * i + 2) * 0.01f,
-                                float(4 * i + 3) * 0.01f, tbest);
+            tbest = sphere_step<false>(r,
+                                       make_float4(float(4 * i) * 0.01f,
+                                                   float(4 * i + 1) * 0.01f,
+                                                   float(4 * i + 2) * 0.01f,
+                                                   float(4 * i + 3) * 0.01f),
+                                       tbest);
+            if ((i + 1) % CODE_WINDOW == 0 && i + 1 < S) __syncthreads();
         }
     }
-    out[g] = tbest;
+    if (g < R) out[g] = tbest;
 }
 
 // ------------------------------------------------------------------- P7
@@ -657,8 +718,9 @@ int launch_sphere_loop(const float* sph, int S, const float* o,
                        const float* d, long long R, int reps, float* out,
                        size_t smem, cudaStream_t st) {
     RT_TRY(allow_shared(sphere_loop_kernel<SPACE>, smem));
-    sphere_loop_kernel<SPACE><<<blocks_of(R, TILE), TILE, smem, st>>>(
-        sph, S, o, d, R, reps, out);
+    sphere_loop_kernel<SPACE>
+        <<<blocks_of(R, SPHERE_THREADS), SPHERE_THREADS, smem, st>>>(
+            sph, S, o, d, R, reps, out);
     return (int)cudaGetLastError();
 }
 
@@ -755,12 +817,16 @@ extern "C" int rt_probe_gather_2d_launch(const void* tab, int reps, int space,
     return (int)cudaGetLastError();
 }
 
-// P5: out (R,) = the closest hit of rays (3, R) over S spheres from `space`.
+// P5: out (R,) = the closest hit of rays (3, R) over S spheres from `space`
+// (shared and global read the table as float4s: it must be 16-byte aligned).
 extern "C" int rt_probe_sphere_loop_launch(const void* sph, int S,
                                            const void* o, const void* d,
                                            long long R, int reps, int space,
                                            void* out, void* stream) {
-    if (S < 1 || R < 1 || reps < 0) return (int)cudaErrorInvalidValue;
+    if (S < 1 || R < 1 || reps < 0
+        || (space != SPACE_CONSTANT
+            && reinterpret_cast<uintptr_t>(sph) % 16 != 0))
+        return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     size_t smem;
@@ -790,11 +856,13 @@ extern "C" int rt_probe_sphere_immediate_launch(int S, const void* o,
     const float* po = static_cast<const float*>(o);
     const float* pd = static_cast<const float*>(d);
     float* y = static_cast<float*>(out);
-    const int nb = blocks_of(R, TILE);
+    const int nb = blocks_of(R, SPHERE_THREADS);
     if (S == 64)
-        sphere_immediate_kernel<64><<<nb, TILE, 0, st>>>(po, pd, R, reps, y);
+        sphere_immediate_kernel<64>
+            <<<nb, SPHERE_THREADS, 0, st>>>(po, pd, R, reps, y);
     else if (S == 256)
-        sphere_immediate_kernel<256><<<nb, TILE, 0, st>>>(po, pd, R, reps, y);
+        sphere_immediate_kernel<256>
+            <<<nb, SPHERE_THREADS, 0, st>>>(po, pd, R, reps, y);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

@@ -40,6 +40,7 @@ size).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -104,6 +105,16 @@ FLOP_PER_MXU_RAY = 30
 TF32_PROD_RTOL = 2.0 ** -10 + 2.0 ** -18
 TF32_T_RTOL = 1e-3
 
+# P5/P6 issue each f32 operation of a sphere test as an instruction of its
+# own: the sources build with --fmad=false, so no multiply and add fuse into
+# one FMA, and the 67 TFLOP/s peak (an FMA counted as two operations) is out
+# of reach. Their bound has a fourth term, the lanes' issue: one operation a
+# lane a clock, FP32_LANES_PER_SM lanes on each SM at SM_CLOCK_HZ. SM_COUNT
+# is the H100 SXM's; the sweep reads the card's own.
+SM_COUNT = 132
+FP32_LANES_PER_SM = 128
+ISSUE_PROBES = ("P5", "P6")
+
 # P1/P2 fold a tile's sum in index order: n dependent f32 adds, whatever the
 # card's rates, so their bound has a third term, the chain. The latency of a
 # dependent FADD, in SM clocks, was measured on an NVIDIA H100 80GB HBM3
@@ -125,6 +136,12 @@ def chain_floor_ms(n: int) -> float:
     adds at FADD_LATENCY_CLOCKS each, at SM_CLOCK_HZ. Tiles fold in
     parallel, so it is the floor of a P1/P2 call."""
     return n * FADD_LATENCY_CLOCKS / SM_CLOCK_HZ * 1e3
+
+
+def issue_floor_ms(flop: float, sms: int = SM_COUNT) -> float:
+    """The least time of ``flop`` f32 operations issued one a lane slot:
+    ``sms`` SMs of FP32_LANES_PER_SM lanes at SM_CLOCK_HZ (P5/P6)."""
+    return flop / (sms * FP32_LANES_PER_SM * SM_CLOCK_HZ) * 1e3
 
 
 def fits(space: str, n_floats: int) -> bool:
@@ -202,8 +219,9 @@ def _shared_or_global(name: str, space: str) -> None:
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (the fold kernels read
-    it as float4): a view that starts elsewhere is copied."""
+    """``t`` contiguous at a 16-byte aligned address (P1/P2's folds and
+    P5's sphere loop read it as float4): a view that starts elsewhere is
+    copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -464,7 +482,7 @@ def sphere_loop_kernel(sph: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
         raise ValueError(f"sphere_loop_kernel takes a (4S,) sphere table, "
                          f"got {tuple(sph.shape)}")
     check_fits(space, sph.numel())
-    o, d, sph = o.contiguous(), d.contiguous(), sph.contiguous()
+    o, d, sph = o.contiguous(), d.contiguous(), _aligned16(sph)
     out = torch.empty(o.shape[1:], dtype=torch.float32, device=dev)
     _launch("sphere_loop_kernel", "rt_probe_sphere_loop_launch", dev,
             sph.data_ptr(), sph.numel() // 4, o.data_ptr(), d.data_ptr(),
@@ -679,6 +697,126 @@ def rays(seed: int, tiles: int = 1, device=None):
     return o, d
 
 
+def _terms_np(cx, cy, cz, r2, o, d):
+    """(disc, t) of spheres (cx, cy, cz, r2) against rays o, d (3, ...),
+    broadcast, in numpy f32 with IEEE subnormals: the sphere test's
+    operations in the plain version's order."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    a = dx * dx + dy * dy + dz * dz
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    hb = ocx * dx + ocy * dy + ocz * dz
+    c = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    disc = hb * hb - a * c
+    with np.errstate(all="ignore"):
+        t = (-hb - np.sqrt(np.maximum(disc, np.float32(0.0)))) / a
+    return disc, t
+
+
+def sphere_terms_np(sph: np.ndarray, o: np.ndarray, d: np.ndarray):
+    """(disc, t) of every (sphere, ray) pair, (S, R), for the (4S,) table
+    sph and rays o, d (3, R), in numpy f32 (``_terms_np``)."""
+    return _terms_np(*(sph[j::4][:, None] for j in range(4)), o, d)
+
+
+def _first_hit_np(sph, o, d):
+    """Each ray's closest hit (t, sphere) over one round, numpy f32."""
+    disc, t = sphere_terms_np(sph, o, d)
+    t = np.where((disc > 0) & (t > np.float32(1e-3)), t, np.float32(NO_HIT))
+    return t.min(0), t.argmin(0)
+
+
+# The edge tile's directions: a graze's d = GRAZE_SCALE e_u gives a =
+# 2^-120 and disc = 2^-120 x (a residual of f32 roundings near 1), so a
+# positive disc there is subnormal; SUBNORMAL_SCALE makes every component
+# of a direction subnormal (a and hb^2 underflow to 0).
+GRAZE_SCALE = 2.0 ** -60
+SUBNORMAL_SCALE = 2.0 ** -130
+EDGE_OFFSETS = 8  # a graze's perpendicular offset: sqrt(r2) +- this many ulps
+
+
+@functools.lru_cache(maxsize=1)
+def _grazes():
+    """Rays that graze a sphere of ``sphere_table(SPHERES)`` (built, not
+    drawn): from one unit behind sphere k's centre along +-x, +-y or +-z,
+    offset along another axis by f32 values around sqrt(r2_k), direction
+    GRAZE_SCALE along the first axis. Returns o, d (3, N), each ray's
+    sphere k, its geometry (direction, offset axis, sphere) as one index,
+    and its disc on k, each (N,)."""
+    S = SPHERES
+    tab = sphere_table(S).numpy()
+    cen, r2 = tab.reshape(S, 4)[:, :3], tab.reshape(S, 4)[:, 3]
+    combos = [(u, su, p, sp) for u in range(3) for su in (1, -1)
+              for p in range(3) if p != u for sp in (1, -1)]
+    y0 = np.sqrt(r2.astype(np.float64)).astype(np.float32)
+    steps = np.arange(-EDGE_OFFSETS, EDGE_OFFSETS + 1)
+    y = (y0[:, None] + steps * np.spacing(y0)[:, None]).astype(np.float32)
+    o = np.broadcast_to(cen[None, :, None, :],
+                        (len(combos), S, len(steps), 3)).copy()
+    d = np.zeros_like(o)
+    for m, (u, su, p, sp) in enumerate(combos):
+        o[m, ..., u] -= np.float32(su)
+        o[m, ..., p] += np.float32(sp) * y
+        d[m, ..., u] = np.float32(su * GRAZE_SCALE)
+    pair = np.broadcast_to(np.arange(len(combos) * S).reshape(-1, S, 1),
+                           o.shape[:3]).reshape(-1)
+    k = pair % S
+    o, d = o.reshape(-1, 3).T.copy(), d.reshape(-1, 3).T.copy()
+    disc = _terms_np(*tab.reshape(S, 4)[k].T, o, d)[0]  # on its own sphere
+    return o, d, k, pair, disc
+
+
+def _spread(idx: np.ndarray, n: int) -> np.ndarray:
+    """n entries of idx spread evenly over it (all of it if shorter)."""
+    if len(idx) <= n:
+        return idx
+    return idx[np.linspace(0, len(idx) - 1, n).round().astype(np.int64)]
+
+
+def edge_rays(seed: int = 0, device="cpu"):
+    """One extra (8, 128) tile of P5/P6 rays for the branches of the sphere
+    test, built (only the origins of rows 0-2 and the directions of rows
+    1-2 are drawn, standard normal from numpy's generator ``seed``):
+    row 0 zero directions (a = 0, disc = +0 on every sphere, t NaN); row 1
+    subnormal directions (lanes 0-63: a = 0, disc = +0) and tiny normal ones
+    (lanes 64-127, GRAZE_SCALE: a = 2^-120, subnormal discs); row 2 origins
+    at the centres of spheres 0-127; rows 3-4 grazes whose disc on their
+    sphere is +0.0 exactly; rows 5-7 grazes whose disc is subnormal and
+    positive, first those whose graze is the ray's closest hit among 64
+    spheres, then among 256 (``IMMEDIATE_SPHERES``). Returns o, d (3, 8,
+    128)."""
+    o, d, k, pair, disc = _grazes()
+    g = np.random.default_rng(seed)
+    tile_o = g.standard_normal((3, ROWS, LANES)).astype(np.float32)
+    tile_d = g.standard_normal((3, ROWS, LANES)).astype(np.float32)
+    tile_d[:, 0] = 0.0
+    tile_d[:, 1, :64] *= np.float32(SUBNORMAL_SCALE)
+    tile_d[:, 1, 64:] *= np.float32(GRAZE_SCALE)
+    tile_o[:, 2] = sphere_table(LANES).numpy().reshape(LANES, 4)[:, :3].T
+    zero = np.flatnonzero(disc == 0)
+    sub = np.flatnonzero((disc > 0) & (disc < np.finfo(np.float32).tiny))
+    picks = []
+    for S in IMMEDIATE_SPHERES:
+        tab = sphere_table(S).numpy()
+        cand = sub[k[sub] < S]
+        # the first candidate of each (direction, offset axis, sphere) says
+        # whether that geometry's graze is the closest hit; then all of
+        # those that are
+        first = cand[np.unique(pair[cand], return_index=True)[1]]
+        t, win = _first_hit_np(tab, o[:, first], d[:, first])
+        cand = cand[np.isin(pair[cand],
+                            pair[first[(t < NO_HIT) & (win == k[first])]])]
+        t, win = _first_hit_np(tab, o[:, cand], d[:, cand])
+        picks.append(cand[(t < NO_HIT) & (win == k[cand])][:3 * LANES // 2])
+    rest = np.setdiff1d(sub, np.concatenate(picks))
+    sub_rows = np.concatenate(picks + [_spread(rest, 3 * LANES)])[:3 * LANES]
+    rows = np.concatenate([_spread(zero, 2 * LANES), sub_rows])
+    tile_o[:, 3:] = o[:, rows].reshape(3, 5, LANES)
+    tile_d[:, 3:] = d[:, rows].reshape(3, 5, LANES)
+    return (torch.from_numpy(tile_o).to(device),
+            torch.from_numpy(tile_d).to(device))
+
+
 def mxu_inputs(seed: int, S: int = SPHERES, tiles: int = 1, device=None):
     """P7's inputs from numpy's generator ``seed``: cm (8, S) and o, d
     (1024, 8) standard normal, r2 ones (the reference's draws' shapes); o,
@@ -850,16 +988,17 @@ def work(probe, variant, size, tiles, gathers=1):
     return tests, "G prim-tests/s", epi + prods, 0, n_bytes
 
 
-def bound_ms(flop, n_bytes, tc_flop=0.0, chain_ms=0.0):
-    """(ms, 'operations', 'bytes' or 'chain'): the largest of the f32
-    operations over the f32 peak (or the tensor-core operations over the
-    TF32 peak, where larger), the bytes over the memory rate, and
+def bound_ms(flop, n_bytes, tc_flop=0.0, chain_ms=0.0, issue_ms=0.0):
+    """(ms, 'operations', 'bytes', 'chain' or 'issue'): the largest of the
+    f32 operations over the f32 peak (or the tensor-core operations over
+    the TF32 peak, where larger), the bytes over the memory rate,
     ``chain_ms``, the floor of a chain of dependent adds
-    (``chain_floor_ms``; P1/P2)."""
+    (``chain_floor_ms``; P1/P2), and ``issue_ms``, the floor of issuing the
+    operations one a lane slot (``issue_floor_ms``; P5/P6)."""
     t_ops = max(flop / PEAK_FP32_FLOPS, tc_flop / PEAK_TF32_FLOPS) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return max((t_bytes, "bytes"), (t_ops, "operations"), (chain_ms, "chain"),
-               key=lambda b: b[0])
+               (issue_ms, "issue"), key=lambda b: b[0])
 
 
 def uneven_check(probe, variant, size, seed, dev, plain_tile) -> dict:
@@ -877,6 +1016,20 @@ def uneven_check(probe, variant, size, seed, dev, plain_tile) -> dict:
                 uneven_equal=ok)
 
 
+def edge_check(probe, variant, size, dev) -> dict:
+    """P5/P6's kernels on the edge tile (``edge_rays``: zero and subnormal
+    directions, origins at centres, grazes with disc +0.0 or subnormal),
+    bit for bit the plain version there."""
+    o, d = edge_rays(device=dev)
+    sph = sphere_table(size, dev)
+    want = sphere_loop_plain(sph, o, d, REPS)
+    if probe == "P5":
+        got = sphere_loop_kernel(sph, o, d, REPS, variant)
+    else:
+        got = sphere_immediate_kernel(size, o, d, REPS)
+    return dict(edge_equal=bool(torch.equal(got, want)))
+
+
 def sweep(seed: int = 0, emit=None):
     """Run every probe variant on the card. First at the reference shape
     (one tile, or 1024 rays; P3/P4 one gather a thread) against its plain
@@ -885,10 +1038,13 @@ def sweep(seed: int = 0, emit=None):
     every tile bit for bit the plain version of one tile at the same
     gathers (the TF32 variant: its own one-tile output), and timed by CUDA
     events; P1/P2 also at uneven tile counts and a ragged size
-    (``uneven_check``). ``equal`` holds every check. Returns one dict per
-    (probe, variant, size) and one per pair that does not fit its memory
-    space (from ``fits``); ``emit`` (e.g. ``print``) gets each as a JSON line."""
+    (``uneven_check``), P5/P6 on the edge tile (``edge_check``). ``equal``
+    holds every check; P5/P6's bound counts the card's own SMs. Returns one
+    dict per (probe, variant, size) and one per pair that does not fit its
+    memory space (from ``fits``); ``emit`` (e.g. ``print``) gets each as a
+    JSON line."""
     dev = resolve_device(None)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     run, skip = variants()
     rows = []
 
@@ -946,16 +1102,22 @@ def sweep(seed: int = 0, emit=None):
             row.update(uneven_check(probe, variant, size, seed, dev,
                                     plain_tile))
             tiles_ok = tiles_ok and row["uneven_equal"]
+        if probe in ISSUE_PROBES:
+            row.update(edge_check(probe, variant, size, dev))
+            tiles_ok = tiles_ok and row["edge_equal"]
         ms = time_ms(kern, 3)
         count, unit, flop, tc_flop, n_bytes = work(probe, variant, size,
                                                     FILL_TILES, gathers)
-        b_ms, b_by = bound_ms(flop, n_bytes, tc_flop, chain_ms)
+        issue_ms = issue_floor_ms(flop, sms) if probe in ISSUE_PROBES else 0.0
+        b_ms, b_by = bound_ms(flop, n_bytes, tc_flop, chain_ms, issue_ms)
         row.update(equal=ref_ok and tiles_ok, reference_equal=ref_ok,
                    tiles_equal=tiles_ok, max_abs_err=err, tiles=FILL_TILES,
                    ms=ms, rate=count / ms / 1e6, rate_unit=unit,
                    bound_ms=b_ms, bound_by=b_by)
         if probe in FOLD_PROBES:
             row["chain_floor_ms"] = chain_ms
+        if probe in ISSUE_PROBES:
+            row.update(issue_floor_ms=issue_ms, sms=sms)
         if gathers > 1:
             row["gathers_a_thread"] = gathers
         out(row)

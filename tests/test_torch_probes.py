@@ -15,6 +15,7 @@ eager evaluation of the kernel body, no fusion; seen equal to numpy's f32)
 must equal the plain version bit for bit. P7's products are XLA dots in
 interpret mode: the same hit rays, t to 1e-3 relative (seen: 1.3e-4)."""
 
+import contextlib
 import functools
 import importlib.util
 import os
@@ -111,28 +112,74 @@ def test_row_and_gather_probes_match_jax(interpret, probe):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("probe", ["smem", "immediate"])
-def test_sphere_loops_match_jax(tp, monkeypatch, probe):
+@contextlib.contextmanager
+def _flushed_subnormals():
+    """PyTorch's CPU arithmetic with subnormals flushed to zero, as XLA's
+    CPU code runs, on one thread (the flush is a per-thread setting)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    assert torch.set_flush_denormal(True)
+    try:
+        yield
+    finally:
+        torch.set_flush_denormal(False)
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("case", ["smem", "immediate", "smem-edge",
+                                  "immediate-edge"])
+def test_sphere_loops_match_jax(tp, monkeypatch, case):
     """P5/P6 at S = 64, reps = 2: bit for bit against the kernel body
-    evaluated op by op; 15.6 % of the rays hit, so the comparison is not
-    vacuous. P5 also to the contraction tolerance against interpret mode
-    (P6's unrolled kernel is the same arithmetic, and costs interpret mode's
-    compiler seconds)."""
-    o, d = _rays(tp)
-    if probe == "smem":
-        got = probes.sphere_loop_smem(S, REPS, o, d).numpy()
-        monkeypatch.setattr(tp.pl, "pallas_call", functools.partial(
-            tp.pl.pallas_call, interpret=True))
-        ref_jit = np.asarray(tp.sphere_loop_smem(S, REPS))
-        hit = got < probes.NO_HIT
-        np.testing.assert_array_equal(ref_jit < probes.NO_HIT, hit)
-        np.testing.assert_allclose(got[hit], ref_jit[hit], rtol=T_RTOL)
+    evaluated op by op. On the JAX probe's own rays 15.6 % of the rays hit,
+    so the comparison is not vacuous; P5 also to the contraction tolerance
+    against interpret mode (P6's unrolled kernel is the same arithmetic,
+    and costs interpret mode's compiler seconds).
+
+    The edge case runs the tile of ``probes.edge_rays`` (built, not drawn:
+    zero and subnormal directions, origins at sphere centres, grazes whose
+    disc is +0.0 or subnormal), given to the JAX probe in place of its own
+    draws (``_mk_rays``). XLA's CPU code flushes subnormals to zero, so the
+    plain version runs flushed there too. With IEEE subnormals, as on the
+    card, it equals numpy's f32 arithmetic instead, and differs from the
+    flushed result on every ray whose closest hit has a subnormal disc."""
+    probe, _, rays = case.partition("-")
+    if rays == "edge":
+        o, d = probes.edge_rays()
+        monkeypatch.setattr(tp, "_mk_rays", lambda: (jnp.asarray(o.numpy()),
+                                                     jnp.asarray(d.numpy())))
     else:
-        got = probes.sphere_loop_immediate(S, REPS, o, d).numpy()
-    assert 0.1 < (got < probes.NO_HIT).mean() < 0.5
-    monkeypatch.setattr(tp.pl, "pallas_call", _eager_pallas_call)
+        o, d = _rays(tp)
     fn = (tp.sphere_loop_smem if probe == "smem"
           else tp.sphere_loop_immediate)
+    port = (functools.partial(probes.sphere_loop_smem, S, REPS)
+            if probe == "smem"
+            else functools.partial(probes.sphere_loop_immediate, S, REPS))
+    if rays == "edge":
+        with _flushed_subnormals():
+            got = port(o, d).numpy()
+        ieee = port(o, d).numpy()
+        tab = probes.sphere_table(S).numpy()
+        O, D = o.reshape(3, -1).numpy(), d.reshape(3, -1).numpy()
+        t, k = probes._first_hit_np(tab, O, D)
+        np.testing.assert_array_equal(ieee.reshape(-1), t)
+        disc = probes.sphere_terms_np(tab, O, D)[0]
+        closest = disc[k, np.arange(k.size)]
+        sub = (t < probes.NO_HIT) & (closest > 0) & (
+            closest < np.finfo(np.float32).tiny)
+        assert sub.sum() >= 300 and (ieee.reshape(-1) != got.reshape(-1))[
+            sub].all()
+        assert (disc == 0).sum() > 10000
+    else:
+        got = port(o, d).numpy()
+        assert 0.1 < (got < probes.NO_HIT).mean() < 0.5
+        if probe == "smem":
+            monkeypatch.setattr(tp.pl, "pallas_call", functools.partial(
+                tp.pl.pallas_call, interpret=True))
+            ref_jit = np.asarray(fn(S, REPS))
+            hit = got < probes.NO_HIT
+            np.testing.assert_array_equal(ref_jit < probes.NO_HIT, hit)
+            np.testing.assert_allclose(got[hit], ref_jit[hit], rtol=T_RTOL)
+    monkeypatch.setattr(tp.pl, "pallas_call", _eager_pallas_call)
     np.testing.assert_array_equal(got, np.asarray(fn(S, REPS)))
 
 
@@ -220,7 +267,8 @@ def test_bounds_count_the_function():
     whose n dependent adds are a chain (one fold a tile, tiles x n reads, is
     the read count, the rate's numerator); P3/P4 the table entries the index
     touches (P4 at one gather: each lane's 8 rows 7 r + 13 l are distinct,
-    8 x 128 entries)."""
+    8 x 128 entries); P5/P6 their tests' operations issued one a lane
+    slot."""
     tiles, n = 1024, 16384
     out_bytes = 4 * tiles * probes.TILE
     count, _, flop, tc, n_bytes = probes.work("P1", "constant", n, tiles)
@@ -239,6 +287,20 @@ def test_bounds_count_the_function():
     assert probes.touched_entries("P3", 64) == probes.GATHER_N
     assert probes.work("P4", "shared", 256, tiles, 64)[4] == (
         4 * probes.touched_entries("P4", 64) + out_bytes)
+    # P5/P6: 25 f32 operations a sphere test, each its own instruction
+    # (--fmad=false), one a lane slot: 12.84 ms at 1024 tiles, S = 256, 64
+    # rounds on 132 SMs, twice what the 67 TFLOP/s peak alone gives
+    tests = tiles * probes.TILE * 256 * probes.REPS
+    for probe, variant in (("P5", "constant"), ("P6", "immediate")):
+        count, _, flop, tc, n_bytes = probes.work(probe, variant, 256, tiles)
+        assert (count, flop) == (tests, tests * probes.FLOP_PER_SPHERE_TEST)
+        issue = probes.issue_floor_ms(flop)
+        assert issue == pytest.approx(12.84, abs=0.005)
+        assert probes.bound_ms(flop, n_bytes, tc, issue_ms=issue) == (
+            issue, "issue")
+        ops_ms, by = probes.bound_ms(flop, n_bytes, tc)
+        assert by == "operations" and issue == pytest.approx(2 * ops_ms,
+                                                             rel=0.01)
 
 
 def test_chain_floor_is_linear_in_n():
