@@ -136,12 +136,15 @@ Phases:
              (odd, so no grid's warps divide them; 9001 past the warps the
              card holds) and at a ragged size, P5/P6 also on an edge tile
              (probes.edge_rays: zero and subnormal directions, origins at
-             sphere centres, grazes with disc +0.0 or subnormal), and timed
-             on a held stream (probes.time_ms: device time, not the host's
-             dispatch); each kernels-line entry is its variant's sweep row,
-             with the plain version's and the library call's times (P1/P2:
-             the chain floor, P5/P6: the lane-issue floor on this card's
-             SMs, and bound_by beside them)
+             sphere centres, grazes with disc +0.0 or subnormal), P7 on its
+             own (probes.mxu_edge_inputs: t on 1e-3f and the floats beside
+             it, -hd on the hit threshold and beside it, disc +0.0 or
+             subnormal, zero directions, 80 rays), and timed on a held
+             stream (probes.time_ms: device time, not the host's dispatch);
+             each kernels-line entry is its variant's sweep row, with the
+             plain version's and the library call's times (P1/P2: the chain
+             floor, P5-P7: the lane-issue floor on this card's SMs, and
+             bound_by beside them)
   torch_func torch.func.jacfwd and jacrev of the replay image's row mean
              w.r.t. tex_rgb (24 px noise scene, float64) on the card,
              through the batching rules of the gathers (gather_cols_kernel
@@ -225,8 +228,10 @@ Tolerances and their reasons.
 - probes: P1-P6 and P7's f32 variant do the plain version's f32 operations
   in its order (sums in index order, IEEE sqrt and division, no
   contraction; the min over spheres is exact): bit for bit at the
-  reference shape and in every tile of the timed shape (P5/P6 also on the
-  edge tile, subnormals kept on both sides). P7's TF32 variant:
+  reference shape and in every tile of the timed shape (P5-P7 also on
+  their edge tiles, subnormals kept on both sides; P7 divides once a ray,
+  by a threshold that is exact: probes.mxu_threshold_np). P7's TF32
+  variant, also on the edge tile:
   each product within probes.TF32_PROD_RTOL of its terms' absolute sum
   (operands rounded to TF32, 2^-11 each, plus the f32 sums), and every ray
   whose t moved by more than 1e-3 relative among the rays that this product
@@ -2886,15 +2891,19 @@ def phase_probes():
 
 
 def probe_tf32(launches, row):
-    """P7's tensor-core variant from its sweep row (time, bound, gate), and
-    the two products by torch.matmul (TF32 off) beside."""
+    """P7's tensor-core variant from its sweep row (time, bound, gate, the
+    edge tile's gate), and the two products by torch.matmul (TF32 off)
+    beside."""
     cm, r2, o, d = probes.mxu_inputs(0, probes.SPHERES, probes.FILL_TILES,
                                      DEVICE)
     return dict(
         tf32_kernel="sphere_mxu_tc_kernel",
         tf32_launches=launches["sphere_mxu_tc_kernel"], tf32_ms=row["ms"],
         tf32_bound_ms=row["bound_ms"], tf32_bound_by=row["bound_by"],
-        **{f"tf32_{k}": v for k, v in row.items() if k.startswith("gate_")},
+        tf32_issue_floor_ms=row["issue_floor_ms"],
+        tf32_edge_equal=row["edge_equal"],
+        **{f"tf32_{k}": v for k, v in row.items()
+           if k.startswith(("gate_", "edge_gate_"))},
         library_products_ms=probes.time_ms(
             lambda: (torch.matmul(d, cm), torch.matmul(o, cm)), 3))
 

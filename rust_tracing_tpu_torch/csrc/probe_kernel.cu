@@ -18,7 +18,8 @@
 // a lane; blocks of FOLD_WARPS warps take tiles in a grid-stride loop, and
 // a shared table is staged once a block. P3-P7: one thread a (8, 128) tile
 // element (1024 a block: one tile a block, so a block stages its shared
-// table once per tile), or one a ray (P5-P7). What bounds each:
+// table once per tile), or one a ray (P5-P7; P7's TF32 variant one warp
+// per 32 rays). What bounds each:
 //   P1, P2  n dependent adds a tile, in index order (a chain: n times the
 //           add's latency), with the loads a batch ahead; where a space's
 //           loads take longer than a batch's adds (__ldg, __constant__),
@@ -27,12 +28,15 @@
 //   P5, P6  25 f32 operations a sphere test, each an instruction of its
 //           own (no contraction): the lanes' issue; a sphere is one
 //           16-byte read (P5), and its test has no slow path for a miss;
-//   P7      two 8-term products a (ray, sphere) on CUDA cores (f32 variant)
-//           or tensor cores (TF32 variant) and a 14-flop epilogue.
+//   P7      two 8-term products a (ray, sphere) on CUDA cores (f32 variant:
+//           30 operations, the lanes' issue) or tensor cores (TF32 variant:
+//           its epilogue's issue), and the epilogue, one division a ray a
+//           round and no slow path for a miss.
 //
 // Built like every source here with --fmad=false and without fast math:
 // the sphere tests do the reference's f32 operations in its order, with
-// IEEE sqrtf and division, so they equal the plain versions bit for bit.
+// IEEE sqrtf and division (P7: the division's threshold, exact), so they
+// equal the plain versions bit for bit.
 // The TF32 variant of P7 is the one exception by design: its products are
 // tf32 and are held to a derived tolerance (probes.py TF32_PROD_RTOL).
 //
@@ -485,13 +489,47 @@ __global__ void __launch_bounds__(SPHERE_THREADS)
 
 // ------------------------------------------------------------------- P7
 // The reference's placeholder algebra on the two products hd = d . cm_j and
-// ho = o . cm_j: a candidate t, or NO_HIT.
-__device__ __forceinline__ float mxu_cand(float hd, float ho, float a,
-                                          float o2, float c2) {
+// ho = o . cm_j: c = o2 - 2 ho + c2, disc = hd hd - a c, t = (-hd -
+// sqrt(max(disc, 0))) / a, a hit where disc > 0 and t > 1e-3f, the least t
+// of a round kept. Both kernels divide once a ray a round instead of once a
+// pair: IEEE division by a >= 0 is monotone in the numerator, so with num =
+// -hd - root, t > 1e-3f iff num >= thr, the least float whose quotient by a
+// exceeds 1e-3f (hit_threshold; probes.py mxu_threshold_np), and the least
+// t is the least num over the hits divided by a: every ray's t the plain
+// version's, bit for bit. The root is taken of disc > 0 ? disc : 1 (IEEE
+// sqrtf of +0 leaves its fast path by a called subroutine, and ~90 % of the
+// sweep's pairs have disc <= 0; a miss's root is never used). num <= -hd,
+// so disc > 0 && -hd >= thr is needed for a hit and known before the root;
+// a warp vote on it that skips the root measured as fast (f32) and 2 %
+// slower (TF32) (PERF.md, Findings), so every pair takes the root.
+constexpr int THRESHOLD_STEPS = 4;  // numpy, 7 M values of a: at most 2
+                                    // steps up, none down
+
+// The least float x with x / a > 1e-3f (IEEE division), from 1e-3f * a: down
+// while the float below still exceeds, then up until one does; NaN where no
+// float does (a = +inf or NaN), so that no num passes.
+__device__ __forceinline__ float hit_threshold(float a) {
+    const float inf = __int_as_float(0x7f800000);
+    float x = 1e-3f * a;
+    for (int i = 0; i < THRESHOLD_STEPS; ++i) {
+        const float below = nextafterf(x, -inf);
+        if (!(__fdiv_rn(below, a) > 1e-3f)) break;
+        x = below;
+    }
+    for (int i = 0; i < THRESHOLD_STEPS && !(__fdiv_rn(x, a) > 1e-3f); ++i)
+        x = nextafterf(x, inf);
+    return __fdiv_rn(x, a) > 1e-3f ? x : __int_as_float(0x7fffffff);
+}
+
+// One (ray, sphere) pair: best, the least num of the round's hits so far,
+// updated.
+__device__ __forceinline__ float mxu_step(float hd, float ho, float a,
+                                          float o2, float c2, float thr,
+                                          float best) {
     const float c = o2 - 2.0f * ho + c2;
     const float disc = hd * hd - a * c;
-    const float t = (-hd - sqrtf(fmaxf(disc, 0.0f))) / a;
-    return (disc > 0.0f && t > 1e-3f) ? t : NO_HIT;
+    const float num = -hd - sqrtf(disc > 0.0f ? disc : 1.0f);
+    return (disc > 0.0f && num >= thr) ? fminf(best, num) : best;
 }
 
 // Sum over k of x[k] * y[k * stride] in index order, from the first product.
@@ -503,20 +541,29 @@ __device__ __forceinline__ float dot8(const float* __restrict__ x,
     return acc;
 }
 
-// f32 variant: one thread a ray; cm (8, S) and r2's row 0 staged in shared
-// memory; both products on the CUDA cores in index order. Min over spheres
-// is exact, so the order of the min does not matter.
+// The TF32 kernel's A tiles a warp: two, so that one B fragment feeds 4
+// mma (one tile a warp measured 10 % slower; PERF.md, Findings).
+constexpr int MXU_TC_TILES = 2;
+
+// f32 variant: one thread a ray, both products on the CUDA cores in index
+// order. Each block stages the table sphere-major, three 16-byte rows a
+// sphere (cm[0..3][j], cm[4..7][j], (c2[j], 0, 0, 0)), read by three
+// warp-uniform LDS.128 a pair.
 __global__ void __launch_bounds__(MXU_F32_THREADS)
     sphere_mxu_f32_kernel(const float* __restrict__ cm,
                           const float* __restrict__ r2, int S,
                           const float* __restrict__ o,
                           const float* __restrict__ d, long long R, int reps,
                           float* __restrict__ out) {
-    extern __shared__ float s_cm[];  // 8 S products' columns, then S c2
-    float* s_c2 = s_cm + MXU_K * S;
-    for (int i = threadIdx.x; i < MXU_K * S; i += blockDim.x)
-        s_cm[i] = __ldg(cm + i);
-    for (int i = threadIdx.x; i < S; i += blockDim.x) s_c2[i] = __ldg(r2 + i);
+    extern __shared__ float4 s_sph[];
+    for (int j = threadIdx.x; j < S; j += blockDim.x) {
+        float v[MXU_K];
+#pragma unroll
+        for (int k = 0; k < MXU_K; ++k) v[k] = __ldg(cm + k * S + j);
+        s_sph[3 * j] = make_float4(v[0], v[1], v[2], v[3]);
+        s_sph[3 * j + 1] = make_float4(v[4], v[5], v[6], v[7]);
+        s_sph[3 * j + 2] = make_float4(__ldg(r2 + j), 0.0f, 0.0f, 0.0f);
+    }
     __syncthreads();
     const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= R) return;
@@ -532,13 +579,16 @@ __global__ void __launch_bounds__(MXU_F32_THREADS)
 #pragma unroll
         for (int k = 0; k < MXU_K; ++k) launder(dr[k]), launder(orow[k]);
         launder(a), launder(o2);
-        float tc = NO_HIT;
+        const float thr = hit_threshold(a);
+        float best = __int_as_float(0x7f800000);
+#pragma unroll 4
         for (int j = 0; j < S; ++j) {
-            const float hd = dot8(dr, s_cm + j, S);
-            const float ho = dot8(orow, s_cm + j, S);
-            tc = fminf(tc, mxu_cand(hd, ho, a, o2, s_c2[j]));
+            const float4 p = s_sph[3 * j], q = s_sph[3 * j + 1];
+            const float cj[MXU_K] = {p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+            best = mxu_step(dot8(dr, cj, 1), dot8(orow, cj, 1), a, o2,
+                            s_sph[3 * j + 2].x, thr, best);
         }
-        tmin = fminf(tmin, tc);
+        tmin = fminf(tmin, best / a);
     }
     out[g] = tmin;
 }
@@ -562,80 +612,117 @@ __device__ __forceinline__ void mma_tf32(float (&dd)[4],
           "f"(0.0f), "f"(0.0f), "f"(0.0f), "f"(0.0f));
 }
 
-// TF32 variant: one warp per 16 rays. The m16n8k8 fragments (PTX ISA):
-// with gid = lane / 4 and tig = lane % 4, A holds (row gid | gid + 8,
-// col tig | tig + 4), B holds (row tig | tig + 4, col gid), D holds (row
-// gid | gid + 8, col 2 tig | 2 tig + 1). Rays' d and o rows are the A tiles
-// (loaded once), cm's 8 columns a step the B tile; the epilogue runs on the
-// four D elements a thread holds, and the quad of threads sharing a row
-// takes the min across its columns by shuffles. With prods non-null the
-// first round's products are written out, (2, R, S).
+// TF32 variant: one warp per MXU_TC_TILES tiles of 16 rays. The m16n8k8
+// fragments (PTX ISA): with gid = lane / 4 and tig = lane % 4, A holds (row
+// gid | gid + 8, col tig | tig + 4), B holds (row tig | tig + 4, col gid), D
+// holds (row gid | gid + 8, col 2 tig | 2 tig + 1). The rays' d and o rows
+// are the A tiles (loaded once); each block stages cm once, rounded to tf32
+// and in the B fragment's order (step s, lane l: (cm[tig][8 s + gid],
+// cm[tig + 4][8 s + gid]), one conflict-free 64-bit read a step), and c2 as
+// pairs (the thread's two columns, one 64-bit read). The epilogue runs on
+// the four D elements a thread holds of each tile; the quad of threads
+// sharing a row takes the least num by shuffles, then divides once. A row
+// past R repeats row R - 1 and is not written. PRODS writes the first
+// round's products, (2, R, S).
+template <bool PRODS>
 __global__ void __launch_bounds__(32 * MXU_TC_WARPS)
     sphere_mxu_tc_kernel(const float* __restrict__ cm,
                          const float* __restrict__ r2, int S,
                          const float* __restrict__ o,
                          const float* __restrict__ d, long long R, int reps,
                          float* __restrict__ out, float* __restrict__ prods) {
+    extern __shared__ uint2 s_b[];
+    float2* s_c2 = reinterpret_cast<float2*>(s_b + 4 * S);
+    for (int i = threadIdx.x; i < 4 * S; i += blockDim.x) {
+        const int col = (i >> 5) * 8 + ((i & 31) >> 2), k = i & 3;
+        s_b[i] = make_uint2(to_tf32(__ldg(cm + k * S + col)),
+                            to_tf32(__ldg(cm + (k + 4) * S + col)));
+    }
+    for (int i = threadIdx.x; i < S / 2; i += blockDim.x)
+        s_c2[i] = make_float2(__ldg(r2 + 2 * i), __ldg(r2 + 2 * i + 1));
+    __syncthreads();
+    constexpr int T = MXU_TC_TILES;
     const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
     const long long base =
-        ((long long)blockIdx.x * MXU_TC_WARPS + (threadIdx.x >> 5)) * 16;
+        ((long long)blockIdx.x * MXU_TC_WARPS + (threadIdx.x >> 5)) * 16 * T;
     if (base >= R) return;
-    const long long r0 = base + gid, r1 = base + gid + 8;
-    uint32_t ad[4] = {to_tf32(__ldg(d + r0 * MXU_K + tig)),
-                            to_tf32(__ldg(d + r1 * MXU_K + tig)),
-                            to_tf32(__ldg(d + r0 * MXU_K + tig + 4)),
-                            to_tf32(__ldg(d + r1 * MXU_K + tig + 4))};
-    uint32_t ao[4] = {to_tf32(__ldg(o + r0 * MXU_K + tig)),
-                            to_tf32(__ldg(o + r1 * MXU_K + tig)),
-                            to_tf32(__ldg(o + r0 * MXU_K + tig + 4)),
-                            to_tf32(__ldg(o + r1 * MXU_K + tig + 4))};
-    float d0[MXU_K], d1[MXU_K], o0[MXU_K], o1[MXU_K];
+    long long rows[T][2];
+    uint32_t ad[T][4], ao[T][4];
+    float a[T][2], o2[T][2], tmin[T][2];
 #pragma unroll
-    for (int k = 0; k < MXU_K; ++k) {
-        d0[k] = __ldg(d + r0 * MXU_K + k);
-        d1[k] = __ldg(d + r1 * MXU_K + k);
-        o0[k] = __ldg(o + r0 * MXU_K + k);
-        o1[k] = __ldg(o + r1 * MXU_K + k);
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            rows[t][h] = base + 16 * t + 8 * h + gid;
+            const long long r = rows[t][h] < R ? rows[t][h] : R - 1;
+            float dr[MXU_K], orow[MXU_K];
+#pragma unroll
+            for (int k = 0; k < MXU_K; ++k) {
+                dr[k] = __ldg(d + r * MXU_K + k);
+                orow[k] = __ldg(o + r * MXU_K + k);
+            }
+            a[t][h] = dot8(dr, dr, 1);
+            o2[t][h] = dot8(orow, orow, 1);
+            tmin[t][h] = NO_HIT;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+                ad[t][h + 2 * q] = to_tf32(dr[tig + 4 * q]);
+                ao[t][h + 2 * q] = to_tf32(orow[tig + 4 * q]);
+            }
+        }
     }
-    float a[2] = {dot8(d0, d0, 1), dot8(d1, d1, 1)};
-    float o2[2] = {dot8(o0, o0, 1), dot8(o1, o1, 1)};
-    float tmin[2] = {NO_HIT, NO_HIT};
     for (int rep = 0; rep < reps; ++rep) {
+        float thr[T][2], best[T][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) launder(ad[i]), launder(ao[i]);
-        launder(a[0]), launder(a[1]), launder(o2[0]), launder(o2[1]);
-        float tc[2] = {NO_HIT, NO_HIT};
-        for (int j0 = 0; j0 < S; j0 += 8) {
-            const uint32_t b[2] = {to_tf32(__ldg(cm + tig * S + j0 + gid)),
-                                   to_tf32(__ldg(cm + (tig + 4) * S + j0 +
-                                                 gid))};
-            float hd[4], ho[4];
-            mma_tf32(hd, ad, b);
-            mma_tf32(ho, ao, b);
+        for (int t = 0; t < T; ++t) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int h = e >> 1;
-                const int col = j0 + 2 * tig + (e & 1);
-                tc[h] = fminf(tc[h], mxu_cand(hd[e], ho[e], a[h], o2[h],
-                                              __ldg(r2 + col)));
-                if (prods != nullptr && rep == 0) {
-                    const long long row = h ? r1 : r0;
-                    prods[row * S + col] = hd[e];
-                    prods[(R + row) * S + col] = ho[e];
+            for (int i = 0; i < 4; ++i) launder(ad[t][i]), launder(ao[t][i]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                launder(a[t][h]), launder(o2[t][h]);
+                thr[t][h] = hit_threshold(a[t][h]);
+                best[t][h] = __int_as_float(0x7f800000);
+            }
+        }
+        for (int s = 0; s < S / 8; ++s) {
+            const uint2 bb = s_b[32 * s + lane];
+            const uint32_t b[2] = {bb.x, bb.y};
+            const float2 c2 = s_c2[4 * s + tig];
+#pragma unroll
+            for (int t = 0; t < T; ++t) {
+                float hd[4], ho[4];
+                mma_tf32(hd, ad[t], b);
+                mma_tf32(ho, ao[t], b);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int h = e >> 1;
+                    if (PRODS && rep == 0 && rows[t][h] < R) {
+                        const long long col = 8 * s + 2 * tig + (e & 1);
+                        prods[rows[t][h] * S + col] = hd[e];
+                        prods[(R + rows[t][h]) * S + col] = ho[e];
+                    }
+                    best[t][h] = mxu_step(hd[e], ho[e], a[t][h], o2[t][h],
+                                          e & 1 ? c2.y : c2.x, thr[t][h],
+                                          best[t][h]);
                 }
             }
         }
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            tc[h] = fminf(tc[h], __shfl_xor_sync(FULL_MASK, tc[h], 1));
-            tc[h] = fminf(tc[h], __shfl_xor_sync(FULL_MASK, tc[h], 2));
-            tmin[h] = fminf(tmin[h], tc[h]);
+        for (int t = 0; t < T; ++t) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                float v = best[t][h];
+                v = fminf(v, __shfl_xor_sync(FULL_MASK, v, 1));
+                v = fminf(v, __shfl_xor_sync(FULL_MASK, v, 2));
+                tmin[t][h] = fminf(tmin[t][h], v / a[t][h]);
+            }
         }
     }
-    if (tig == 0) {
-        out[r0] = tmin[0];
-        out[r1] = tmin[1];
-    }
+#pragma unroll
+    for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            if (tig == 0 && rows[t][h] < R) out[rows[t][h]] = tmin[t][h];
 }
 
 // --------------------------------------------------------------- launch
@@ -887,14 +974,25 @@ extern "C" int rt_probe_sphere_mxu_launch(const void* cm, const void* r2,
     float* y = static_cast<float*>(out);
     if (tensor_cores) {
         if (R % 16 || S % 8) return (int)cudaErrorInvalidValue;
-        const int rows = 16 * MXU_TC_WARPS;
-        sphere_mxu_tc_kernel<<<blocks_of(R, rows), 32 * MXU_TC_WARPS, 0,
-                               st>>>(pc, pr, S, po, pd, R, reps, y,
-                                     static_cast<float*>(prods));
+        // cm as tf32 B fragments (8 bytes a lane a step) and c2 (4 bytes a
+        // sphere)
+        const size_t smem = (size_t)S * (4 * sizeof(uint2) + sizeof(float));
+        if (smem > (size_t)SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
+        const int nb = blocks_of(R, 16 * MXU_TC_TILES * MXU_TC_WARPS);
+        float* pp = static_cast<float*>(prods);
+        if (pp != nullptr) {
+            RT_TRY(allow_shared(sphere_mxu_tc_kernel<true>, smem));
+            sphere_mxu_tc_kernel<true><<<nb, 32 * MXU_TC_WARPS, smem, st>>>(
+                pc, pr, S, po, pd, R, reps, y, pp);
+        } else {
+            RT_TRY(allow_shared(sphere_mxu_tc_kernel<false>, smem));
+            sphere_mxu_tc_kernel<false><<<nb, 32 * MXU_TC_WARPS, smem, st>>>(
+                pc, pr, S, po, pd, R, reps, y, pp);
+        }
         return (int)cudaGetLastError();
     }
     if (prods != nullptr) return (int)cudaErrorInvalidValue;
-    const size_t smem = (size_t)(MXU_K + 1) * S * sizeof(float);
+    const size_t smem = (size_t)S * 3 * sizeof(float4);  // 3 rows a sphere
     if (smem > (size_t)SHARED_MAX_BYTES) return (int)cudaErrorInvalidValue;
     RT_TRY(allow_shared(sphere_mxu_f32_kernel, smem));
     sphere_mxu_f32_kernel<<<blocks_of(R, MXU_F32_THREADS), MXU_F32_THREADS,

@@ -83,15 +83,24 @@ NO_HIT = 1e30
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# Operations, counted from csrc/probe_kernel.cu. A sphere test (P5, P6):
-# 3 subtractions, hb 5, c 6, disc 3, max, sqrt, the subtraction and the
-# division of t, 3 compares and a select. P7 a (ray, sphere) pair: two
-# 8-term products (16 each) and its epilogue (c 3, disc 3, max, sqrt, 2 of
-# t, 2 compares, select, min); a ray a round: two 8-term squared norms.
+# Operations, counted from csrc/probe_kernel.cu, each issued as an
+# instruction of its own (--fmad=false: no multiply and add fuse). A sphere
+# test (P5, P6): 3 subtractions, hb 5, c 6, disc 3, max, sqrt, the
+# subtraction and the division of t, 3 compares and a select. P7 a (ray,
+# sphere) pair: two 8-term products (8 multiplies and 7 adds each) and the
+# kernels' epilogue, which leaves the division to the ray (c 3, disc 3, a
+# select in place of the max, sqrt, num = -hd - root, 2 compares, min and
+# select); a ray a round: the threshold's multiply and its check (a
+# division and a compare), the division of the least num and the min into
+# the ray's t; a ray: two 8-term squared norms. On the tensor cores (P7's
+# TF32 variant) a product is 8 multiply-adds, 16 operations in the unit of
+# their peak.
 FLOP_PER_SPHERE_TEST = 25
-FLOP_PER_MXU_PRODUCTS = 32
-FLOP_PER_MXU_EPILOGUE = 14
+FLOP_PER_MXU_PRODUCTS = 30
+FLOP_PER_MXU_EPILOGUE = 13
+FLOP_PER_MXU_RAY_ROUND = 5
 FLOP_PER_MXU_RAY = 30
+TC_FLOP_PER_MXU_PRODUCTS = 32
 
 # P7's tensor-core variant rounds each operand of the two products to TF32
 # (cvt.rna: 10 stored mantissa bits, relative error <= 2^-11), so a product
@@ -105,15 +114,17 @@ FLOP_PER_MXU_RAY = 30
 TF32_PROD_RTOL = 2.0 ** -10 + 2.0 ** -18
 TF32_T_RTOL = 1e-3
 
-# P5/P6 issue each f32 operation of a sphere test as an instruction of its
+# P5-P7 issue each f32 operation of a sphere test as an instruction of its
 # own: the sources build with --fmad=false, so no multiply and add fuse into
 # one FMA, and the 67 TFLOP/s peak (an FMA counted as two operations) is out
 # of reach. Their bound has a fourth term, the lanes' issue: one operation a
-# lane a clock, FP32_LANES_PER_SM lanes on each SM at SM_CLOCK_HZ. SM_COUNT
-# is the H100 SXM's; the sweep reads the card's own.
+# lane a clock, FP32_LANES_PER_SM lanes on each SM at SM_CLOCK_HZ (P7's TF32
+# variant: its epilogue, thresholds and norms; its products go to the
+# tensor cores).
+# SM_COUNT is the H100 SXM's; the sweep reads the card's own.
 SM_COUNT = 132
 FP32_LANES_PER_SM = 128
-ISSUE_PROBES = ("P5", "P6")
+ISSUE_PROBES = ("P5", "P6", "P7")
 
 # P1/P2 fold a tile's sum in index order: n dependent f32 adds, whatever the
 # card's rates, so their bound has a third term, the chain. The latency of a
@@ -140,7 +151,7 @@ def chain_floor_ms(n: int) -> float:
 
 def issue_floor_ms(flop: float, sms: int = SM_COUNT) -> float:
     """The least time of ``flop`` f32 operations issued one a lane slot:
-    ``sms`` SMs of FP32_LANES_PER_SM lanes at SM_CLOCK_HZ (P5/P6)."""
+    ``sms`` SMs of FP32_LANES_PER_SM lanes at SM_CLOCK_HZ (P5-P7)."""
     return flop / (sms * FP32_LANES_PER_SM * SM_CLOCK_HZ) * 1e3
 
 
@@ -555,6 +566,35 @@ def _mxu_t(hd, ho, a, o2, c2):
     return t, disc, (disc > 0.0) & (t > 1e-3)
 
 
+# The reference's hit test t > 1e-3, in f32 (a Python float meets an f32
+# tensor as an f32, as in the kernels' t > 1e-3f). The kernels of P7 divide
+# once a ray a round: ok = disc > 0 && num >= thr, num = -hd - root, with
+# thr the least f32 whose IEEE quotient by a exceeds T_MIN. IEEE division
+# by a > 0 is monotone in the numerator, so num >= thr iff num / a > T_MIN,
+# and the least num over the hits, divided by a, is the least t.
+T_MIN = np.float32(1e-3)
+THRESHOLD_STEPS = 4  # ulps either way from T_MIN * a (numpy: at most 2)
+
+
+def mxu_threshold_np(a: np.ndarray) -> np.ndarray:
+    """The least f32 x with ``x / a > T_MIN`` (IEEE f32 division), per entry
+    of the f32 array ``a`` (>= +0; a ray's d . d), as the kernels find it:
+    from ``T_MIN * a``, down while the float below still exceeds, then up
+    until one exceeds, each at most THRESHOLD_STEPS ulps. NaN where no float
+    does (a = +inf or NaN). a = +0 gives the least subnormal (x / 0 = inf)."""
+    a = np.asarray(a, np.float32)
+    with np.errstate(all="ignore"):
+        x = T_MIN * a
+        down = np.ones(a.shape, bool)
+        for _ in range(THRESHOLD_STEPS):
+            below = np.nextafter(x, np.float32(-np.inf))
+            down &= below / a > T_MIN
+            x = np.where(down, below, x)
+        for _ in range(THRESHOLD_STEPS):
+            x = np.where(x / a > T_MIN, x, np.nextafter(x, np.float32(np.inf)))
+        return np.where(x / a > T_MIN, x, np.float32(np.nan))
+
+
 def _check_mxu(name, cm, r2, o, d):
     if (cm.ndim != 2 or cm.shape[0] != MXU_K or r2.shape != cm.shape
             or o.ndim != 2 or o.shape[1] != MXU_K or d.shape != o.shape):
@@ -833,6 +873,194 @@ def mxu_inputs(seed: int, S: int = SPHERES, tiles: int = 1, device=None):
     return cm, r2, o, d
 
 
+# P7's edge tile (``mxu_edge_inputs``): EDGE_CASE_RAYS rays of each case
+# below, built against the sweep's spheres, then the sweep's own rays up to
+# MXU_EDGE_RAYS: a multiple of 16 (the TF32 variant's tile) but not of 32,
+# so that the last warp and the f32 variant's one block are ragged.
+EDGE_CASE_RAYS = 4
+MXU_EDGE_RAYS = 80
+MXU_EDGE_CASES = ("t below T_MIN", "t on T_MIN", "t above T_MIN",
+                  "-hd below thr", "-hd on thr", "-hd above thr",
+                  "disc +0", "disc subnormal", "d zero")
+
+
+def _mxu_pairs(cm, c2, o, d):
+    """(hd, a, disc, t) of every (ray, sphere) pair, numpy f32 (R, S) (a
+    (R, 1)), for spheres cm (8, S), c2 (S,) and rays o, d (R, 8): the plain
+    version's helpers (``sphere_mxu_plain``) on the CPU."""
+    cm, c2, o, d = (torch.from_numpy(np.array(x, np.float32))
+                    for x in (cm, c2, o, d))
+    hd, a = _rows_dot(d, cm), _rows_norm2(d)
+    t, disc, _ = _mxu_t(hd, _rows_dot(o, cm), a, _rows_norm2(o), c2)
+    return hd.numpy(), a.numpy(), disc.numpy(), t.numpy()
+
+
+def _across(col, g):
+    """A drawn unit vector orthogonal to ``col``."""
+    w = g.standard_normal(len(col))
+    w -= (w @ col) / (col @ col) * col
+    return w / np.linalg.norm(w)
+
+
+def _closest(hd, a, disc, t, row, j):
+    """Whether sphere j gives row's least t > T_MIN, and no other does."""
+    hit = (disc[row] > 0) & (t[row] > T_MIN)
+    return bool(hit[j]) and (t[row][hit] == t[row, j]).sum() == 1 \
+        and t[row, j] == t[row][hit].min()
+
+
+def _edge_t_rays(cm, c2, g):
+    """Rays whose t on a sphere j with disc > 0 is the float below T_MIN,
+    T_MIN, or the float above (then j the ray's one closest hit): the
+    threshold's edge. d = alpha u + beta w (u along cm_j, w across it)
+    places -hd and a so that at t = T_MIN the root is 3/4 of -hd and c is
+    5/4, where an ulp of c moves t by about an ulp; o = f e_m (m the largest
+    |cm_mj|) sets c to each float near 5/4, f from c = f^2 - 2 f cm_mj + c2."""
+    rho, ct, eps = 0.75, 1.25, float(T_MIN)
+    a_t = ct * (1 - rho) / ((1 + rho) * eps ** 2)
+    hd_t = eps * a_t / (1 - rho)
+    targets = (np.nextafter(T_MIN, np.float32(0)), T_MIN,
+               np.nextafter(T_MIN, np.float32(1)))
+    found = [[] for _ in targets]
+    for j in range(cm.shape[1]):
+        col = cm[:, j].astype(np.float64)
+        alpha = -hd_t / np.linalg.norm(col)
+        if a_t <= alpha ** 2:
+            continue
+        d = (alpha * col / np.linalg.norm(col)
+             + np.sqrt(a_t - alpha ** 2) * _across(col, g)).astype(np.float32)
+        m = int(np.argmax(np.abs(col)))
+        cv = ct + np.arange(-64, 65) * 2.0 ** -23
+        f = col[m] - np.sign(col[m]) * np.sqrt(col[m] ** 2 - c2[j] + cv)
+        o = np.zeros((len(f), MXU_K), np.float32)
+        o[:, m] = f
+        D = np.broadcast_to(d, o.shape)
+        terms = _mxu_pairs(cm, c2, o, D)
+        disc, t = terms[2][:, j], terms[3][:, j]
+        for i, target in enumerate(targets):
+            rows = [r for r in np.flatnonzero((disc > 0) & (t == target))
+                    if i < 2 or _closest(*terms, r, j)]
+            if rows and len(found[i]) < EDGE_CASE_RAYS:
+                found[i].append((o[rows[0]], d))
+        if min(map(len, found)) == EDGE_CASE_RAYS:
+            return found
+    raise RuntimeError("no rays found for the threshold's edge")
+
+
+def _edge_hd_rays(cm, c2, g):
+    """Rays whose -hd on a sphere j with disc > 0 is the float below the
+    threshold thr(a), thr, or the float above: the edge of -hd >= thr,
+    which a hit needs (num <= -hd). d[:7] places -hd near T_MIN a at a ~ 10^4, d[7] moves hd by about
+    a quarter ulp a step; o = cm_j makes c = c2_j - |cm_j|^2 < 0, so disc >
+    0. None is a hit (num < -hd when disc > 0)."""
+    a_t = 1e4
+    hd_t = float(T_MIN) * a_t
+    found = [[] for _ in range(3)]
+    for j in range(cm.shape[1]):
+        col = cm[:, j].astype(np.float64)
+        if col @ col <= c2[j] or abs(col[-1]) < 0.25:
+            continue
+        head = col[:-1]
+        alpha = -hd_t / np.linalg.norm(head)
+        d = np.zeros(MXU_K, np.float32)
+        d[:-1] = (alpha * head / np.linalg.norm(head)
+                  + np.sqrt(a_t - alpha ** 2) * _across(head, g))
+        o = cm[:, j].copy()
+        hd, a = _mxu_pairs(cm, c2, o[None], d[None])[:2]
+        acc, thr = hd[0, j], mxu_threshold_np(a[0, 0])
+        step = np.spacing(np.float32(hd_t)) / 4 / abs(col[-1])
+        for i, target in enumerate((np.nextafter(thr, np.float32(0)), thr,
+                                    np.nextafter(thr, np.float32(np.inf)))):
+            f0 = (-float(target) - float(acc)) / col[-1]
+            D = np.broadcast_to(d, (65, MXU_K)).copy()
+            D[:, -1] = f0 + np.arange(-32, 33) * step
+            hd, a_row, disc, _ = _mxu_pairs(cm, c2, np.broadcast_to(
+                o, D.shape), D)
+            thr_row = mxu_threshold_np(a_row[:, 0])
+            want = (np.nextafter(thr_row, np.float32(0)), thr_row,
+                    np.nextafter(thr_row, np.float32(np.inf)))[i]
+            ok = (disc[:, j] > 0) & (-hd[:, j] == want)
+            rows = np.flatnonzero(ok)
+            if len(rows) and len(found[i]) < EDGE_CASE_RAYS:
+                found[i].append((o, D[rows[0]]))
+        if min(map(len, found)) == EDGE_CASE_RAYS:
+            return found
+    raise RuntimeError("no rays found for the edge of -hd >= thr")
+
+
+def _edge_disc_rays(cm, c2):
+    """Rays whose disc on a sphere j is +0.0 with hd != 0, and rays whose
+    closest hit has a positive subnormal disc, EDGE_CASE_RAYS each. d = s e_k
+    with s = -sign(cm_kj) (a = 1, hd = -|cm_kj|: disc = +0 where c is hd *
+    hd) or s 2^-62 (a = 2^-124: c one or three ulps under cm_kj^2 gives a
+    disc of that many subnormal steps, and every sphere whose c is within
+    1/4 of its cm_kj^2 has a subnormal disc); o = f e_m (m the largest
+    |cm_mj|) sets c to the float, f stepping a quarter ulp of c."""
+    zero, sub = [], []
+    tiny = np.finfo(np.float32).tiny
+    for j in range(cm.shape[1]):
+        col = cm[:, j].astype(np.float64)
+        m = int(np.argmax(np.abs(col)))
+        for k in range(MXU_K):
+            sq = cm[k, j] * cm[k, j]
+            if not 0.3 <= sq <= 1.9 or col[m] ** 2 < c2[j] - 0.3:
+                continue
+            for n, scale in ((0, 1.0), (1, 2.0 ** -62), (3, 2.0 ** -62)):
+                if (len(sub) if n else len(zero)) == EDGE_CASE_RAYS:
+                    continue
+                target = sq
+                for _ in range(n):
+                    target = np.nextafter(target, np.float32(0))
+                d = np.zeros(MXU_K, np.float32)
+                d[k] = -np.sign(col[k]) * scale
+                f0 = col[m] - np.sign(col[m]) * np.sqrt(
+                    col[m] ** 2 - c2[j] + float(target))
+                o = np.zeros((129, MXU_K), np.float32)
+                o[:, m] = f0 + np.arange(-64, 65) * 2.0 ** -26 / abs(
+                    f0 - col[m])
+                hd, a, disc, t = _mxu_pairs(cm, c2, o,
+                                               np.broadcast_to(d, o.shape))
+                if n == 0:
+                    rows = np.flatnonzero(disc[:, j] == 0)
+                    if len(rows):
+                        zero.append((o[rows[0]], d))
+                    continue
+                hit = (disc > 0) & (t > T_MIN)
+                near = np.where(hit, t, np.float32(np.inf)).argmin(1)
+                dn = disc[np.arange(len(o)), near]
+                rows = np.flatnonzero(hit.any(1) & (dn > 0) & (dn < tiny)
+                                      & (disc[:, j] > 0) & (disc[:, j] < tiny))
+                if len(rows):
+                    sub.append((o[rows[0]], d))
+            if len(zero) == len(sub) == EDGE_CASE_RAYS:
+                return [zero, sub]
+    raise RuntimeError("no rays found for a +0 or subnormal disc")
+
+
+@functools.lru_cache(maxsize=2)
+def _mxu_edge_np(seed):
+    cm, r2, o, d = (x.numpy() for x in mxu_inputs(seed, device="cpu"))
+    g = np.random.default_rng(seed)
+    zero_d = [(x, np.zeros(MXU_K, np.float32)) for x in o[-EDGE_CASE_RAYS:]]
+    cases = (_edge_t_rays(cm, r2[0], g) + _edge_hd_rays(cm, r2[0], g)
+             + _edge_disc_rays(cm, r2[0]) + [zero_d])
+    rays = [r for case in cases for r in case]
+    eo = np.stack([r[0] for r in rays] + list(o[:MXU_EDGE_RAYS - len(rays)]))
+    ed = np.stack([r[1] for r in rays] + list(d[:MXU_EDGE_RAYS - len(rays)]))
+    return cm, r2, eo.astype(np.float32), ed.astype(np.float32)
+
+
+def mxu_edge_inputs(seed: int = 0, device="cpu"):
+    """P7's edge tile: the sweep's cm, r2 (``mxu_inputs(seed)``) and
+    MXU_EDGE_RAYS rays o, d (R, 8), built, not drawn, EDGE_CASE_RAYS of each
+    of MXU_EDGE_CASES in that order: t on the float below T_MIN, on T_MIN and
+    above it; -hd on the float below the threshold thr(a), on it and above
+    it; disc +0.0 with hd != 0; disc positive and subnormal; a zero
+    direction (a = +0: thr is the least subnormal, t = num / 0); then the
+    sweep's own rays to fill the tile."""
+    return tuple(torch.from_numpy(x).to(device) for x in _mxu_edge_np(seed))
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device ms of ``fn`` by CUDA events after a warm-up: over
     ``reps`` calls, or as many more (up to 200) as take ~10 ms, so that a
@@ -980,12 +1208,14 @@ def work(probe, variant, size, tiles, gathers=1):
                 4 * 4 * size + 7 * out_bytes)
     R = tiles * MXU_RAYS
     tests = R * size * REPS
-    epi = tests * FLOP_PER_MXU_EPILOGUE + R * REPS * FLOP_PER_MXU_RAY
-    prods = tests * FLOP_PER_MXU_PRODUCTS
+    epi = (tests * FLOP_PER_MXU_EPILOGUE + R * REPS * FLOP_PER_MXU_RAY_ROUND
+           + R * FLOP_PER_MXU_RAY)
     n_bytes = 4 * (2 * MXU_K * size + 2 * MXU_K * R + R)
     if variant == "tf32":
-        return tests, "G prim-tests/s", epi, prods, n_bytes
-    return tests, "G prim-tests/s", epi + prods, 0, n_bytes
+        return (tests, "G prim-tests/s", epi,
+                tests * TC_FLOP_PER_MXU_PRODUCTS, n_bytes)
+    return (tests, "G prim-tests/s", epi + tests * FLOP_PER_MXU_PRODUCTS, 0,
+            n_bytes)
 
 
 def bound_ms(flop, n_bytes, tc_flop=0.0, chain_ms=0.0, issue_ms=0.0):
@@ -994,7 +1224,7 @@ def bound_ms(flop, n_bytes, tc_flop=0.0, chain_ms=0.0, issue_ms=0.0):
     the TF32 peak, where larger), the bytes over the memory rate,
     ``chain_ms``, the floor of a chain of dependent adds
     (``chain_floor_ms``; P1/P2), and ``issue_ms``, the floor of issuing the
-    operations one a lane slot (``issue_floor_ms``; P5/P6)."""
+    f32 operations one a lane slot (``issue_floor_ms``; P5-P7)."""
     t_ops = max(flop / PEAK_FP32_FLOPS, tc_flop / PEAK_TF32_FLOPS) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return max((t_bytes, "bytes"), (t_ops, "operations"), (chain_ms, "chain"),
@@ -1017,9 +1247,23 @@ def uneven_check(probe, variant, size, seed, dev, plain_tile) -> dict:
 
 
 def edge_check(probe, variant, size, dev) -> dict:
-    """P5/P6's kernels on the edge tile (``edge_rays``: zero and subnormal
-    directions, origins at centres, grazes with disc +0.0 or subnormal),
-    bit for bit the plain version there."""
+    """The sphere probes' kernels on their edge tiles against the plain
+    version there. P5/P6 on ``edge_rays`` (zero and subnormal directions,
+    origins at centres, grazes with disc +0.0 or subnormal), bit for bit.
+    P7 on ``mxu_edge_inputs`` (t on 1e-3f and the floats beside it, -hd on
+    the threshold and beside it, disc +0.0 or subnormal, zero directions,
+    80 rays): the f32 variant bit for bit, the TF32 variant by
+    ``tf32_gate`` (its numbers as ``edge_gate_*``)."""
+    if probe == "P7":
+        cm, r2, o, d = mxu_edge_inputs(device=dev)
+        want = sphere_mxu_plain(cm, r2, o, d, REPS)
+        if variant == "f32":
+            got = sphere_mxu_kernel(cm, r2, o, d, REPS)
+            return dict(edge_equal=bool(torch.equal(got, want)))
+        t_tc, prods = sphere_mxu_kernel(cm, r2, o, d, REPS, True, True)
+        gate = tf32_gate(cm, r2, o, d, t_tc, prods, REPS, want)
+        return dict(edge_equal=gate.pop("ok"),
+                    **{f"edge_gate_{k}": v for k, v in gate.items()})
     o, d = edge_rays(device=dev)
     sph = sphere_table(size, dev)
     want = sphere_loop_plain(sph, o, d, REPS)
@@ -1038,11 +1282,11 @@ def sweep(seed: int = 0, emit=None):
     every tile bit for bit the plain version of one tile at the same
     gathers (the TF32 variant: its own one-tile output), and timed by CUDA
     events; P1/P2 also at uneven tile counts and a ragged size
-    (``uneven_check``), P5/P6 on the edge tile (``edge_check``). ``equal``
-    holds every check; P5/P6's bound counts the card's own SMs. Returns one
-    dict per (probe, variant, size) and one per pair that does not fit its
-    memory space (from ``fits``); ``emit`` (e.g. ``print``) gets each as a
-    JSON line."""
+    (``uneven_check``), P5-P7 on their edge tiles (``edge_check``).
+    ``equal`` holds every check; P5-P7's bound counts the card's own SMs.
+    Returns one dict per (probe, variant, size) and one per pair that does
+    not fit its memory space (from ``fits``); ``emit`` (e.g. ``print``) gets
+    each as a JSON line."""
     dev = resolve_device(None)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     run, skip = variants()

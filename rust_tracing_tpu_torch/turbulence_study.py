@@ -14,8 +14,8 @@
       device time). CHANGE defaults to this file's checkout.
 
 Each prints JSON, with the card's name and power limit. Not imported by
-the package: the ``trees`` workers import the package of the checkout
-they measure."""
+the package (only ``card`` by probe_study): the ``trees`` workers import
+the package of the checkout they measure."""
 
 from __future__ import annotations
 
@@ -106,7 +106,8 @@ ATOMIC_VARIANTS = ("u32, no atomics (the hash loop alone)", "u32", "u64",
                    "u64 x8 copies", "u64 x16 copies", "u32 x32 copies")
 
 
-def _card():
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -158,7 +159,7 @@ def atomics():
                                 ctypes.c_void_p]
         out = torch.zeros(768, dtype=torch.int64, device="cuda")
         per_sm = ctypes.c_int()
-        res = {"card": _card(), "lanes": LANES, "adds_a_lane": 168,
+        res = {"card": card(), "lanes": LANES, "adds_a_lane": 168,
                "sass": {k: dict(v) for k, v in sass.items()}, "ms": {}}
         order = list(range(len(ATOMIC_VARIANTS)))
         for rnd in range(2):
@@ -268,7 +269,7 @@ def trees(parent, change=os.path.dirname(HERE)):
               for t in (parent, change)]:
         if p.wait():
             raise SystemExit("a build failed")
-    res = {"card": _card(), "runs": []}
+    res = {"card": card(), "runs": []}
     for t in (parent, change, change, parent):
         p = subprocess.run([sys.executable, os.path.abspath(__file__), "one",
                             t], capture_output=True, text=True)

@@ -227,6 +227,91 @@ def test_tf32_gate_holds_emulated_tensor_cores():
     assert exact["ok"] and exact["moved_share"] == 0
 
 
+def _one_division_a_ray(cm, r2, o, d):
+    """The P7 kernels' arithmetic (csrc/probe_kernel.cu mxu_step): per pair
+    num = -hd - root (the root of 1 where disc <= 0), a hit where disc > 0
+    and num >= thr; per ray the least num over the hits divided by a, once.
+    numpy f32 on the plain version's products; one round (the rounds are
+    identical)."""
+    hd, a, disc, _ = probes._mxu_pairs(cm, r2[0], o, d)
+    thr = probes.mxu_threshold_np(a[:, 0])[:, None]
+    with np.errstate(all="ignore"):
+        num = -hd - np.sqrt(np.where(disc > 0, disc, np.float32(1.0)))
+        best = np.where((disc > 0) & (num >= thr), num,
+                        np.float32(np.inf)).min(1)
+        return np.fmin(np.float32(probes.NO_HIT), best / a[:, 0])
+
+
+@pytest.mark.parametrize("tile", ["sweep", "edge"])
+def test_one_division_a_ray_is_the_plain_version(tile):
+    """P7's kernels divide once a ray a round, by a threshold on num: bit
+    for bit ``sphere_mxu_plain`` on the sweep's inputs (S = 256) and on the
+    edge tile, which holds what it says: t on the float below 1e-3f, on it
+    and above it (a hit, the ray's closest), -hd on the threshold and the
+    floats beside it with disc > 0, disc +0.0 with hd != 0, a positive
+    subnormal disc at the ray's closest hit, zero directions; 80 rays, a
+    multiple of 16 but not of 32."""
+    inputs = (probes.mxu_inputs(0, probes.SPHERES, device="cpu")
+              if tile == "sweep" else probes.mxu_edge_inputs())
+    cm, r2, o, d = (x.numpy() for x in inputs)
+    want = probes.sphere_mxu_plain(*inputs, 1).numpy()[:, 0]
+    np.testing.assert_array_equal(_one_division_a_ray(cm, r2, o, d), want)
+    if tile == "sweep":
+        assert 0.8 < (want < probes.NO_HIT).mean() < 0.9
+        return
+    R, n = o.shape[0], probes.EDGE_CASE_RAYS
+    assert R == probes.MXU_EDGE_RAYS and R % 16 == 0 and R % 32
+    hd, a, disc, t = probes._mxu_pairs(cm, r2[0], o, d)
+    thr = probes.mxu_threshold_np(a[:, 0])
+    pos = disc > 0
+    tiny = np.finfo(np.float32).tiny
+    lo, hi = (np.nextafter(probes.T_MIN, np.float32(x)) for x in (0, 1))
+    for i, case in enumerate(probes.MXU_EDGE_CASES):
+        rows = slice(i * n, (i + 1) * n)
+        if case.startswith("t "):
+            target = (lo, probes.T_MIN, hi)[i]
+            assert (pos[rows] & (t[rows] == target)).any(1).all(), case
+        elif case.startswith("-hd "):
+            th = thr[rows, None]
+            target = (np.nextafter(th, np.float32(0)), th,
+                      np.nextafter(th, np.float32(np.inf)))[i - 3]
+            assert (pos[rows] & (-hd[rows] == target)).any(1).all(), case
+        elif case == "disc +0":
+            assert ((disc[rows] == 0) & (hd[rows] != 0)).any(1).all()
+        elif case == "disc subnormal":
+            near = np.where(pos & (t > probes.T_MIN), t, np.inf)[rows]
+            j = near.argmin(1)
+            dj = disc[rows][np.arange(n), j]
+            assert (np.isfinite(near.min(1)) & (dj > 0) & (dj < tiny)).all()
+        else:
+            assert (a[rows] == 0).all() and (thr[rows] == 2.0 ** -149).all()
+    # the threshold's edge decides: the float above 1e-3f is the closest
+    # hit, 1e-3f itself and the float below are not hits
+    assert (want[2 * n:3 * n] == hi).all()
+    assert not np.isin(want[:2 * n], (lo, probes.T_MIN)).any()
+
+
+def test_mxu_threshold_is_least():
+    """The kernels' threshold is the least f32 whose IEEE f32 quotient by a
+    exceeds 1e-3f, for a spread of a: +0 (the least subnormal: x / 0 =
+    inf), subnormal, just above the least normal, 1, large, random over
+    every exponent; no float passes where a is +inf or NaN (NaN)."""
+    g = np.random.default_rng(0)
+    a = np.concatenate([
+        np.array([0.0, 1e-45, 1e-40, 1.1754944e-38, 1.1754945e-38, 1.0,
+                  1.0e4, 178571.4, 3.0e38, 3.4028235e38], np.float32),
+        g.integers(1, 0x7F800000, 20000, dtype=np.uint32).view(np.float32)])
+    thr = probes.mxu_threshold_np(a)
+    below = np.nextafter(thr, np.float32(-np.inf))
+    with np.errstate(all="ignore"):
+        assert (thr / a > probes.T_MIN).all()
+        assert not (below / a > probes.T_MIN).any()
+    assert thr[0] == np.float32(2.0 ** -149) and thr[5] == np.nextafter(
+        probes.T_MIN, np.float32(1))
+    assert np.isnan(probes.mxu_threshold_np(
+        np.array([np.inf, np.nan], np.float32))).all()
+
+
 def test_limits_refusals_and_sweep_listing():
     """Sizes that do not fit a memory space raise before any launch and
     are listed by the sweep from the same limit function; the kernel
@@ -267,7 +352,7 @@ def test_bounds_count_the_function():
     whose n dependent adds are a chain (one fold a tile, tiles x n reads, is
     the read count, the rate's numerator); P3/P4 the table entries the index
     touches (P4 at one gather: each lane's 8 rows 7 r + 13 l are distinct,
-    8 x 128 entries); P5/P6 their tests' operations issued one a lane
+    8 x 128 entries); P5-P7 their tests' operations issued one a lane
     slot."""
     tiles, n = 1024, 16384
     out_bytes = 4 * tiles * probes.TILE
@@ -301,6 +386,24 @@ def test_bounds_count_the_function():
         ops_ms, by = probes.bound_ms(flop, n_bytes, tc)
         assert by == "operations" and issue == pytest.approx(2 * ops_ms,
                                                              rel=0.01)
+    # P7 a pair: f32 products 2 x (8 multiplies + 7 adds) and the epilogue's
+    # 13 (no division: that is the ray's), issued one a lane slot, 5 a ray a
+    # round (threshold, division, min), 30 a ray (norms): 22.09 ms; TF32:
+    # the epilogue's 13 on the lanes (6.69 ms), the products' 32 a pair on
+    # the tensor cores (1.11 ms at 495 TFLOP/s)
+    R = tiles * probes.MXU_RAYS
+    tests = R * 256 * probes.REPS
+    rays = R * probes.REPS * 5 + R * 30
+    for variant, f32, on_tc, ms in (("f32", 43, 0, 22.09),
+                                    ("tf32", 13, 32, 6.69)):
+        count, _, flop, tc, n_bytes = probes.work("P7", variant, 256, tiles)
+        assert (count, flop, tc) == (tests, tests * f32 + rays, tests * on_tc)
+        issue = probes.issue_floor_ms(flop)
+        assert issue == pytest.approx(ms, abs=0.005)
+        assert probes.bound_ms(flop, n_bytes, tc, issue_ms=issue) == (
+            issue, "issue")
+    assert tc / probes.PEAK_TF32_FLOPS * 1e3 == pytest.approx(1.11, abs=0.01)
+    assert "P7" in probes.ISSUE_PROBES
 
 
 def test_chain_floor_is_linear_in_n():
