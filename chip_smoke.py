@@ -132,9 +132,10 @@ Phases:
              space, lane stride, compiled sphere count, f32 or TF32 products)
              at the reference shape against its plain version, then at
              1024 tiles (P3/P4 64 gathers a thread) tile by tile against the
-             plain version of one tile, P1/P2 also at 133 and 9001 tiles
+             plain version of one tile, P1-P4 also at 133 and 9001 tiles
              (odd, so no grid's warps divide them; 9001 past the warps the
-             card holds) and at a ragged size, P5/P6 also on an edge tile
+             card holds; P1/P2 also at a ragged size, P3/P4 at 1 and 64
+             gathers), P5/P6 also on an edge tile
              (probes.edge_rays: zero and subnormal directions, origins at
              sphere centres, grazes with disc +0.0 or subnormal), P7 on its
              own (probes.mxu_edge_inputs: t on 1e-3f and the floats beside
@@ -143,8 +144,9 @@ Phases:
              stream (probes.time_ms: device time, not the host's dispatch);
              each kernels-line entry is its variant's sweep row, with the
              plain version's and the library call's times (P1/P2: the chain
-             floor, P5-P7: the lane-issue floor on this card's SMs, and
-             bound_by beside them)
+             floor, P3-P7: the lane-issue floor on this card's SMs, P3/P4's
+             shared variants: the smem wavefront floor, and bound_by beside
+             them)
   torch_func torch.func.jacfwd and jacrev of the replay image's row mean
              w.r.t. tex_rgb (24 px noise scene, float64) on the card,
              through the batching rules of the gathers (gather_cols_kernel
@@ -2836,10 +2838,10 @@ def phase_probes():
     if bad:
         fail(f"probes: kernel differs from its plain version: {bad}")
     unchecked = [f"{r['probe']} {r['variant']} {r['size']}" for r in rows
-                 if r["fits"] and r["probe"] in probes.FOLD_PROBES
+                 if r["fits"] and r["probe"] in probes.UNEVEN_PROBES
                  and r.get("uneven_tiles") != list(probes.UNEVEN_TILES)]
     if unchecked:
-        fail(f"probes: fold kernels not held at uneven tile counts: "
+        fail(f"probes: persistent kernels not held at uneven tile counts: "
              f"{unchecked}")
     unchecked = [f"{r['probe']} {r['variant']} {r['size']}" for r in rows
                  if r["fits"] and r["probe"] in probes.ISSUE_PROBES
@@ -2870,11 +2872,15 @@ def phase_probes():
             shape=f"{probe} {r['function']} {variant} size {size}, {T} tiles"
                   + (f", {gathers} gathers a thread" if gathers > 1 else ""),
             rate=r["rate"], rate_unit=r["rate_unit"])
+        if probe in probes.UNEVEN_PROBES:
+            entry.update(uneven_tiles=r["uneven_tiles"],
+                         uneven_equal=r["uneven_equal"])
         if probe in probes.FOLD_PROBES:
             entry.update(chain_floor_ms=r["chain_floor_ms"],
-                         uneven_tiles=r["uneven_tiles"],
-                         ragged_size=r["ragged_size"],
-                         uneven_equal=r["uneven_equal"])
+                         ragged_size=r["ragged_size"])
+        if probe in probes.GATHER_PROBES:
+            entry.update(issue_floor_ms=r["issue_floor_ms"], sms=r["sms"],
+                         smem_floor_ms=r["smem_floor_ms"])
         if probe in probes.ISSUE_PROBES:
             entry.update(issue_floor_ms=r["issue_floor_ms"], sms=r["sms"],
                          edge_equal=r["edge_equal"])

@@ -16,15 +16,21 @@
 // TPU's shape: one fold a tile, by one warp (the reference's fori_loop on
 // the scalar core), then the tile's 1024 outputs written as 8 float4 stores
 // a lane; blocks of FOLD_WARPS warps take tiles in a grid-stride loop, and
-// a shared table is staged once a block. P3-P7: one thread a (8, 128) tile
-// element (1024 a block: one tile a block, so a block stages its shared
-// table once per tile), or one a ray (P5-P7; P7's TF32 variant one warp
-// per 32 rays). What bounds each:
+// a shared table is staged once a block. P3, P4: one thread a (8, 128) tile
+// element, a warp 32 elements of a tile; blocks of GATHER_WARPS warps take
+// them in a grid-stride loop, and a shared table is staged once a block.
+// P5-P7: one thread a ray (P7's TF32 variant one warp per 32 rays). What
+// bounds each:
 //   P1, P2  n dependent adds a tile, in index order (a chain: n times the
 //           add's latency), with the loads a batch ahead; where a space's
 //           loads take longer than a batch's adds (__ldg, __constant__),
 //           the chain waits for them. P2 also reads its 512-byte rows whole;
-//   P3, P4  the gathers and the output write (bytes);
+//   P3, P4  shared memory's wavefronts, one a clock an SM: a warp's gather
+//           takes one (P4; P3 at stride 13) or as many as its lanes' bank
+//           conflicts (P3 at strides 2, 16, 32), one LDS and one FADD a
+//           gather from a staged copy with no wrap; the __ldg variants are
+//           bound by L1's gathers (their floor counts the adds' issue and
+//           the bytes);
 //   P5, P6  25 f32 operations a sphere test, each an instruction of its
 //           own (no contraction): the lanes' issue; a sphere is one
 //           16-byte read (P5), and its test has no slow path for a miss;
@@ -46,6 +52,7 @@
 // race on it).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -68,13 +75,6 @@ constexpr int ROW_BATCH = 8;         // P2: rows a batch
 constexpr int FOLD_DEPTH = 2;        // P1/P2: batches in registers at once
 
 __constant__ __align__(16) float c_tab[CONST_FLOATS];
-
-// Copy n floats of a global table into this block's shared memory.
-__device__ __forceinline__ void stage(float* s, const float* __restrict__ g,
-                                      int n) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = __ldg(g + i);
-    __syncthreads();
-}
 
 template <int SPACE>
 __device__ __forceinline__ float tab_at(const float* __restrict__ g,
@@ -290,53 +290,123 @@ __global__ void __launch_bounds__(FOLD_THREADS, 1)
 // conflicts of a stride, and not the launch, are what is timed. Over 32
 // banks a warp's lanes hit distinct banks at stride 13; stride 2 gives
 // 2-way, 16 and 32 give 8-way conflicts on the 256-entry shared column.
-__device__ __forceinline__ int gather_idx(int stride) {
-    const int r = threadIdx.x / LANES, l = threadIdx.x % LANES;
-    return (7 * r + stride * l) % GATHER_N;
+//
+// Blocks of GATHER_WARPS warps, only as many as fit the card at once, each
+// stage their table once, then take units of work in a grid-stride loop:
+// a unit is 32 consecutive elements of one tile (one row's 32 lanes, as a
+// warp of a one-tile block had them, so a warp's bank conflicts are the
+// stride's). Unit u goes to warp u % W of the grid's W warps, counted
+// across the blocks first, so every block, and every SM, gets nearly as
+// many units (1024 tiles do not divide over 132 SMs; 32 768 units nearly
+// do). The staged copy is the table followed by its first MAX_GATHERS - 1
+// entries (rows) again: the gather at offset k reads s[base + k] with no
+// wrap, unrolled one LDS at an immediate offset and one FADD.
+constexpr int MAX_GATHERS = 64;
+constexpr int GATHER_WARPS = 32;
+constexpr int GATHER_THREADS = 32 * GATHER_WARPS;
+constexpr int UNIT_LANES = 32;                 // elements a unit
+constexpr int UNITS_A_TILE = TILE / UNIT_LANES;
+constexpr unsigned GATHER_MASK = GATHER_N - 1;  // % 256 of an unsigned
+constexpr unsigned P4_STRIDE = 13;
+
+// This lane's element of unit u: tile u / 32, element (u % 32) * 32 +
+// lane, so its output is out[32 u + lane]. Its lane l and index base
+// (7 r + stride l) % 256, in unsigned arithmetic.
+__device__ __forceinline__ unsigned unit_lane(unsigned u) {
+    return (u % (LANES / UNIT_LANES)) * UNIT_LANES + threadIdx.x % 32;
 }
 
-// P3: column 0 of the (256, 128) table; shared stages that column.
-template <int SPACE>
-__global__ void __launch_bounds__(TILE)
-    gather_probe_kernel(const float* __restrict__ tab, int stride, int reps,
-                        float* __restrict__ out, long long total) {
-    __shared__ float s_col[GATHER_N];
+__device__ __forceinline__ unsigned unit_base(unsigned u, unsigned stride) {
+    const unsigned r = u % UNITS_A_TILE / (LANES / UNIT_LANES);
+    return (7u * r + stride * unit_lane(u)) & GATHER_MASK;
+}
+
+// read(0) + read(1) + ... in order: REPS gathers unrolled, or `reps` at
+// run time where REPS is 0.
+template <int REPS, typename Read>
+__device__ __forceinline__ float gather_sum(Read read, int reps) {
+    float acc = read(0);
+    if (REPS > 0) {
+#pragma unroll
+        for (int k = 1; k < REPS; ++k) acc += read(k);
+    } else {
+        for (int k = 1; k < reps; ++k) acc += read(k);
+    }
+    return acc;
+}
+
+// P3: column 0 of the (256, 128) table; shared stages that column and its
+// first MAX_GATHERS - 1 entries again.
+template <int SPACE, int REPS>
+__global__ void __launch_bounds__(GATHER_THREADS)
+    gather_probe_kernel(const float* __restrict__ tab, unsigned stride,
+                        int reps, float* __restrict__ out, unsigned units) {
+    __shared__ float s_col[GATHER_N + MAX_GATHERS - 1];
     if (SPACE == SPACE_SHARED) {
-        for (int i = threadIdx.x; i < GATHER_N; i += blockDim.x)
-            s_col[i] = __ldg(tab + i * LANES);
+        for (int i = threadIdx.x; i < GATHER_N + MAX_GATHERS - 1;
+             i += GATHER_THREADS)
+            s_col[i] = __ldg(tab + (i & GATHER_MASK) * LANES);
         __syncthreads();
     }
-    const int idx = gather_idx(stride);
-    float acc = 0.0f;
-    for (int k = 0; k < reps; ++k) {
-        const int j = (idx + k) % GATHER_N;
-        const float v =
-            SPACE == SPACE_SHARED ? s_col[j] : __ldg(tab + j * LANES);
-        acc = k == 0 ? v : acc + v;
+    const unsigned warps = gridDim.x * GATHER_WARPS;
+    for (unsigned u = threadIdx.x / 32 * gridDim.x + blockIdx.x; u < units;
+         u += warps) {
+        const unsigned base = unit_base(u, stride);
+        float acc;
+        if (SPACE == SPACE_SHARED) {
+            const float* p = s_col + base;
+            acc = gather_sum<REPS>([&](int k) { return p[k]; }, reps);
+        } else {
+            acc = gather_sum<REPS>([&](int k) {
+                return __ldg(tab + ((base + k) & GATHER_MASK) * LANES);
+            }, reps);
+        }
+        out[(size_t)u * UNIT_LANES + threadIdx.x % 32] = acc;
     }
-    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < total) out[g] = acc;
+}
+
+// Copy `rows` rows (256 <= rows < 256 + MAX_GATHERS) of the (256, 128)
+// table into shared memory, row i from row i % 256, by 16-byte __ldg
+// loads, ~10 a thread in flight (one bulk copy of the Tensor Memory
+// Accelerator for the block, completed on an mbarrier, measured 3 us
+// slower a call on an H100).
+__device__ __forceinline__ void stage_rows(float* s,
+                                           const float* __restrict__ g,
+                                           int rows) {
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    float4* s4 = reinterpret_cast<float4*>(s);
+    const int quads = GATHER_N * LANES / 4;
+    for (int i = threadIdx.x; i < rows * (LANES / 4); i += GATHER_THREADS)
+        s4[i] = __ldg(g4 + (i & (quads - 1)));
+    __syncthreads();
 }
 
 // P4: take_along_axis down each lane's own column of the whole table;
-// shared stages all of it (128 KB). Lane l reads bank l % 32 whatever the
-// row: conflict-free.
-template <int SPACE>
-__global__ void __launch_bounds__(TILE)
+// shared stages all of it (128 KB) and its first reps - 1 rows again. Lane
+// l reads bank l % 32 whatever the row: conflict-free.
+template <int SPACE, int REPS>
+__global__ void __launch_bounds__(GATHER_THREADS)
     gather_2d_kernel(const float* __restrict__ tab, int reps,
-                     float* __restrict__ out, long long total) {
-    extern __shared__ float s_tab[];
-    if (SPACE == SPACE_SHARED) stage(s_tab, tab, GATHER_N * LANES);
-    const int l = threadIdx.x % LANES;
-    const int idx = gather_idx(13);
-    float acc = 0.0f;
-    for (int k = 0; k < reps; ++k) {
-        const int j = ((idx + k) % GATHER_N) * LANES + l;
-        const float v = SPACE == SPACE_SHARED ? s_tab[j] : __ldg(tab + j);
-        acc = k == 0 ? v : acc + v;
+                     float* __restrict__ out, unsigned units) {
+    extern __shared__ float4 s_table[];  // 16-byte aligned
+    float* s_tab = reinterpret_cast<float*>(s_table);
+    if (SPACE == SPACE_SHARED) stage_rows(s_tab, tab, GATHER_N + reps - 1);
+    const unsigned warps = gridDim.x * GATHER_WARPS;
+    for (unsigned u = threadIdx.x / 32 * gridDim.x + blockIdx.x; u < units;
+         u += warps) {
+        const unsigned l = unit_lane(u), base = unit_base(u, P4_STRIDE);
+        float acc;
+        if (SPACE == SPACE_SHARED) {
+            const float* p = s_tab + base * LANES + l;
+            acc = gather_sum<REPS>([&](int k) { return p[k * LANES]; }, reps);
+        } else {
+            const float* g = tab + l;
+            acc = gather_sum<REPS>([&](int k) {
+                return __ldg(g + ((base + k) & GATHER_MASK) * LANES);
+            }, reps);
+        }
+        out[(size_t)u * UNIT_LANES + threadIdx.x % 32] = acc;
     }
-    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g < total) out[g] = acc;
 }
 
 // ------------------------------------------------------------- P5 / P6
@@ -771,26 +841,80 @@ int sm_count() {
     return n;
 }
 
-// Launch fold kernel K (P1, P2) for `tiles` tiles: one warp a tile, at
-// most the blocks that fit the card at once with `smem` bytes each (the
-// occupancy API's blocks an SM x SMs, asked again only when smem changes);
-// past that the warps stride over the tiles.
+// The blocks of `threads` threads with `smem` bytes each that fit the card
+// at once, for kernel K: the occupancy API's blocks an SM x SMs, asked
+// again only when smem changes.
+template <auto K>
+cudaError_t fit_blocks(int threads, size_t smem, long long* fit) {
+    static long long n = 0;
+    static size_t n_smem = 0;
+    cudaError_t e = allow_shared(K, smem);
+    if (e != cudaSuccess) return e;
+    if (n == 0 || n_smem != smem) {
+        int per_sm = 0;
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, K, threads,
+                                                          smem);
+        if (e != cudaSuccess) return e;
+        n = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+        n_smem = smem;
+    }
+    *fit = n;
+    return cudaSuccess;
+}
+
+// Blocks of `warps` warps for `work` warps' worth of work: no more than
+// fit at once, past which the warps stride over it.
+template <auto K>
+cudaError_t grid_for(long long work, int warps, size_t smem, int* nb) {
+    long long fit;
+    const cudaError_t e = fit_blocks<K>(32 * warps, smem, &fit);
+    if (e != cudaSuccess) return e;
+    const long long want = (work + warps - 1) / warps;
+    *nb = (int)(want < fit ? want : fit);
+    return cudaSuccess;
+}
+
+// Launch fold kernel K (P1, P2) for `tiles` tiles: one warp a tile.
 template <auto K>
 int launch_fold(const float* tab, int n, float* out, long long tiles,
                 size_t smem, cudaStream_t st) {
-    static long long fit = 0;
-    static size_t fit_smem = 0;
-    RT_TRY(allow_shared(K, smem));
-    if (fit == 0 || fit_smem != smem) {
-        int per_sm = 0;
-        RT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, K, FOLD_THREADS, smem));
-        fit = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
-        fit_smem = smem;
-    }
-    const long long want = (tiles + FOLD_WARPS - 1) / FOLD_WARPS;
-    K<<<(int)(want < fit ? want : fit), FOLD_THREADS, smem, st>>>(tab, n, out,
-                                                                  tiles);
+    int nb;
+    RT_TRY(grid_for<K>(tiles, FOLD_WARPS, smem, &nb));
+    K<<<nb, FOLD_THREADS, smem, st>>>(tab, n, out, tiles);
+    return (int)cudaGetLastError();
+}
+
+// P3/P4 take whole tiles, 32 elements a unit, and at most MAX_GATHERS
+// gathers (the staged copy's extra entries); REPS = MAX_GATHERS is
+// unrolled, any other count runs the loop.
+bool gather_args_ok(int reps, int space, long long total) {
+    return reps >= 1 && reps <= MAX_GATHERS && total >= 1
+           && total % TILE == 0 && total / UNIT_LANES <= INT_MAX / 2
+           && (space == SPACE_SHARED || space == SPACE_GLOBAL);
+}
+
+template <int SPACE, int REPS>
+int launch_gather(const float* t, int stride, int reps, float* y,
+                  long long units, cudaStream_t st) {
+    int nb;
+    RT_TRY((grid_for<gather_probe_kernel<SPACE, REPS>>(units, GATHER_WARPS,
+                                                      0, &nb)));
+    gather_probe_kernel<SPACE, REPS><<<nb, GATHER_THREADS, 0, st>>>(
+        t, (unsigned)stride, reps, y, (unsigned)units);
+    return (int)cudaGetLastError();
+}
+
+template <int SPACE, int REPS>
+int launch_gather_2d(const float* t, int reps, float* y, long long units,
+                     cudaStream_t st) {
+    // shared: the table and its first reps - 1 rows again
+    const size_t smem = SPACE == SPACE_SHARED
+        ? (size_t)(GATHER_N + reps - 1) * LANES * sizeof(float) : 0;
+    int nb;
+    RT_TRY((grid_for<gather_2d_kernel<SPACE, REPS>>(units, GATHER_WARPS,
+                                                   smem, &nb)));
+    gather_2d_kernel<SPACE, REPS><<<nb, GATHER_THREADS, smem, st>>>(
+        t, reps, y, (unsigned)units);
     return (int)cudaGetLastError();
 }
 
@@ -859,49 +983,50 @@ extern "C" int rt_probe_row_broadcast_launch(const void* tab, int n,
 }
 
 // P3: out (total,) = tab[idx, 0] of a (256, 128) table (summed over reps
-// offsets), idx = (7 r + stride l) % 256.
+// offsets), idx = (7 r + stride l) % 256, 0 <= stride < 256.
 extern "C" int rt_probe_gather_launch(const void* tab, int stride, int reps,
                                       int space, void* out, long long total,
                                       void* stream) {
-    if (reps < 1 || total < 1 || total % TILE
-        || (space != SPACE_SHARED && space != SPACE_GLOBAL))
+    if (!gather_args_ok(reps, space, total) || stride < 0
+        || stride >= GATHER_N)
         return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* t = static_cast<const float*>(tab);
     float* y = static_cast<float*>(out);
-    const int nb = blocks_of(total, TILE);
+    const long long units = total / UNIT_LANES;
     if (space == SPACE_SHARED)
-        gather_probe_kernel<SPACE_SHARED>
-            <<<nb, TILE, 0, st>>>(t, stride, reps, y, total);
-    else
-        gather_probe_kernel<SPACE_GLOBAL>
-            <<<nb, TILE, 0, st>>>(t, stride, reps, y, total);
-    return (int)cudaGetLastError();
+        return reps == MAX_GATHERS
+            ? launch_gather<SPACE_SHARED, MAX_GATHERS>(t, stride, reps, y,
+                                                       units, st)
+            : launch_gather<SPACE_SHARED, 0>(t, stride, reps, y, units, st);
+    return reps == MAX_GATHERS
+        ? launch_gather<SPACE_GLOBAL, MAX_GATHERS>(t, stride, reps, y, units,
+                                                   st)
+        : launch_gather<SPACE_GLOBAL, 0>(t, stride, reps, y, units, st);
 }
 
 // P4: out (total,) = tab[idx, l] of a (256, 128) table (summed over reps
-// offsets).
+// offsets); the table 16-byte aligned (staged as float4s).
 extern "C" int rt_probe_gather_2d_launch(const void* tab, int reps, int space,
                                          void* out, long long total,
                                          void* stream) {
-    if (reps < 1 || total < 1 || total % TILE
-        || (space != SPACE_SHARED && space != SPACE_GLOBAL))
+    if (!gather_args_ok(reps, space, total)
+        || reinterpret_cast<uintptr_t>(tab) % 16 != 0)
         return (int)cudaErrorInvalidValue;
     (void)cudaGetLastError();
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* t = static_cast<const float*>(tab);
     float* y = static_cast<float*>(out);
-    const int nb = blocks_of(total, TILE);
-    if (space == SPACE_SHARED) {
-        const size_t smem = (size_t)GATHER_N * LANES * sizeof(float);
-        RT_TRY(allow_shared(gather_2d_kernel<SPACE_SHARED>, smem));
-        gather_2d_kernel<SPACE_SHARED><<<nb, TILE, smem, st>>>(t, reps, y,
-                                                               total);
-    } else {
-        gather_2d_kernel<SPACE_GLOBAL><<<nb, TILE, 0, st>>>(t, reps, y, total);
-    }
-    return (int)cudaGetLastError();
+    const long long units = total / UNIT_LANES;
+    if (space == SPACE_SHARED)
+        return reps == MAX_GATHERS
+            ? launch_gather_2d<SPACE_SHARED, MAX_GATHERS>(t, reps, y, units,
+                                                          st)
+            : launch_gather_2d<SPACE_SHARED, 0>(t, reps, y, units, st);
+    return reps == MAX_GATHERS
+        ? launch_gather_2d<SPACE_GLOBAL, MAX_GATHERS>(t, reps, y, units, st)
+        : launch_gather_2d<SPACE_GLOBAL, 0>(t, reps, y, units, st);
 }
 
 // P5: out (R,) = the closest hit of rays (3, R) over S spheres from `space`

@@ -76,6 +76,10 @@ IMMEDIATE_SPHERES = (64, 256)                  # P6's compiled sphere counts
 MXU_RAYS, MXU_K = 1024, 8                      # P7's rays and padded xyz
 FILL_TILES = 1024                              # the card-filling shape
 GATHER_TIMING_REPS = 64                        # gathers a thread when timed
+# P3/P4 stage their table once a block, followed by its first
+# MAX_GATHERS - 1 entries (rows) again, so that the gather at offset k reads
+# s[base + k] with no wrap: reps is at most MAX_GATHERS.
+MAX_GATHERS = 64
 NO_HIT = 1e30
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
@@ -134,10 +138,16 @@ ISSUE_PROBES = ("P5", "P6", "P7")
 FADD_LATENCY_CLOCKS = 4
 SM_CLOCK_HZ = 1980e6
 FOLD_PROBES = ("P1", "P2")
-# Tile counts of the fold kernels' extra check: odd, so never a multiple of
-# a grid's warps (blocks of 8), and 9001 beyond the warps that fit the card
-# (132 SMs x 64), so warps take several tiles.
+# P3/P4's shared variants are bound by shared memory's wavefronts: one a
+# clock an SM (the model of B7's smem floor), a warp's 4-byte gather taking
+# as many as its lanes' bank conflicts (``bank_conflict_ways``; P4: 1).
+GATHER_PROBES = ("P3", "P4")
+# Tile counts of the persistent kernels' extra check (P1-P4): odd, so never
+# a multiple of a grid's warps, and 9001 beyond the warps that fit the card
+# (132 SMs x 64), so warps take several tiles (P1/P2 a tile a warp, P3/P4
+# 32 elements of a tile a warp).
 UNEVEN_TILES = (133, 9001)
+UNEVEN_PROBES = FOLD_PROBES + GATHER_PROBES
 RAGGED = 5  # the extra check also folds a table this much shorter
 HOLD_TRIES = 4  # time_ms: holds of the stream, each 4x the last
 
@@ -153,6 +163,13 @@ def issue_floor_ms(flop: float, sms: int = SM_COUNT) -> float:
     """The least time of ``flop`` f32 operations issued one a lane slot:
     ``sms`` SMs of FP32_LANES_PER_SM lanes at SM_CLOCK_HZ (P5-P7)."""
     return flop / (sms * FP32_LANES_PER_SM * SM_CLOCK_HZ) * 1e3
+
+
+def smem_floor_ms(wavefronts: float, sms: int = SM_COUNT) -> float:
+    """The least time of ``wavefronts`` shared-memory wavefronts, one a
+    clock on each of ``sms`` SMs at SM_CLOCK_HZ (P3/P4's shared
+    variants)."""
+    return wavefronts / (sms * SM_CLOCK_HZ) * 1e3
 
 
 def fits(space: str, n_floats: int) -> bool:
@@ -231,8 +248,8 @@ def _shared_or_global(name: str, space: str) -> None:
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (P1/P2's folds and
-    P5's sphere loop read it as float4): a view that starts elsewhere is
-    copied."""
+    P5's sphere loop read it as float4, P4 stages it so): a view that
+    starts elsewhere is copied."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -353,24 +370,42 @@ def vmem_gather_plain(tab: torch.Tensor, stride: int = GATHER_STRIDE,
     return _tiled(_gather_sum(lambda i: col[i], idx, reps), tiles)
 
 
+def _gather_reps(name: str, space: str, reps: int) -> int:
+    """Refuse a space P3/P4 do not read from, and a ``reps`` beyond what
+    their staged copy covers (1..MAX_GATHERS), before any launch."""
+    _shared_or_global(name, space)
+    if isinstance(reps, bool) or not isinstance(reps, (int, np.integer)):
+        raise TypeError(f"{name}: reps must be an integer, got {reps!r}")
+    if not 1 <= reps <= MAX_GATHERS:
+        raise ValueError(f"{name}: reps must be in 1..{MAX_GATHERS} (the "
+                         f"staged table repeats its first {MAX_GATHERS - 1} "
+                         f"entries), got {reps}")
+    return int(reps)
+
+
 def vmem_gather_kernel(tab: torch.Tensor, space: str,
                        stride: int = GATHER_STRIDE, reps: int = 1,
                        tiles: int = 1) -> torch.Tensor:
     """Each thread gathers ``tab[idx, 0]`` from column 0 of the (256, 128)
     table, staged in shared memory or read with ``__ldg``; ``reps`` > 1
-    adds the gathers at ``reps`` offsets of the index, in order (to time the
-    gather and its bank conflicts, not the launch)."""
+    (at most MAX_GATHERS) adds the gathers at ``reps`` offsets of the
+    index, in order (to time the gather and its bank conflicts, not the
+    launch). The index is mod 256, so the stride is taken mod 256 here (a
+    negative stride reads as its residue); a stride that is not an integer
+    is refused. Blocks of 32 warps, as many as fit the card at once, stage
+    the column once and take 32 elements of a tile a warp."""
+    reps = _gather_reps("vmem_gather_kernel", space, reps)
+    if isinstance(stride, bool) or not isinstance(stride, (int, np.integer)):
+        raise TypeError(f"vmem_gather_kernel: stride must be an integer, "
+                        f"got {stride!r}")
     dev = _cuda_f32("vmem_gather_kernel", tab)
     if tuple(tab.shape) != (GATHER_N, LANES):
         raise ValueError(f"vmem_gather_kernel takes a ({GATHER_N}, {LANES}) "
                          f"table, got {tuple(tab.shape)}")
-    _shared_or_global("vmem_gather_kernel", space)
-    if reps < 1:
-        raise ValueError(f"reps must be >= 1, got {reps}")
     tab = tab.contiguous()
     out = _tile_out(tiles, dev)
     _launch("gather_probe_kernel", "rt_probe_gather_launch", dev,
-            tab.data_ptr(), int(stride), int(reps), SPACE_CODE[space],
+            tab.data_ptr(), int(stride) % GATHER_N, reps, SPACE_CODE[space],
             out.data_ptr(), tiles * TILE)
     return out
 
@@ -410,18 +445,18 @@ def vmem_gather_2d_plain(tab: torch.Tensor, reps: int = 1,
 def vmem_gather_2d_kernel(tab: torch.Tensor, space: str, reps: int = 1,
                           tiles: int = 1) -> torch.Tensor:
     """Each thread gathers ``tab[idx, lane]`` from the whole (256, 128)
-    table, staged in shared memory (128 KB) or read with ``__ldg``."""
+    table, staged in shared memory (128 KB and its first ``reps`` - 1 rows
+    again, by 16-byte loads, once a block) or read with ``__ldg``;
+    ``reps`` as for ``vmem_gather_kernel``."""
+    reps = _gather_reps("vmem_gather_2d_kernel", space, reps)
     dev = _cuda_f32("vmem_gather_2d_kernel", tab)
     if tuple(tab.shape) != (GATHER_N, LANES):
         raise ValueError(f"vmem_gather_2d_kernel takes a ({GATHER_N}, "
                          f"{LANES}) table, got {tuple(tab.shape)}")
-    _shared_or_global("vmem_gather_2d_kernel", space)
-    if reps < 1:
-        raise ValueError(f"reps must be >= 1, got {reps}")
-    tab = tab.contiguous()
+    tab = _aligned16(tab)
     out = _tile_out(tiles, dev)
     _launch("gather_2d_kernel", "rt_probe_gather_2d_launch", dev,
-            tab.data_ptr(), int(reps), SPACE_CODE[space], out.data_ptr(),
+            tab.data_ptr(), reps, SPACE_CODE[space], out.data_ptr(),
             tiles * TILE)
     return out
 
@@ -1193,7 +1228,9 @@ def work(probe, variant, size, tiles, gathers=1):
     column 0); P3/P4 the adds of ``gathers`` gathers and the
     entries the index touches (``touched_entries``); the sphere probes
     their tests' operations, counted from the kernels. Each input byte is
-    read once and each output byte written once."""
+    read once and each output byte written once. P3/P4's shared variants
+    are also bound by their wavefronts (``gather_wavefronts``,
+    ``gather_bound``)."""
     threads = tiles * TILE
     out_bytes = 4 * threads
     if probe in ("P1", "P2"):
@@ -1218,32 +1255,66 @@ def work(probe, variant, size, tiles, gathers=1):
             n_bytes)
 
 
-def bound_ms(flop, n_bytes, tc_flop=0.0, chain_ms=0.0, issue_ms=0.0):
-    """(ms, 'operations', 'bytes', 'chain' or 'issue'): the largest of the
-    f32 operations over the f32 peak (or the tensor-core operations over
-    the TF32 peak, where larger), the bytes over the memory rate,
+def gather_wavefronts(probe, variant, tiles, gathers=1) -> int:
+    """Shared-memory wavefronts of one P3/P4 call at ``tiles`` tiles: a
+    warp-gather of a shared variant takes ``bank_conflict_ways`` of its
+    stride (P4: lane l reads bank l % 32, conflict-free), the same for every
+    warp and offset (an offset or a row shifts the lanes' indices
+    together); the ``__ldg`` variants read no shared memory."""
+    if probe not in GATHER_PROBES or not variant.startswith("shared"):
+        return 0
+    ways = bank_conflict_ways(_stride(variant)) if probe == "P3" else 1
+    return tiles * (TILE // 32) * gathers * ways
+
+
+def bound_ms(flop, n_bytes, tc_flop=0.0, chain_ms=0.0, issue_ms=0.0,
+             smem_ms=0.0):
+    """(ms, 'operations', 'bytes', 'chain', 'issue' or 'smem'): the largest
+    of the f32 operations over the f32 peak (or the tensor-core operations
+    over the TF32 peak, where larger), the bytes over the memory rate,
     ``chain_ms``, the floor of a chain of dependent adds
-    (``chain_floor_ms``; P1/P2), and ``issue_ms``, the floor of issuing the
-    f32 operations one a lane slot (``issue_floor_ms``; P5-P7)."""
+    (``chain_floor_ms``; P1/P2), ``issue_ms``, the floor of issuing the f32
+    operations one a lane slot (``issue_floor_ms``; P3-P7), and
+    ``smem_ms``, the floor of the shared-memory wavefronts
+    (``smem_floor_ms``; P3/P4's shared variants)."""
     t_ops = max(flop / PEAK_FP32_FLOPS, tc_flop / PEAK_TF32_FLOPS) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return max((t_bytes, "bytes"), (t_ops, "operations"), (chain_ms, "chain"),
-               (issue_ms, "issue"), key=lambda b: b[0])
+               (issue_ms, "issue"), (smem_ms, "smem"), key=lambda b: b[0])
+
+
+def gather_bound(probe, variant, tiles, gathers=1, sms=SM_COUNT):
+    """``bound_ms`` of one P3/P4 call: bytes, operations, the adds' issue
+    (``gathers`` - 1 a thread) and, for a shared variant, its
+    wavefronts."""
+    _, _, flop, tc_flop, n_bytes = work(probe, variant, GATHER_N, tiles,
+                                        gathers)
+    return bound_ms(flop, n_bytes, tc_flop,
+                    issue_ms=issue_floor_ms(flop, sms),
+                    smem_ms=smem_floor_ms(gather_wavefronts(
+                        probe, variant, tiles, gathers), sms))
 
 
 def uneven_check(probe, variant, size, seed, dev, plain_tile) -> dict:
-    """P1/P2's fold kernels at UNEVEN_TILES tiles, with the table of
-    ``size`` and of ``size - RAGGED`` entries (rows), every tile bit for bit
-    the plain version of one tile: grids whose warps do not divide the
-    tiles, warps that take several tiles, and folds with a ragged tail."""
+    """The persistent kernels (P1-P4) at UNEVEN_TILES tiles, every tile bit
+    for bit the plain version of one tile: grids whose warps do not divide
+    the work, warps that take several tiles. P1/P2 with the table of
+    ``size`` and of ``size - RAGGED`` entries (rows: folds with a ragged
+    tail), P3/P4 at one gather and at ``timed_gathers``."""
+    if probe in FOLD_PROBES:
+        cases = [(size, 1), (size - RAGGED, 1)]
+    else:
+        cases = [(size, 1), (size, timed_gathers(probe))]
     ok = True
-    for n in (size, size - RAGGED):
-        want = plain_tile(probe, variant, n, 1)
+    for n, gathers in cases:
+        want = plain_tile(probe, variant, n, gathers)
         for tiles in UNEVEN_TILES:
-            got = case(probe, variant, n, seed, tiles, dev)[0]()
+            got = case(probe, variant, n, seed, tiles, dev, gathers)[0]()
             ok = ok and bool(torch.equal(got, want.expand_as(got)))
-    return dict(uneven_tiles=list(UNEVEN_TILES), ragged_size=size - RAGGED,
-                uneven_equal=ok)
+    row = dict(uneven_tiles=list(UNEVEN_TILES), uneven_equal=ok)
+    if probe in FOLD_PROBES:
+        row["ragged_size"] = size - RAGGED
+    return row
 
 
 def edge_check(probe, variant, size, dev) -> dict:
@@ -1281,9 +1352,10 @@ def sweep(seed: int = 0, emit=None):
     call at FILL_TILES tiles (P3/P4 ``timed_gathers`` gathers a thread),
     every tile bit for bit the plain version of one tile at the same
     gathers (the TF32 variant: its own one-tile output), and timed by CUDA
-    events; P1/P2 also at uneven tile counts and a ragged size
-    (``uneven_check``), P5-P7 on their edge tiles (``edge_check``).
-    ``equal`` holds every check; P5-P7's bound counts the card's own SMs.
+    events; P1-P4 also at uneven tile counts (P1/P2 and a ragged size;
+    ``uneven_check``), P5-P7 on their edge tiles (``edge_check``).
+    ``equal`` holds every check; P3-P7's bounds count the card's own SMs
+    (P3/P4's shared variants also their wavefronts, ``smem_floor_ms``).
     Returns one dict per (probe, variant, size) and one per pair that does
     not fit its memory space (from ``fits``); ``emit`` (e.g. ``print``) gets
     each as a JSON line."""
@@ -1340,9 +1412,8 @@ def sweep(seed: int = 0, emit=None):
         tiles_ok = bool(torch.equal(got, want.expand_as(got)))
         err = max(err, float((got - want).abs().max()))
         del got
-        chain_ms = 0.0
-        if probe in FOLD_PROBES:
-            chain_ms = chain_floor_ms(size)
+        chain_ms = chain_floor_ms(size) if probe in FOLD_PROBES else 0.0
+        if probe in UNEVEN_PROBES:
             row.update(uneven_check(probe, variant, size, seed, dev,
                                     plain_tile))
             tiles_ok = tiles_ok and row["uneven_equal"]
@@ -1352,16 +1423,22 @@ def sweep(seed: int = 0, emit=None):
         ms = time_ms(kern, 3)
         count, unit, flop, tc_flop, n_bytes = work(probe, variant, size,
                                                     FILL_TILES, gathers)
-        issue_ms = issue_floor_ms(flop, sms) if probe in ISSUE_PROBES else 0.0
-        b_ms, b_by = bound_ms(flop, n_bytes, tc_flop, chain_ms, issue_ms)
+        issue = probe in ISSUE_PROBES + GATHER_PROBES
+        issue_ms = issue_floor_ms(flop, sms) if issue else 0.0
+        smem_ms = smem_floor_ms(gather_wavefronts(probe, variant, FILL_TILES,
+                                                  gathers), sms)
+        b_ms, b_by = bound_ms(flop, n_bytes, tc_flop, chain_ms, issue_ms,
+                              smem_ms)
         row.update(equal=ref_ok and tiles_ok, reference_equal=ref_ok,
                    tiles_equal=tiles_ok, max_abs_err=err, tiles=FILL_TILES,
                    ms=ms, rate=count / ms / 1e6, rate_unit=unit,
                    bound_ms=b_ms, bound_by=b_by)
         if probe in FOLD_PROBES:
             row["chain_floor_ms"] = chain_ms
-        if probe in ISSUE_PROBES:
+        if issue:
             row.update(issue_floor_ms=issue_ms, sms=sms)
+        if smem_ms:
+            row["smem_floor_ms"] = smem_ms
         if gathers > 1:
             row["gathers_a_thread"] = gathers
         out(row)

@@ -329,6 +329,26 @@ def test_limits_refusals_and_sweep_listing():
     tab = torch.arange(8.0)
     o, d = torch.zeros(3, 8, 128), torch.ones(3, 8, 128)
     cm, r2, ro, rd = probes.mxu_inputs(0, 8, device="cpu")
+    # P3/P4 refuse a reps beyond the staged copy (the table and its first
+    # MAX_GATHERS - 1 entries again) and a stride that is not an integer
+    # before anything else; a stride is taken mod 256, so -3 is taken
+    t3, t4 = probes.gather_table("cpu"), probes.gather_2d_table("cpu")
+    for call in (lambda: probes.vmem_gather_kernel(
+                     t3, "shared", reps=probes.MAX_GATHERS + 1),
+                 lambda: probes.vmem_gather_kernel(t3, "global", reps=0),
+                 lambda: probes.vmem_gather_2d_kernel(
+                     t4, "shared", reps=probes.MAX_GATHERS + 1)):
+        with pytest.raises(ValueError, match="reps must be in 1..64"):
+            call()
+    for stride in (2.5, "13", None, True):
+        with pytest.raises(TypeError, match="stride must be an integer"):
+            probes.vmem_gather_kernel(t3, "shared", stride)
+    for call in (lambda: probes.vmem_gather_kernel(t3, "shared", -3,
+                                                   probes.MAX_GATHERS),
+                 lambda: probes.vmem_gather_2d_kernel(t4, "global",
+                                                      probes.MAX_GATHERS)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            call()
     for call in (lambda: probes.smem_scalar_kernel(tab, "global"),
                  lambda: probes.vmem_gather_kernel(
                      probes.gather_table("cpu"), "shared"),
@@ -404,6 +424,28 @@ def test_bounds_count_the_function():
             issue, "issue")
     assert tc / probes.PEAK_TF32_FLOPS * 1e3 == pytest.approx(1.11, abs=0.01)
     assert "P7" in probes.ISSUE_PROBES
+    # P3/P4's shared variants: their wavefronts, one a clock an SM, 1024
+    # tiles x 32 warps x 64 gathers on 132 SMs at 1980 MHz, 8.02 us where a
+    # warp's gather is one wavefront (P3 stride 13, P4), as many times more
+    # as the stride's bank conflicts; the __ldg variants: the adds' issue,
+    # 63 a thread one a lane slot, 1.97 us
+    floor = probes.smem_floor_ms(tiles * 32 * 64)
+    assert floor == pytest.approx(8.02e-3, abs=5e-6)
+    for stride, ways in zip(probes.GATHER_STRIDES, (1, 2, 8, 8)):
+        v = f"shared/stride{stride}"
+        assert probes.gather_wavefronts("P3", v, tiles, 64) == (
+            tiles * 32 * 64 * ways)
+        ms, by = probes.gather_bound("P3", v, tiles, 64)
+        assert by == "smem" and ms == pytest.approx(ways * floor, rel=1e-12)
+    assert probes.gather_bound("P4", "shared", tiles, 64) == (
+        pytest.approx(floor, rel=1e-12), "smem")
+    issue = probes.issue_floor_ms(tiles * probes.TILE * 63)
+    assert issue == pytest.approx(1.975e-3, abs=1e-6)
+    for probe, v in (("P3", "global/stride13"), ("P3", "global/stride32"),
+                     ("P4", "global")):
+        assert probes.gather_wavefronts(probe, v, tiles, 64) == 0
+        assert probes.gather_bound(probe, v, tiles, 64) == (
+            pytest.approx(issue, rel=1e-12), "issue")
 
 
 def test_chain_floor_is_linear_in_n():
@@ -416,3 +458,65 @@ def test_chain_floor_is_linear_in_n():
     assert probes.chain_floor_ms(2 * 4096) == pytest.approx(
         2 * probes.chain_floor_ms(4096), rel=1e-12)
     assert 0.03 < probes.chain_floor_ms(16384) < 0.04
+
+
+def _staged_gathers(probe, stride, reps, tiles, blocks):
+    """P3's and P4's kernels (csrc/probe_kernel.cu ``gather_probe_kernel``,
+    ``gather_2d_kernel``) emulated in numpy f32, shared variant: blocks of
+    32 warps, warp g = w * blocks + b of the grid's W taking units g,
+    g + W, ...; a unit 32 lanes of one row of one tile; the staged copy the
+    table followed by its first MAX_GATHERS - 1 entries (rows) again, read
+    at s[base + k] with no wrap (numpy raises past its end); unsigned index
+    arithmetic, the stride taken mod 256 as the wrapper does; the sum in
+    order. Every output element written once."""
+    n, lanes = probes.GATHER_N, probes.LANES
+    if probe == "P3":
+        tab = probes.gather_table("cpu").numpy()[:, 0]
+    else:
+        tab = probes.gather_2d_table("cpu").numpy()
+    staged = np.concatenate([tab, tab[:probes.MAX_GATHERS - 1]])
+    stride = np.uint32(stride % n)
+    warps, units = 32 * blocks, tiles * probes.TILE // 32
+    out = np.full(tiles * probes.TILE, np.nan, np.float32)
+    lane = np.arange(32, dtype=np.uint32)
+    for w in range(32):
+        for b in range(blocks):
+            u = np.arange(w * blocks + b, units, warps,
+                          dtype=np.uint32)[:, None]
+            l = u % np.uint32(lanes // 32) * np.uint32(32) + lane
+            r = u % np.uint32(32) // np.uint32(lanes // 32)
+            base = (np.uint32(7) * r + stride * l) & np.uint32(n - 1)
+            if probe == "P3":
+                read = lambda k: staged[base + np.uint32(k)]  # noqa: E731
+            else:
+                read = lambda k: staged[base + np.uint32(k), l]  # noqa: E731
+            acc = read(0)
+            for k in range(1, reps):
+                acc = acc + read(k)
+            at = u * np.uint32(32) + lane
+            assert np.isnan(out[at]).all()
+            out[at] = acc
+    assert not np.isnan(out).any()
+    return out.reshape(tiles, probes.ROWS, lanes)
+
+
+@pytest.mark.parametrize("gathers", [1, probes.MAX_GATHERS])
+@pytest.mark.parametrize("probe,stride", [("P3", 13), ("P3", 2), ("P3", 16),
+                                          ("P3", 32), ("P3", -3),
+                                          ("P4", 13)])
+def test_wrap_free_staged_gathers_equal_plain(probe, stride, gathers):
+    """The shared kernels' indexing, a staged copy with no wrap read at
+    s[base + k] by a persistent grid's warps (5 tiles over 2 blocks: warps
+    take 2 or 3 units), equals the plain version bit for bit at strides
+    13/2/16/32 (and -3, taken mod 256), at one gather and at the most the
+    wrappers allow (MAX_GATHERS, the timed call's 64)."""
+    tiles = 5
+    got = _staged_gathers(probe, stride, gathers, tiles, blocks=2)
+    if probe == "P3":
+        want = probes.vmem_gather_plain(probes.gather_table("cpu"), stride,
+                                        gathers, tiles)
+    else:
+        want = probes.vmem_gather_2d_plain(probes.gather_2d_table("cpu"),
+                                           gathers, tiles)
+    np.testing.assert_array_equal(got, want.numpy())
+    assert probes.MAX_GATHERS == probes.GATHER_TIMING_REPS
