@@ -152,6 +152,29 @@ Phases:
              through the batching rules of the gathers (gather_cols_kernel
              for jacfwd's batched tables, scatter_sum_kernel for jacrev's
              batched cotangents), against each other and the CPU's
+  Tools slice (the counterparts of bench.py, __graft_entry__.py,
+  scripts/run_workloads.py and scripts/final_scene_full.py):
+  bench      bench.run() at the reference's sizes (cornell_box 600x600 @ 200
+             spp depth 8): the line the CLI prints, with the reference's
+             keys; its two timed gradients count grad_path's exact rays for
+             the same seeds and launch record_kernel 9 times each; the fused
+             render within 1 % of the tensor integrator at 200 px @
+             BENCH_PARITY_SPP spp (the CLI's 512 spp: ~46 s more)
+  entry      entry()'s fn on the card (1024 pixels, finite, through
+             gather_kernel); dryrun_multichip(2), both ranks on the card
+  workloads  run_workloads.run(): the nine reference workloads at their own
+             frames, spp x WORKLOAD_SCALE (final_scene WORKLOAD_SCENE8_SPP);
+             each row names its path, which launched its kernel; cornell's
+             gamma mean in 0.24-0.27
+  final_scene_full
+             final_scene_full.run() at 800x800 depth 40, two slices of
+             FSF_SLICE_SPP: stopped after one and resumed, bit for bit an
+             uninterrupted run (image and PNG)
+
+Bounds (the kernels line's bound_ms): the larger of the bytes a call must
+move over 3.35 TB/s and its counted float32 operations at one a lane slot
+(the card's SMs x 128 lanes x 1980 MHz, ops_ms), since the kernels are
+built with --fmad=false; the probes' own bounds are probes.py's.
 
 Tolerances and their reasons.
 - Render kernel: built without fused multiply-add contraction and without
@@ -265,10 +288,14 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 import rust_tracing_tpu_torch as rt  # noqa: E402
+from rust_tracing_tpu_torch import bench  # noqa: E402
 from rust_tracing_tpu_torch import cli  # noqa: E402
+from rust_tracing_tpu_torch import entry  # noqa: E402
+from rust_tracing_tpu_torch import final_scene_full  # noqa: E402
 from rust_tracing_tpu_torch import grad as tg  # noqa: E402
 from rust_tracing_tpu_torch import probes  # noqa: E402
 from rust_tracing_tpu_torch import renderer  # noqa: E402
+from rust_tracing_tpu_torch import run_workloads  # noqa: E402
 from rust_tracing_tpu_torch.models import builders  # noqa: E402
 from rust_tracing_tpu_torch.ops import lanegather as lg  # noqa: E402
 from rust_tracing_tpu_torch.ops import megakernel as mk  # noqa: E402
@@ -288,9 +315,13 @@ from rust_tracing_tpu_torch.utils.image_io import write_png  # noqa: E402
 
 DEVICE = "cuda"
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores, and device memory bandwidth.
-PEAK_FP32_FLOPS = 67e12
+# Device memory bandwidth of one H100 SXM (NVIDIA data sheet). Counted
+# float32 operations are bounded by the lanes' issue, not by the data
+# sheet's 67 TFLOP/s: that rate counts a fused multiply-add as two
+# operations, and the kernels are built with --fmad=false, so each counted
+# multiply and add is an instruction of its own and takes one lane slot
+# (ops_ms: probes.issue_floor_ms on this card's SMs, 128 lanes an SM at
+# 1980 MHz, as P5-P7's bounds).
 PEAK_BYTES_PER_S = 3.35e12
 
 # Operation count of the render, from this run's data: each traced ray tests
@@ -366,6 +397,17 @@ DIST_CUT_SPP = 64       # 2x1 and 2x2 on one shared card: correctness runs
 DIST_B1_SPP = 32        # the sharded B1 row: kernel against plain version
 SPLIT_RTOL, SPLIT_ATOL = 3e-6, 3e-7   # the sample axis: sum of f32 means
 DIST_LOSS_RTOL, DIST_GRAD_RTOL, DIST_GRAD_ATOL = 2e-5, 5e-4, 2e-5
+# workloads phase: the nine reference workloads at their own frames, spp
+# scaled by WORKLOAD_SCALE (cornell_box 1024, so its gamma gate applies) and
+# final_scene at WORKLOAD_SCENE8_SPP; a row's path must have launched its
+# kernel
+WORKLOAD_SCALE, WORKLOAD_SCENE8_SPP = 0.25, 8
+PATH_KERNEL = {"megakernel": "render_kernel", "deferred": "record_kernel",
+               "wavefront_sorted": "hit_kernel"}
+FSF_SLICE_SPP = 4       # final_scene_full phase: two slices of this many spp
+# bench phase: the headline at the reference's sizes; the parity frame's spp
+# cut from the CLI's 512 (there the tensor integrator takes ~46 s alone)
+BENCH_PARITY_SPP = 64
 # live phase: cornell at 200 px, killed once its checkpoint holds this many
 # samples, then resumed
 LIVE_WIDTH, LIVE_SPP, LIVE_KILL_AT, LIVE_CKPT_EVERY = 200, 1024, 32, 16
@@ -480,6 +522,13 @@ def bytes_bound(n_bytes):
     return n_bytes / PEAK_BYTES_PER_S * 1e3, "bytes"
 
 
+def ops_ms(n_ops):
+    """Least milliseconds of ``n_ops`` float32 operations, one a lane slot
+    on every SM of the card."""
+    return probes.issue_floor_ms(
+        n_ops, torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def search_flop(n_rays, p, walk=None):
     """Operations of the closest-surface search of ``n_rays`` rays: every
     primitive tested (brute), or, with ``walk`` = the BVH walk's summed
@@ -493,9 +542,10 @@ def search_flop(n_rays, p, walk=None):
 def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0), walk=None):
     """Least time the card could take for this trace: the larger of bytes
     moved (each table read once, each output written once) over the memory
-    rate and operations over the float32 rate. The render writes 16 bytes a
-    pixel and shades every bounce; the recorder (shade=False) writes 4 bytes
-    per (pixel, sample, bounce) and shades nothing and reads no image.
+    rate and operations over the lanes' issue rate (ops_ms). The render
+    writes 16 bytes a pixel and shades every bounce; the recorder
+    (shade=False) writes 4 bytes per (pixel, sample, bounce) and shades
+    nothing and reads no image.
     ``shades`` = (bounces shaded by a noise texture, by an image texture)
     in this run's paths (``texture_shades``); ``walk`` as for
     ``search_flop``."""
@@ -511,7 +561,7 @@ def bound_ms(tables, p, n_rays, shade=True, shades=(0, 0), walk=None):
             + shades[0] * FLOP_PER_NOISE_SHADE
             + shades[1] * FLOP_PER_IMAGE_SHADE)
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_flop = flop / PEAK_FP32_FLOPS * 1e3
+    t_flop = ops_ms(flop)
     return max(t_bytes, t_flop), ("bytes" if t_bytes > t_flop else "operations")
 
 
@@ -1235,7 +1285,7 @@ def compare_perlin(reps=10):
                          pf.turbulence_plain(*tabs64, *pos64))
     ms = device_ms(lambda: pf.turbulence_kernel(*tabs, *pos), reps)
     call = time_ms(lambda: pf.turbulence_kernel(*tabs, *pos), reps)
-    t_ops = TURB_LANES * TURB_OPS / PEAK_FP32_FLOPS * 1e3
+    t_ops = ops_ms(TURB_LANES * TURB_OPS)
     t_bytes, _ = bytes_bound(TURB_LANES * 16 + 4 * 256 * 4)
     counted, free = smem_wavefronts(tabs, pos)
     rb_tabs, rb_pos = real_bounce_lanes()
@@ -1440,7 +1490,7 @@ def compare_perlin_backward(reps=10):
             res["kernel_ms_positions_only"] = device_ms(
                 lambda: pf.turbulence_backward_kernel(*tabs, *pos, g,
                                                       want_rv=False), reps)
-            t_ops = lanes * TURB_BWD_OPS / PEAK_FP32_FLOPS * 1e3
+            t_ops = ops_ms(lanes * TURB_BWD_OPS)
             t_bytes, _ = bytes_bound(lanes * 28 + 3 * 256 * 4 * 2
                                      + 3 * 256 * 4)
             res.update(ops_per_lane=TURB_BWD_OPS, bound_ms=max(t_ops, t_bytes),
@@ -1489,13 +1539,13 @@ def hit_bound_ms(tables, p, n_lanes, rays, walk):
     """Least time of one hit-kernel launch: the larger of bytes (the tables
     read once, 33 bytes of lane input and 4 of record a lane) over the
     memory rate and operations (the search as ``search_flop``, plus 120 a
-    live ray for its set-up and media) over the float32 rate."""
+    live ray for its set-up and media) over the lanes' issue rate."""
     n_bytes = sum(tables[k].numel() * tables[k].element_size()
                   for k in mk.PackedScene.TABLES) + n_lanes * (7 * 4 + 4 + 4
                                                               + 1 + 4)
     flop = search_flop(rays, p, walk) + rays * FLOP_PER_BOUNCE_SHADE
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_flop = flop / PEAK_FP32_FLOPS * 1e3
+    t_flop = ops_ms(flop)
     return max(t_bytes, t_flop), ("bytes" if t_bytes > t_flop else "operations")
 
 
@@ -2240,6 +2290,7 @@ def phase_grad_path():
                depth=GRAD_DEPTH, loss=float(loss), b1_image_mean=b1_mean,
                loss_rel_err=rel, rays=rays, seconds=secs,
                fwdbwd_rays_per_s=rays / secs, seconds_rep2=secs2,
+               rays_rep2=rays2,
                fwdbwd_rays_per_s_rep2=rays2 / secs2, first_call_s=warm_s,
                peak_mem_gb=peak / 1e9, launches=launches,
                tex_rgb_grad=tex.tolist(),
@@ -2998,6 +3049,136 @@ def phase_torch_func():
         fail(f"torch_func: the batching rules never launched {idle}")
 
 
+
+# ------------------------------------------------- the tools (bench, entry,
+# run_workloads, final_scene_full)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "aux"}
+BENCH_AUX_KEYS = {"fwdbwd_workload", "fwdbwd_l2_rays_per_sec",
+                  "forward_rays_per_sec", "forward_vs_baseline",
+                  "forward_seconds", "forward_path",
+                  "parity_ratio_megakernel_vs_xla", "avg_bounces", "device"}
+
+
+def phase_bench(grad):
+    """bench.run() at the reference's sizes, what `python -m
+    rust_tracing_tpu_torch.bench` prints, the parity frame at
+    BENCH_PARITY_SPP: its line parses with the reference's keys, its timed
+    calls (seeds 1 and 2) count grad_path's exact rays for those seeds and
+    launch record_kernel 9 times each (one a sample slice), and the fused
+    render's mean is within 1 % of the tensor integrator's."""
+    t0 = time.perf_counter()
+    line = json.loads(json.dumps(bench.run(parity_spp=BENCH_PARITY_SPP)))
+    say("bench", seconds=time.perf_counter() - t0, **line)
+    aux = line["aux"]
+    if set(line) != BENCH_KEYS or not BENCH_AUX_KEYS <= set(aux) \
+            or line["metric"] != bench.METRIC:
+        fail(f"bench line keys {sorted(line)}, aux {sorted(aux)}")
+    if aux["fwdbwd_seeds"] != [1, 2] or \
+            aux["fwdbwd_rays"] != [grad["rays"], grad["rays_rep2"]]:
+        fail(f"bench rays {aux['fwdbwd_rays']} (seeds "
+             f"{aux['fwdbwd_seeds']}) vs grad_path's "
+             f"{[grad['rays'], grad['rays_rep2']]}")
+    if not abs(1.0 - aux["parity_ratio_megakernel_vs_xla"]) < 0.01:
+        fail(f"bench parity {aux['parity_ratio_megakernel_vs_xla']}")
+    counts = [c.get("record_kernel", 0) for c in aux["fwdbwd_launches"]]
+    if counts != [9, 9]:
+        fail(f"bench headline calls launched record_kernel {counts} times, "
+             "expected 9 sample slices each")
+    if aux["forward_path"] != "megakernel":
+        fail(f"bench forward took {aux['forward_path']}")
+    return line
+
+
+def phase_entry():
+    """entry()'s fn on the card (its gathers through gather_kernel), then
+    dryrun_multichip(2) with both ranks on the card (gloo, sharing it)."""
+    fn, args = entry.entry()
+    torch.cuda.synchronize()
+    reset_launches()
+    out, ms = once_ms(lambda: fn(*args))
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    ranks = entry.dryrun_multichip(2)
+    dry_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(out).all())
+    say("entry", shape=tuple(out.shape), finite=finite, ms=ms,
+        launches=launches, device=str(out.device),
+        dryrun_layout=entry.rank_layout(2), dryrun_seconds=dry_s,
+        dryrun=ranks)
+    if tuple(out.shape) != (1024, 3) or not finite or out.device.type != \
+            "cuda":
+        fail(f"entry fn gave {tuple(out.shape)} finite={finite} on "
+             f"{out.device}")
+    if not launches.get("gather_kernel"):
+        fail("entry fn did not launch gather_kernel")
+    if len(ranks) != 2 or not all(r["device"].startswith("cuda")
+                                  for r in ranks):
+        fail(f"dryrun_multichip(2) ranks: {ranks}")
+
+
+def phase_workloads():
+    """run_workloads.run(): the nine reference workloads at their own frames
+    and cut spp through render(); every row finite, named by its path, and
+    that path's kernel launched; cornell_box's gamma mean in 0.24-0.27 at
+    512 spp or more."""
+    with tempfile.TemporaryDirectory() as tmp:
+        table = run_workloads.run(scale_spp=WORKLOAD_SCALE,
+                                  scene8_spp=WORKLOAD_SCENE8_SPP,
+                                  out_dir=OUT_DIR or tmp)
+    rows = table["rows"]
+    for row in rows:
+        say("workloads", **row)
+    if [r["scene"] for r in rows] != list(range(9)):
+        fail(f"workloads: rows {[r['scene'] for r in rows]}")
+    for r in rows:
+        if not (r["rays"] > 0 and r["finite"]
+                and r["launches"].get(PATH_KERNEL.get(r["path"], ""))):
+            fail(f"workloads row {r['name']}: rays {r['rays']}, finite "
+                 f"{r['finite']}, path {r['path']}, launches "
+                 f"{r['launches']}")
+        spp = int(r["workload"].split("@")[1].split("spp")[0])
+        if r["name"] == "cornell_box" and spp >= 512 and \
+                not 0.24 <= r["gamma_mean"] <= 0.27:
+            fail(f"workloads: cornell gamma mean {r['gamma_mean']}")
+    return rows
+
+
+def phase_final_scene_full():
+    """final_scene_full.run() at final_scene's 800x800, depth 40, two
+    slices of FSF_SLICE_SPP: stopped after the first slice and resumed, the
+    image (float64 running mean) and the PNG equal an uninterrupted run's
+    bit for bit."""
+    kw = dict(spp=2 * FSF_SLICE_SPP, slice_spp=FSF_SLICE_SPP, max_depth=40)
+    with tempfile.TemporaryDirectory() as tmp:
+        cut, whole = os.path.join(tmp, "cut"), os.path.join(tmp, "whole")
+        reset_launches()
+        first = final_scene_full.run(out_dir=cut, stop_after=1, **kw)
+        resumed = final_scene_full.run(out_dir=cut, **kw)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        straight = final_scene_full.run(out_dir=whole, **kw)
+        png = [open(os.path.join(d, final_scene_full.PNG_NAME), "rb").read()
+               for d in (cut, whole)]
+    same = bool(np.array_equal(resumed["accum"], straight["accum"]))
+    say("final_scene_full", workload=resumed["workload"],
+        slice_spp=FSF_SLICE_SPP, path=resumed["path"],
+        first_slices=first["slices_done"], resumed_complete=resumed[
+            "complete"], bitwise_equal=same, png_equal=png[0] == png[1],
+        rays=resumed["rays"], rays_uninterrupted=straight["rays"],
+        seconds=resumed["seconds"], seconds_uninterrupted=straight[
+            "seconds"], launches=launches,
+        gamma_mean=run_workloads.gamma_mean(resumed["accum"]))
+    if first["slices_done"] != 1 or first["complete"] or not \
+            resumed["complete"]:
+        fail("final_scene_full did not stop after one slice and resume")
+    if not (same and png[0] == png[1]
+            and resumed["rays"] == straight["rays"]):
+        fail("final_scene_full: the resumed image differs from an "
+             "uninterrupted run")
+    if not launches.get(PATH_KERNEL.get(resumed["path"], "")):
+        fail(f"final_scene_full: path {resumed['path']}, launches "
+             f"{launches}")
+
+
 def b1_compares():
     """The render kernel against its plain version, four scene families at
     a small frame (one, a few and many samples a pixel: every group width
@@ -3158,6 +3339,12 @@ def main():
     phase_live()
     probe_entries = phase_probes()
     phase_torch_func()
+
+    # ---- the tools: the bench, the entry point, the workload tools
+    phase_bench(grad)
+    phase_entry()
+    phase_workloads()
+    phase_final_scene_full()
 
     say("total", seconds=time.perf_counter() - t_start,
         grad_final_s=grad_final["seconds"])

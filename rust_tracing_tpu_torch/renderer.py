@@ -130,6 +130,20 @@ def use_deferred_default(scene) -> bool:
     return scene.has_image or scene.has_noise
 
 
+def auto_path(scene, dtype=torch.float32, hit_fn=None) -> str:
+    """The path ``render`` takes under its auto policy
+    (``use_megakernel=None``), by the name its metrics event gives it:
+    ``"wavefront_sorted"``, ``"deferred"``, ``"megakernel"`` (the fused
+    render) or ``"tensor_wavefront"``."""
+    if not use_megakernel_default(scene, dtype, hit_fn):
+        return "tensor_wavefront"
+    if use_wavefront_default(scene):
+        return "wavefront_sorted"
+    if use_deferred_default(scene):
+        return "deferred"
+    return "megakernel"
+
+
 def render_deferred(scene, camera: Camera, seed: int = 0,
                     spp: Optional[int] = None,
                     max_depth: Optional[int] = None, sample_offset: int = 0
@@ -202,17 +216,18 @@ def render(scene, camera: Camera, seed: int = 0, spp: Optional[int] = None,
     max_depth = max_depth or camera.max_depth
 
     if use_megakernel is None:
-        use_megakernel = use_megakernel_default(scene, dtype, hit_fn)
-        if use_megakernel and use_wavefront_default(scene):
+        path = auto_path(scene, dtype, hit_fn)
+        if path == "wavefront_sorted":
             # big scenes: per-bounce coherence sort, hit kernel (B3 walking
             # the BVH, B4), shading by the replay
             return wavefront.render_sorted(scene, camera, seed=seed, spp=spp,
                                            max_depth=max_depth,
                                            sample_offset=sample_offset)
-        if use_megakernel and use_deferred_default(scene):
+        if path == "deferred":
             return render_deferred(scene, camera, seed=seed, spp=spp,
                                    max_depth=max_depth,
                                    sample_offset=sample_offset)
+        use_megakernel = path == "megakernel"
     if not use_megakernel:
         return _render_tensor(scene, camera, seed, spp, max_depth, hit_fn,
                               dtype, progress, sample_offset, pixel_chunk)
